@@ -1,0 +1,105 @@
+"""Launch wrapper of the Hopper adder-graph kernel (``csrc/adder_graph.cu``).
+
+It replaces the TPU kernel ``repro/kernels/adder_graph/kernel.py``
+(``_adder_graph_kernel``, launched by ``adder_graph_pallas``).  The
+wrapper checks what the kernel takes, allocates the output and the
+value scratch with ``torch.empty``, launches on the current stream,
+raises on a launch error, and counts its launches in ``launches``.
+Nothing is built on import: the library is built and loaded on the
+first launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from .._build import library
+
+MAX_TILE = 32  # samples per block: one warp reads 32 neighbouring samples of a row
+
+
+class LaunchCounter:
+    """A thread-safe count of kernel launches."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._n = 0
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    @property
+    def value(self) -> int:
+        return self._n
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+
+launches = LaunchCounter()
+
+_c_int = ctypes.c_int
+_c_ptr = ctypes.c_void_p
+
+
+def _lib() -> ctypes.CDLL:
+    lib = library("adder_graph")
+    if lib.da4ml_adder_graph.argtypes is None:
+        lib.da4ml_adder_graph.argtypes = [
+            _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # x, instr, outs, level_starts
+            _c_int, _c_int, _c_int, _c_int, _c_int,  # n_levels, n_in, n_out, batch, tile
+            _c_ptr, _c_ptr, _c_ptr,  # scratch, y, stream
+        ]
+        lib.da4ml_adder_graph.restype = _c_int
+        lib.da4ml_cuda_error_string.argtypes = [_c_int]
+        lib.da4ml_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def tile_for(batch: int) -> int:
+    """Samples per block: the batch rounded up to a power of two, at most
+    ``MAX_TILE``."""
+    return min(MAX_TILE, 1 << max(batch - 1, 0).bit_length())
+
+
+def adder_graph_cuda(tables, x: torch.Tensor) -> torch.Tensor:
+    """Run the adder graph on the card.
+
+    tables: AdderGraphTables; x: contiguous int32 CUDA tensor
+    [batch, n_inputs].  Returns int32 [batch, n_outputs] on x's device.
+    """
+    if x.device.type != "cuda":
+        raise ValueError(f"adder_graph_cuda takes a CUDA tensor, got one on {x.device}")
+    if x.dtype != torch.int32:
+        raise TypeError(f"adder_graph_cuda takes int32, got {x.dtype}")
+    if x.dim() != 2 or x.shape[1] != tables.n_inputs:
+        raise ValueError(
+            f"adder_graph_cuda takes [batch, {tables.n_inputs}], got {tuple(x.shape)}"
+        )
+    if not x.is_contiguous():
+        raise ValueError("adder_graph_cuda takes a contiguous tensor")
+    batch = x.shape[0]
+    y = torch.empty((batch, tables.n_outputs), dtype=torch.int32, device=x.device)
+    if batch == 0 or tables.n_outputs == 0:
+        return y
+    dev = tables.device_arrays(x.device)
+    scratch = torch.empty((tables.n_rows, batch), dtype=torch.int32, device=x.device)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        err = lib.da4ml_adder_graph(
+            x.data_ptr(), dev.instr.data_ptr(), dev.outs.data_ptr(),
+            dev.level_starts.data_ptr(),
+            len(tables.level_bounds), tables.n_inputs, tables.n_outputs,
+            batch, tile_for(batch),
+            scratch.data_ptr(), y.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        msg = lib.da4ml_cuda_error_string(err).decode()
+        raise RuntimeError(f"adder-graph kernel launch failed: {msg} (cudaError {err})")
+    launches.add()
+    return y

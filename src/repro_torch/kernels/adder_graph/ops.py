@@ -1,0 +1,171 @@
+"""DAIS -> levelized instruction tables, and the CMVM entry point that
+routes a tensor to the Hopper kernel (``kernel.py``) or, on the CPU, to
+the plain PyTorch version (``ref.py``)."""
+
+from __future__ import annotations
+
+import hashlib
+from dataclasses import dataclass, field
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ...core.dais import KIND_ADD, KIND_INPUT, KIND_NEG, DAISProgram
+from .kernel import adder_graph_cuda
+from .ref import adder_graph_ref
+
+
+class DeviceTables(NamedTuple):
+    """The tables as int32 tensors on one device."""
+
+    instr: torch.Tensor  # [n_ops, 5]
+    outs: torch.Tensor  # [n_out, 4]
+    level_starts: torch.Tensor  # [n_levels + 1]: level k is instr[starts[k]:starts[k+1]]
+
+
+@dataclass(frozen=True)
+class AdderGraphTables:
+    """Levelized instruction tables.
+
+    instr : int32 [n_ops, 5] -- (a_idx, b_idx, sh_a, sh_b, sign), rows
+            ordered level-contiguously; ops of level k only reference
+            rows produced before level k (inputs are rows [0, n_inputs),
+            op i writes row n_inputs + i).
+    level_bounds : (lo, hi) op ranges per level, as Python ints.
+    outs  : int32 [n_out, 4] -- (row, shift, sign, mask); a negative
+            shift is an arithmetic right shift, mask zeroes the constant-0
+            outputs.
+    digest : sha256 over every field that determines execution; the same
+            program gives the same digest here and in the JAX package.
+            Hash and equality key on it.  The arrays are frozen read-only
+            to keep it truthful.
+
+    :meth:`device_arrays` keeps one copy of the tables per device, made
+    on first use, so a call never copies them again.
+    """
+
+    n_inputs: int
+    n_rows: int
+    level_bounds: tuple[tuple[int, int], ...]
+    instr: np.ndarray = field(repr=False)
+    outs: np.ndarray = field(repr=False)
+    digest: str = ""
+
+    def __post_init__(self):
+        if not self.digest:
+            object.__setattr__(self, "digest", self._content_digest())
+        for arr in (self.instr, self.outs):
+            arr.setflags(write=False)
+        object.__setattr__(self, "_on_device", {})
+
+    def _content_digest(self) -> str:
+        h = hashlib.sha256(b"adder-graph-tables-v1")
+        h.update(np.array([self.n_inputs, self.n_rows], np.int64).tobytes())
+        h.update(repr(self.level_bounds).encode())
+        h.update(np.ascontiguousarray(self.instr).tobytes())
+        h.update(np.ascontiguousarray(self.outs).tobytes())
+        return h.hexdigest()
+
+    def __hash__(self):
+        return hash(self.digest)
+
+    def __eq__(self, other):
+        return isinstance(other, AdderGraphTables) and self.digest == other.digest
+
+    @property
+    def n_ops(self) -> int:
+        return int(self.instr.shape[0])
+
+    @property
+    def n_outputs(self) -> int:
+        return int(self.outs.shape[0])
+
+    def device_arrays(self, device: torch.device) -> DeviceTables:
+        """The tables on ``device`` (copied there once, then reused)."""
+        cache = self._on_device  # type: ignore[attr-defined]
+        dev = cache.get(device)
+        if dev is None:
+            starts = [lo for lo, _ in self.level_bounds[:1]] + [hi for _, hi in self.level_bounds]
+            dev = DeviceTables(
+                torch.tensor(self.instr, dtype=torch.int32, device=device).reshape(-1, 5),
+                torch.tensor(self.outs, dtype=torch.int32, device=device).reshape(-1, 4),
+                torch.tensor(starts or [0], dtype=torch.int32, device=device),
+            )
+            dev = cache.setdefault(device, dev)
+        return dev
+
+
+def compile_tables(prog: DAISProgram) -> AdderGraphTables:
+    """Reorder a DAIS program level-contiguously and pack instruction
+    tables.  Negation rows are lowered onto the add/sub datapath as
+    ``u = (a << 0) - (a << 1) = -a``.  Raises ``ValueError`` on a
+    negative operand shift, which the kernel does not take."""
+    order = sorted(
+        range(len(prog.rows)),
+        key=lambda i: (prog.rows[i].kind != KIND_INPUT, prog.rows[i].depth, i),
+    )
+    remap = {old: new for new, old in enumerate(order)}
+    n_inputs = prog.n_inputs
+
+    by_depth: dict[int, list[int]] = {}
+    for i in order:
+        r = prog.rows[i]
+        if r.kind != KIND_INPUT:
+            by_depth.setdefault(r.depth, []).append(i)
+
+    instr_rows: list[tuple[int, int, int, int, int]] = []
+    bounds: list[tuple[int, int]] = []
+    for d in sorted(by_depth):
+        lo = len(instr_rows)
+        for i in by_depth[d]:
+            r = prog.rows[i]
+            if r.kind == KIND_ADD:
+                if r.sh_a < 0 or r.sh_b < 0:
+                    raise ValueError(f"row {i}: negative operand shift ({r.sh_a}, {r.sh_b})")
+                instr_rows.append((remap[r.a], remap[r.b], r.sh_a, r.sh_b, r.sign))
+            elif r.kind == KIND_NEG:
+                instr_rows.append((remap[r.a], remap[r.a], 0, 1, -1))
+            else:
+                raise ValueError(f"row {i}: unknown row kind {r.kind}")
+        bounds.append((lo, len(instr_rows)))
+
+    instr = np.array(instr_rows, dtype=np.int32).reshape(-1, 5)
+    # level contiguity: every operand is a row written before its level
+    start = n_inputs
+    for lo, hi in bounds:
+        if hi > lo and instr[lo:hi, :2].max() >= start:
+            raise ValueError("program is not levelized: an operand is produced in its own level")
+        start += hi - lo
+
+    outs = []
+    for t in prog.outputs:
+        if t is None:
+            outs.append((0, 0, 1, 0))
+        else:
+            outs.append((remap[t.row], t.shift, t.sign, 1))
+    return AdderGraphTables(
+        n_inputs=n_inputs,
+        n_rows=len(prog.rows),
+        level_bounds=tuple(bounds),
+        instr=instr,
+        outs=np.array(outs, dtype=np.int32).reshape(-1, 4),
+    )
+
+
+def adder_graph_apply(tables: AdderGraphTables, x: torch.Tensor) -> torch.Tensor:
+    """Evaluate ``y = x @ M`` through the adder graph.
+
+    x: int tensor [..., n_inputs] on the integer grid.  Returns int32
+    [..., n_outputs] on x's device.  A CUDA tensor always goes to the
+    Hopper kernel; a CPU tensor to the plain PyTorch version.
+    """
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.int32).contiguous()
+    if x2.device.type == "cuda":
+        y = adder_graph_cuda(tables, x2)
+    elif x2.device.type == "cpu":
+        y = adder_graph_ref(tables, x2)
+    else:
+        raise ValueError(f"adder_graph_apply: unsupported device {x2.device}")
+    return y.reshape(*lead, y.shape[-1])

@@ -21,3 +21,11 @@ try:
     collect_ignore: list[str] = []
 except ImportError:
     collect_ignore = list(_HYPOTHESIS_MODULES)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card; skips without one (run on the card with "
+        "`python -m pytest -m cuda tests/test_torch_*.py`)",
+    )
