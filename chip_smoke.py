@@ -4,7 +4,7 @@
     python3 chip_smoke.py            (from the repository root)
 
 Builds every CUDA kernel of the port from the sources in the checkout,
-then runs five phases, each of which must pass:
+then runs eight phases, each of which must pass:
 
 1. probe    the card (``nvidia-smi`` name and power limit), CUDA and nvcc
             versions, ptxas resource usage of each kernel, and that
@@ -28,7 +28,34 @@ then runs five phases, each of which must pass:
             version and the library yardstick (one float64
             ``torch.matmul`` by the table's dense matrix, which the port
             never calls) on those inputs, then the three timed with CUDA
-            events, beside the table's bound.
+            events, beside the table's bound;
+6. flash    the flash-attention kernel against its plain PyTorch version
+            on the card: f32 and bf16, causal and full, MHA, GQA 4:1,
+            MQA and smollm's 9:3, head_dim 16/32/64/128, ragged Sq and
+            Sk, and decode (Sq=1) against a 512-slot cache at offsets 0,
+            1, 127, 128 and 511 read from the card; max abs error per
+            dtype against atol 2e-5 (f32) and 2e-2 (bf16);
+7. lm       the reduced smollm-135m from the committed JAX weights
+            (``assets/smollm_smoke``) served on the card reproduces the
+            JAX engine's greedy tokens exactly and its prefill and first
+            decode logits within 1e-4 (f32), with n_layers x (1 + decode
+            steps) kernel launches;
+8. serve    the LM main path at full width: smollm-135m (30 layers,
+            d_model 576, 9:3 heads, vocab 49152, bf16) with the port's own
+            random weights (seed 0; the repository ships no checkpoint)
+            in ``Engine(batch_size=8, max_seq=512)`` serves 8 requests of
+            128-token prompts and 64 new tokens.  Launch counts are zeroed
+            just before and read just after (30 x 64 flash launches); the
+            plain path, teacher-forced on the kernel path's tokens, agrees
+            on the logits within 0.25 and on every argmax whose top-two gap
+            is at least that; prefill and decode times, tokens/s and the
+            profiler's device time of one decode step, which must not
+            sync the host (``set_sync_debug_mode("error")``); then the kernel at
+            the main path's prefill and decode inputs, held against its
+            plain version and ``scaled_dot_product_attention`` (the
+            library yardstick, which the port never calls), then the three
+            timed as device time per call (CUDA-graph replays between CUDA
+            events) beside the kernel's bound.
 
 The line before the last is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without
@@ -48,6 +75,15 @@ ROOT = Path(__file__).resolve().parent
 ASSETS = ROOT / "src" / "repro_torch" / "assets"
 BATCHES = (1, 7, 256, 1000, 4097)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
+F32_FLOPS_PER_S = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
+FA_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+LM_F32_ATOL = 1e-4  # phase 7: float32 logits, the same arithmetic as JAX in another order
+# phase 8: bf16 logits of the kernel path against the plain path.  The two
+# round attention outputs to bf16 at different places (the kernel keeps p in
+# f32), and 30 layers carry those differences to logits whose bf16 spacing
+# is 1/32 at |x| in [4, 8): 0.25 is 8 such steps.
+LM_BF16_ATOL = 0.25
 INT32_LANES_PER_SM = 64  # Hopper SM: 64 INT32 lanes per clock (architecture white paper)
 
 
@@ -215,6 +251,24 @@ def kernel_cases(torch, np, dev, mixer):
     return max_err, n_cases
 
 
+def launch_counters() -> dict:
+    """Every kernel's launch counter, by kernel name.  Each main path is
+    driven with all of them zeroed just before and read just after."""
+    from repro_torch.kernels.adder_graph import kernel as ag_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    return {"adder_graph": ag_kernel.launches, "flash_attention": fa_kernel.launches}
+
+
+def reset_counts() -> None:
+    for counter in launch_counters().values():
+        counter.reset()
+
+
+def read_counts() -> dict:
+    return {name: counter.value for name, counter in launch_counters().items()}
+
+
 # ----------------------------------------------------------------------
 # 5. times
 # ----------------------------------------------------------------------
@@ -230,6 +284,33 @@ def time_ms(torch, fn, iters: int = 50) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, calls: int = 20, replays: int = 20) -> float:
+    """Device time per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events.  Unlike
+    back-to-back eager calls, this leaves out the host's launch time, which
+    is longer than a short kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
 
 
 def capture_cmvm_inputs(torch, design, x):
@@ -333,6 +414,379 @@ def forward_breakdown(torch, design, x) -> dict:
 
 
 # ----------------------------------------------------------------------
+# 6. flash kernel vs plain version
+# ----------------------------------------------------------------------
+FLASH_SHAPES = [  # (B, Hq, Hkv, Sq, Sk, D)
+    (2, 4, 4, 128, 128, 64),  # MHA
+    (1, 8, 2, 128, 128, 32),  # GQA 4:1
+    (2, 4, 1, 64, 256, 32),  # MQA, Sq < Sk
+    (8, 9, 3, 128, 128, 64),  # smollm-135m's prefill
+    (1, 2, 2, 256, 256, 128),  # head_dim 128
+    (1, 4, 2, 37, 53, 16),  # head_dim 16, ragged
+    (2, 9, 3, 77, 77, 64),  # ragged square
+    (1, 4, 4, 100, 300, 32),  # ragged, Sq < Sk
+]
+DECODE_OFFSETS = (0, 1, 127, 128, 511)
+DECODE_MAX_SEQ = 512
+
+
+def flash_cases(torch, dev) -> dict:
+    """Max |kernel - plain| per dtype over the phase's cases."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(dev).manual_seed(0)
+
+    def rand(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    errs = {}
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        worst = 0.0
+        cases = []
+        for b, hq, hkv, sq, sk, d in FLASH_SHAPES:
+            for causal in (True, False):
+                cases.append((f"{(b, hq, hkv, sq, sk, d)} causal={causal}",
+                              rand(b, hq, sq, d, dtype=dtype), rand(b, hkv, sk, d, dtype=dtype),
+                              rand(b, hkv, sk, d, dtype=dtype), causal, None))
+        for causal in (True, False):  # views off a 16-byte boundary: element-wise loads
+            q, k, v = (rand(2, h, s, 65, dtype=dtype)[..., 1:] for h, s in
+                       ((9, 40), (3, 70), (3, 70)))
+            cases.append((f"unaligned (2, 9, 3, 40, 70, 64) causal={causal}", q, k, v, causal,
+                          None))
+        for pos in DECODE_OFFSETS:
+            k = rand(8, 3, DECODE_MAX_SEQ, 64, dtype=dtype)
+            v = rand(8, 3, DECODE_MAX_SEQ, 64, dtype=dtype)
+            k[:, :, pos + 1:] = 1e4  # unwritten slots: the mask must hide them
+            v[:, :, pos + 1:] = -1e4
+            cases.append((f"decode offset {pos}", rand(8, 9, 1, 64, dtype=dtype), k, v, True,
+                          torch.tensor(pos, dtype=torch.int32, device=dev)))
+        for name, q, k, v, causal, off in cases:
+            got = flash_attention_cuda(q, k, v, causal=causal, offset=off)
+            torch.cuda.synchronize()
+            if off is None:
+                want = attention_ref(q, k, v, causal=causal)
+            else:  # the plain version over the live prefix only: no garbage in its sums
+                live = int(off) + 1
+                want = attention_ref(q, k[:, :, :live], v[:, :, :live], causal=causal)
+            err = float((got.float() - want.float()).abs().max())
+            check(err <= FA_ATOL[dname], f"flash {dname} {name}: max |kernel - plain| {err}")
+            worst = max(worst, err)
+        errs[dname] = worst
+        log(f"  {dname}: {len(cases)} cases, max |kernel - plain| = {worst:.3g} "
+            f"(atol {FA_ATOL[dname]})")
+    return errs
+
+
+# ----------------------------------------------------------------------
+# 7. reduced LM against the committed JAX golden outputs
+# ----------------------------------------------------------------------
+def lm_golden(torch, np, dev) -> None:
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models import decode_step, params_from_numpy, prefill, unflatten
+    from repro_torch.serve import Engine, Request
+
+    asset = ASSETS / "smollm_smoke"
+    manifest = json.loads((asset / "manifest.json").read_text())
+    cfg = configs.get_smoke(manifest["arch"], **manifest["smoke_kwargs"])
+    with np.load(asset / "weights.npz") as w:
+        params = params_from_numpy(cfg, unflatten(dict(w)), device=dev)
+    with np.load(asset / "golden.npz") as g:
+        golden = dict(g)
+    reqs = [Request(p, int(n)) for p, n in zip(golden["prompts"], golden["max_new_tokens"])]
+    eng = Engine(cfg, params, manifest["batch_size"], manifest["max_seq"],
+                 eos_id=manifest["eos_id"], device=dev)
+    before = fa_kernel.launches.value
+    eng.generate(reqs)
+    launched = fa_kernel.launches.value - before
+    want_launches = cfg.n_layers * (1 + manifest["decode_steps"])
+    check(launched == want_launches, f"lm golden: {launched} flash launches, want {want_launches}")
+    for i, (r, want) in enumerate(zip(reqs, golden["tokens"])):
+        want = [int(t) for t in want if t >= 0]
+        check(r.out_tokens == want, f"lm golden: request {i} tokens {r.out_tokens} != JAX {want}")
+    tokens = torch.from_numpy(np.stack([r.prompt for r in reqs])).to(dev)
+    logits, cache = prefill(cfg, params, {"tokens": tokens}, manifest["max_seq"])
+    err0 = float(np.abs(logits.cpu().numpy() - golden["prefill_logits"]).max())
+    logits, _ = decode_step(cfg, params, logits.argmax(-1)[:, None], cache)
+    err1 = float(np.abs(logits.cpu().numpy() - golden["decode_logits"]).max())
+    check(max(err0, err1) <= LM_F32_ATOL,
+          f"lm golden: logits differ from JAX by {err0:.3g} (prefill), {err1:.3g} (decode)")
+    log(f"{cfg.name} ({cfg.param_count()} params, f32): {len(reqs)} requests' greedy tokens equal "
+        f"the JAX engine's; {launched} flash launches = {cfg.n_layers} layers x "
+        f"(1 + {manifest['decode_steps']}); max |logits - JAX| prefill {err0:.3g}, "
+        f"decode {err1:.3g} (atol {LM_F32_ATOL})")
+
+
+# ----------------------------------------------------------------------
+# 8. the LM main path at full width
+# ----------------------------------------------------------------------
+PROMPT_LEN, NEW_TOKENS, SERVE_BATCH, SERVE_MAX_SEQ = 128, 64, 8, 512
+DECODE_TIMING_OFFSET = 160  # about the mean cache position of the 63 decode steps
+
+
+def attention_inputs(torch, eng, prompts, new_tokens):
+    """Serve ``prompts`` once through a fresh engine and keep the layer-0
+    inputs of the flash kernel at prefill and at the decode step whose
+    cache position is ``DECODE_TIMING_OFFSET``: the main path's shapes and
+    values.  (Calls are counted, not inspected, so nothing syncs.)"""
+    from repro_torch.models import attention as attn_mod
+
+    layers = eng.cfg.n_layers
+    wanted = {0: "prefill", layers * (DECODE_TIMING_OFFSET - PROMPT_LEN + 1): "decode"}
+    seen, n_calls = {}, [0]
+    orig = attn_mod.flash_attention
+
+    def record(q, k, v, causal=True, scale=None, offset=None):
+        name = wanted.get(n_calls[0])
+        if name is not None:
+            off = offset.clone() if isinstance(offset, torch.Tensor) else offset
+            seen[name] = (q.clone(), k.clone(), v.clone(), causal, off)
+        n_calls[0] += 1
+        return orig(q, k, v, causal=causal, scale=scale, offset=offset)
+
+    attn_mod.flash_attention = record
+    try:
+        eng.generate(requests_for(prompts, new_tokens))
+    finally:
+        attn_mod.flash_attention = orig
+    return seen
+
+
+def requests_for(prompts, new_tokens):
+    from repro_torch.serve import Request
+
+    return [Request(p, new_tokens) for p in prompts]
+
+
+def serve_lm(torch, np, dev) -> dict:
+    """Drive the main path once, counted; then check it against the plain
+    path and time it.  Returns what the kernels line and PERF.md need."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serve import Engine
+
+    cfg = configs.get("smollm-135m")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    log(f"{cfg.name}: {cfg.param_count()} params in {cfg.dtype}, random (seed 0, the port's "
+        f"init_params; no checkpoint ships), made in {time.perf_counter() - t0:.2f} s")
+    prompts = np.random.default_rng(0).integers(
+        2, cfg.vocab_size, size=(SERVE_BATCH, PROMPT_LEN)).astype(np.int32)
+
+    def engine():  # no EOS id: every request runs its 64 tokens
+        return Engine(cfg, params, batch_size=SERVE_BATCH, max_seq=SERVE_MAX_SEQ, eos_id=-1)
+
+    # warm-up (CUDA context, cuBLAS handles), which also keeps the kernel's
+    # main-path inputs for the timing below
+    inputs = attention_inputs(torch, engine(), prompts, DECODE_TIMING_OFFSET - PROMPT_LEN + 2)
+
+    eng = engine()
+    picks, stamps = [], []
+    pick = eng._pick
+
+    def recording_pick(logits):
+        tok = pick(logits)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        picks.append((logits.clone(), tok.clone()))
+        return tok
+
+    eng._pick = recording_pick
+    reqs = requests_for(prompts, NEW_TOKENS)
+    torch.cuda.synchronize()
+    reset_counts()
+    t_start = time.perf_counter()
+    eng.generate(reqs)
+    t_end = time.perf_counter()
+    counts = read_counts()
+    launches = counts["flash_attention"]
+    check(counts["adder_graph"] == 0, f"the LM's serve launched {counts}")
+
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    check(launches == cfg.n_layers * NEW_TOKENS,
+          f"serve: {launches} flash launches, want {cfg.n_layers} x {NEW_TOKENS}")
+    check(all(len(r.out_tokens) == NEW_TOKENS for r in reqs), "serve: a request fell short")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens),
+          "serve: a token outside the vocabulary")
+    prefill_ms = (stamps[0] - t_start) * 1e3
+    decode_ms = (stamps[-1] - stamps[0]) * 1e3 / (len(stamps) - 1)
+    log(f"serve: {len(reqs)} requests x {NEW_TOKENS} tokens, {launches} flash launches "
+        f"= {cfg.n_layers} x {NEW_TOKENS}; prefill {prefill_ms:.3f} ms, decode "
+        f"{decode_ms:.3f} ms per step, {n_tok / (t_end - t_start):.1f} generated tokens/s "
+        f"({t_end - t_start:.3f} s for {n_tok} tokens)")
+
+    # the plain path, teacher-forced on the kernel path's tokens
+    kernel_op = attn_mod.flash_attention
+    attn_mod.flash_attention = attention_ref
+    try:
+        with torch.inference_mode():
+            tokens = torch.from_numpy(prompts).to(dev)
+            plain, cache = prefill(cfg, params, {"tokens": tokens}, SERVE_MAX_SEQ)
+            worst, n_flip, n_close = 0.0, 0, 0
+            for step, (k_logits, k_tok) in enumerate(picks):
+                if step:
+                    plain, cache = decode_step(cfg, params, picks[step - 1][1][:, None], cache)
+                diff = (plain.float() - k_logits.float()).abs().amax()
+                worst = max(worst, float(diff))
+                top2 = plain.float().topk(2, dim=-1).values
+                close = (top2[:, 0] - top2[:, 1]) < LM_BF16_ATOL
+                flip = plain.argmax(-1) != k_tok
+                check(not bool((flip & ~close).any()),
+                      f"serve: step {step}: an argmax differs where the plain top-two gap "
+                      f">= {LM_BF16_ATOL}")
+                n_flip += int(flip.sum())
+                n_close += int(close.sum())
+    finally:
+        attn_mod.flash_attention = kernel_op
+    check(worst <= LM_BF16_ATOL, f"serve: kernel vs plain logits differ by {worst}")
+    log(f"serve: plain path teacher-forced on the kernel path's tokens: max |logits diff| "
+        f"{worst:.4g} (atol {LM_BF16_ATOL}); {n_flip} of {len(picks) * SERVE_BATCH} argmaxes "
+        f"differ, all where the top-two gap < {LM_BF16_ATOL} ({n_close} such picks)")
+
+    step = decode_breakdown(torch, cfg, params, prompts, dev)
+    return {"launches": launches, "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "tokens_per_s": n_tok / (t_end - t_start), "inputs": inputs,
+            "logits_max_diff": worst, **step}
+
+
+def decode_breakdown(torch, cfg, params, prompts, dev) -> dict:
+    """One decode step at cache position ~PROMPT_LEN: its time (host clock
+    over 20 back-to-back steps, ending in a sync) and, from the profiler,
+    the device time of the flash kernel and of all kernels in one step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import decode_step, prefill
+
+    with torch.inference_mode():
+        tokens = torch.from_numpy(prompts).to(dev)
+        logits, cache = prefill(cfg, params, {"tokens": tokens}, SERVE_MAX_SEQ)
+        tok = logits.argmax(-1)[:, None]
+        for _ in range(3):
+            logits, cache = decode_step(cfg, params, tok, cache)
+        torch.cuda.synchronize()
+        n = 20
+        t0 = time.perf_counter()
+        for _ in range(n):
+            logits, cache = decode_step(cfg, params, tok, cache)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / n
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            logits, cache = decode_step(cfg, params, tok, cache)
+            torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # a step that waits for the card raises
+        try:
+            logits, cache = decode_step(cfg, params, tok, cache)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(ev, "self_device_time_total", 0.0) or 0.0
+        if us > 0:
+            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + us
+    host = sorted(((ev.self_cpu_time_total, ev.count, ev.key) for ev in prof.key_averages()
+                   if not str(getattr(ev, "device_type", "")).endswith("CUDA")), reverse=True)
+    all_us = sum(by_kernel.values())
+    flash_us = sum(us for k, us in by_kernel.items() if "flash_kernel" in k)
+    ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1])
+    rank = next((i + 1 for i, (k, _) in enumerate(ranked) if "flash_kernel" in k), None)
+    log(f"decode step (back to back, position ~{PROMPT_LEN + 3}; no host sync inside): "
+        f"{step_ms:.3f} ms; device time: "
+        f"all kernels {all_us / 1e3:.4f} ms, flash kernel {flash_us / 1e3:.4f} ms "
+        f"(rank {rank} of {len(ranked)} kernels); idle "
+        f"{(1 - all_us / 1e3 / step_ms) * 100 if all_us else float('nan'):.1f}%")
+    for k, us in ranked[:8]:
+        log(f"  {us / 1e3:.4f} ms  {k[:110]}")
+    log(f"host ops of the step: {sum(h[1] for h in host)} calls, "
+        f"{sum(h[0] for h in host) / 1e3:.3f} ms of self CPU time under the profiler; the largest:")
+    for us, n, k in host[:8]:
+        log(f"  {us / 1e3:.4f} ms  {n:5d} x {k[:90]}")
+    return {
+        "step_ms": step_ms,
+        "profiler_all_kernels_ms": all_us / 1e3 if all_us else None,
+        "profiler_flash_ms": flash_us / 1e3 if flash_us else None,
+        "flash_rank": rank,
+        "idle_share": 1 - all_us / 1e3 / step_ms if all_us else None,
+    }
+
+
+def sdpa(torch, q, k, v, causal, offset):
+    """``torch.nn.functional.scaled_dot_product_attention`` on the same
+    inputs: GQA by ``enable_gqa`` where this PyTorch has it, else K/V
+    repeated to Hq heads first (outside the timed call); an explicit mask
+    for a decode offset.  Returns a callable."""
+    import torch.nn.functional as F
+
+    sq, sk, g = q.shape[2], k.shape[2], q.shape[1] // k.shape[1]
+    mask = None
+    if causal and offset is not None:
+        pos = torch.arange(sq, device=q.device)[:, None] + int(offset)
+        mask = torch.arange(sk, device=q.device)[None, :] <= pos
+    is_causal = causal and mask is None
+    try:
+        F.scaled_dot_product_attention(q[:1, :g, :1], k[:1, :1, :1], v[:1, :1, :1],
+                                       enable_gqa=True)
+        kw = {"enable_gqa": True}
+    except TypeError:
+        k, v, kw = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1), {}
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, is_causal=is_causal,
+                                                  **kw)
+
+
+def flash_times(torch, inputs) -> dict:
+    """The kernel at the main path's prefill and decode inputs: held
+    against its plain version and the library yardstick, then the three
+    timed with CUDA events, beside the bound."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    out = {}
+    for name, (q, k, v, causal, offset) in inputs.items():
+        b, hq, sq, d = q.shape
+        hkv, sk = k.shape[1], k.shape[2]
+        start = (sk - sq) if offset is None else int(offset)
+        # live (query, key) pairs and the live K/V prefix this call needs
+        pairs = sum(min(max(start + i + 1, 0), sk) for i in range(sq)) if causal else sq * sk
+        live = min(start + sq, sk) if causal else sk
+        esz = q.element_size()
+        nbytes = esz * (2 * b * hq * sq * d + 2 * b * hkv * live * d)
+        flops = 4 * d * b * hq * pairs
+        peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else F32_FLOPS_PER_S
+        bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        lib = sdpa(torch, q, k, v, causal, offset)
+        got = flash_attention_cuda(q, k, v, causal=causal, offset=offset)
+        plain = attention_ref(q, k, v, causal=causal, offset=offset)
+        err = float((got.float() - plain.float()).abs().max())
+        lib_err = float((got.float() - lib().float()).abs().max())
+        atol = FA_ATOL["bfloat16" if q.dtype == torch.bfloat16 else "float32"]
+        check(err <= atol, f"flash at the {name} inputs: max |kernel - plain| {err}")
+        check(lib_err <= atol, f"flash at the {name} inputs: max |kernel - library| {lib_err}")
+        kern = lambda: flash_attention_cuda(q, k, v, causal=causal, offset=offset)  # noqa: E731
+        row = {
+            "shape": f"q {list(q.shape)}, k/v {list(k.shape)}, {str(q.dtype)[6:]}, "
+                     f"causal={causal}, offset {start}",
+            "ms": graph_ms(torch, kern),
+            "plain_ms": graph_ms(torch, lambda: attention_ref(q, k, v, causal=causal,
+                                                                offset=offset)),
+            "library_ms": graph_ms(torch, lib),
+            "eager_ms": time_ms(torch, kern, iters=200),
+            "bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms, "flops_ms": flops_ms,
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "max_abs_err": err, "library_max_abs_err": lib_err,
+        }
+        out[name] = row
+        log(f"flash {name}: " + json.dumps(row))
+    return out
+
+
+# ----------------------------------------------------------------------
 def main() -> int:
     import numpy as np
     import torch
@@ -379,7 +833,7 @@ def main() -> int:
     x_gold, y_gold = golden["mixer_full"]
     reps = 4
     cfg = ServeConfig(max_batch=256, shards=2)
-    ag_kernel.launches.reset()
+    reset_counts()
     t0 = time.perf_counter()
     served = load_design(mixer_path)
     with ServeEngine(cfg) as eng:
@@ -389,7 +843,8 @@ def main() -> int:
         outs = [f.result(120) for f in futs]
         t_done = time.perf_counter()
         stats = eng.stats("mixer")
-        main_launches = ag_kernel.launches.value
+        counts = read_counts()
+        main_launches = counts["adder_graph"]
     got = np.stack(outs)
     check(np.array_equal(got, np.concatenate([y_gold] * reps)), "served outputs != JAX golden")
     check(stats["n_fallback_batches"] == 0, "fallback batches")
@@ -399,6 +854,7 @@ def main() -> int:
     want_launches = (stats["n_batches"] + len(stats["buckets"])) * n_steps
     check(main_launches == want_launches,
           f"{main_launches} launches on the main path, expected {want_launches}")
+    check(counts["flash_attention"] == 0, f"the Mixer's serve launched {counts}")
     rps = len(futs) / (t_done - t_reg)
     log(f"serve: {len(futs)} requests bit-exact; {rps:.0f} req/s, p50 {stats['p50_ms']:.3f} ms, "
         f"p99 {stats['p99_ms']:.3f} ms, {stats['n_batches']} batches, {main_launches} launches; "
@@ -437,6 +893,36 @@ def main() -> int:
         "library_ms": sum(r["library_ms"] for r in fwd),
         "shape": "one forward of the 64-particle Mixer at 256 samples: its 10 CMVM calls",
     }]}
+
+    log("== 6. flash-attention kernel vs plain version")
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    flash_errs = flash_cases(torch, dev)
+
+    log("== 7. reduced smollm-135m against the committed JAX golden outputs")
+    lm_golden(torch, np, dev)
+
+    log("== 8. serve smollm-135m at full width (main path)")
+    lm = serve_lm(torch, np, dev)
+    ft = flash_times(torch, lm["inputs"])
+    dec, pre = ft["decode"], ft["prefill"]
+    kernels["kernels"].append({
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
+        "launches": lm["launches"],
+        "max_abs_err": max(*flash_errs.values(), dec["max_abs_err"], pre["max_abs_err"]),
+        "ms": dec["ms"],
+        "plain_ms": dec["plain_ms"],
+        "bound_ms": dec["bound_ms"],
+        "bound_by": dec["bound_by"],
+        "library_ms": dec["library_ms"],
+        "shape": "one decode launch of the main path (layer 0): " + dec["shape"],
+        "prefill": {k: pre[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")},
+    })
+    log("serve summary: " + json.dumps({k: v for k, v in lm.items() if k != "inputs"}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(info["nvidia_smi"])
     print(json.dumps(kernels))

@@ -1,14 +1,18 @@
-"""PyTorch/CUDA port of the da4ml serving path.
+"""PyTorch/CUDA port of the da4ml serving path and of the LM serving
+path of the dense family.
 
 Same sub-packages as the JAX package ``repro`` (``core``, ``flow``,
-``kernels.adder_graph``, ``nn``, ``runtime``), so each module's
+``kernels.adder_graph``, ``nn``, ``runtime``; ``configs``,
+``kernels.flash_attention``, ``models``, ``serve``), so each module's
 counterpart is found by name.  The port imports ``torch`` and numpy and
 never ``jax`` or ``repro``: the JAX package is the reference it is held
-against in the tests, bit for bit.
+against in the tests, bit for bit where the reference is integer.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; with ``device=None`` and no card they raise.  On the
 card every CMVM goes through the hand-written adder-graph kernel
-(``kernels/adder_graph/csrc/adder_graph.cu``); a CPU tensor takes the
-plain PyTorch version of the same arithmetic.
+(``kernels/adder_graph/csrc/adder_graph.cu``) and every attention layer
+through the hand-written flash-attention kernel
+(``kernels/flash_attention/csrc/flash_attention.cu``); a CPU tensor takes
+the plain PyTorch version of the same arithmetic.
 """

@@ -81,6 +81,27 @@ def build_all() -> dict[str, Path]:
     return {name: out for name, (_, out) in targets.items()}
 
 
+class LaunchCounter:
+    """A thread-safe count of kernel launches: each wrapper adds one where
+    it launches its kernel, and nowhere else."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._n = 0
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    @property
+    def value(self) -> int:
+        return self._n
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     with _lock:

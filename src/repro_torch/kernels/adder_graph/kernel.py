@@ -12,34 +12,12 @@ first launch.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
-from .._build import library
+from .._build import LaunchCounter, library
 
 MAX_TILE = 32  # samples per block: one warp reads 32 neighbouring samples of a row
-
-
-class LaunchCounter:
-    """A thread-safe count of kernel launches."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self._n = 0
-
-    def add(self) -> None:
-        with self._lock:
-            self._n += 1
-
-    @property
-    def value(self) -> int:
-        return self._n
-
-    def reset(self) -> None:
-        with self._lock:
-            self._n = 0
-
 
 launches = LaunchCounter()
 

@@ -1,0 +1,21 @@
+from .transformer import (
+    decode_step,
+    forward,
+    init_cache,
+    init_params,
+    param_specs,
+    params_from_numpy,
+    prefill,
+    unflatten,
+)
+
+__all__ = [
+    "decode_step",
+    "forward",
+    "init_cache",
+    "init_params",
+    "param_specs",
+    "params_from_numpy",
+    "prefill",
+    "unflatten",
+]

@@ -14,7 +14,10 @@ import torch
 
 import repro_torch
 from repro_torch._device import resolve_device
+from repro_torch import configs
+from repro_torch.models import init_params
 from repro_torch.runtime import ServeEngine, design_from_arrays, load_design
+from repro_torch.serve import Engine
 
 ROOT = Path(__file__).resolve().parent.parent
 MIXER = ROOT / "src" / "repro_torch" / "assets" / "mixer_full"
@@ -38,6 +41,7 @@ def _run(code: str) -> dict:
 def test_importing_every_module_pulls_in_neither_jax_nor_repro():
     mods = _modules()
     assert "repro_torch.runtime.engine" in mods and "repro_torch.kernels._build" in mods
+    assert "repro_torch.serve.engine" in mods and "repro_torch.kernels.flash_attention.kernel" in mods
     res = _run(
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -61,8 +65,11 @@ def test_importing_the_kernel_wrapper_builds_nothing():
         "def refuse(*a, **k): raise AssertionError('a process was started on import')\n"
         "subprocess.Popen = refuse\n"
         "import repro_torch.kernels.adder_graph.kernel as k\n"
+        "import repro_torch.kernels.flash_attention.kernel as fa\n"
+        "import repro_torch.serve\n"
         "from repro_torch.kernels import _build\n"
-        "print(json.dumps({'loaded': sorted(_build._loaded), 'launches': k.launches.value}))\n"
+        "print(json.dumps({'loaded': sorted(_build._loaded),"
+        " 'launches': k.launches.value + fa.launches.value}))\n"
     )
     assert res == {"loaded": [], "launches": 0}
 
@@ -83,6 +90,13 @@ def test_no_card_means_raise_not_cpu(no_card):
         ServeEngine()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         design_from_arrays({}, {})
+    cfg = configs.get_smoke("smollm-135m")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg, torch.Generator().manual_seed(0))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(cfg, params, batch_size=1, max_seq=8)
+    assert Engine(cfg, params, 1, 8, device="cpu").device == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")
     assert load_design(MIXER, device="cpu").device == torch.device("cpu")
 

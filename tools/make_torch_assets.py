@@ -14,6 +14,17 @@ smallest integer type that holds the grid), and ``y``, the JAX
 ``forward_int`` of ``x`` as int32, checked equal to the numpy
 interpreter before it is written.
 
+It also writes one LM asset, ``smollm_smoke``: the reduced smollm-135m
+(``configs.get_smoke("smollm-135m", n_heads=9, n_kv_heads=3)``, float32)
+with weights from ``init_params(cfg, PRNGKey(0))`` in ``weights.npz``
+(keys are ``"/"``-joined tree paths), and in ``golden.npz`` the JAX
+``Engine``'s greedy serve of three prompts (``default_rng(0)``) padded to
+a batch of 4: the prompts, each request's ``max_new_tokens`` and output
+tokens, and the logits of prefill and of the first decode step.
+``manifest.json`` holds the engine's settings, the number of decode
+steps it ran and the smallest gap between the top two logits of any
+greedy pick.
+
 Run from the repository root:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/make_torch_assets.py
@@ -21,17 +32,22 @@ Run from the repository root:
 
 from __future__ import annotations
 
+import json
 import shutil
 import sys
 import time
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 
+from repro import configs
 from repro.flow import CompileConfig
+from repro.models import init_params as lm_init_params
 from repro.nn import compile_model, init_params, models, numpy_forward_fn
 from repro.runtime import save_design
+from repro.serve.engine import Engine, Request
 
 ASSETS = Path(__file__).resolve().parent.parent / "src" / "repro_torch" / "assets"
 N_GOLDEN = 1024
@@ -72,6 +88,83 @@ def make(name: str) -> None:
     print(f"{name}: wrote {out} ({size} bytes)")
 
 
+def _flatten(tree, prefix=""):
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list | tuple):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return {prefix[:-1]: np.asarray(tree)}
+    out = {}
+    for k, v in items:
+        out.update(_flatten(v, f"{prefix}{k}/"))
+    return out
+
+
+SMOLLM_SMOKE = {
+    "arch": "smollm-135m",
+    "smoke_kwargs": {"n_heads": 9, "n_kv_heads": 3},
+    "batch_size": 4,
+    "max_seq": 32,
+    "eos_id": 1,
+    "prompt_len": 12,
+    "max_new_tokens": [8, 5, 8],
+}
+
+
+def make_smollm_smoke(name: str = "smollm_smoke") -> None:
+    m = dict(SMOLLM_SMOKE)
+    cfg = configs.get_smoke(m["arch"], **m["smoke_kwargs"])
+    params = lm_init_params(cfg, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(2, cfg.vocab_size, size=(len(m["max_new_tokens"]), m["prompt_len"]))
+    prompts = prompts.astype(np.int32)
+    eng = Engine(cfg, params, m["batch_size"], m["max_seq"], eos_id=m["eos_id"])
+    picked, n_decode = [], [0]
+    pick, decode = eng._pick, eng._decode
+
+    def record_pick(logits):
+        picked.append(np.asarray(logits, np.float32))
+        return pick(logits)
+
+    def count_decode(*a):
+        n_decode[0] += 1
+        return decode(*a)
+
+    eng._pick, eng._decode = record_pick, count_decode
+    reqs = [Request(p, n) for p, n in zip(prompts, m["max_new_tokens"])]
+    eng.generate(reqs)
+    width = max(m["max_new_tokens"])
+    tokens = np.full((len(reqs), width), -1, np.int32)
+    for i, r in enumerate(reqs):
+        tokens[i, : len(r.out_tokens)] = r.out_tokens
+    top2 = np.sort(np.concatenate(picked), axis=-1)[:, -2:]
+    # prefill and the first decode step, called as the engine calls them
+    padded = np.stack([r.prompt for r in reqs])
+    logits0, cache = eng._prefill(params, {"tokens": jnp.asarray(padded)})
+    logits1, _ = decode(params, jnp.argmax(logits0, axis=-1)[:, None], cache)
+    np.testing.assert_array_equal(np.asarray(logits0, np.float32), picked[0])
+    m.update(decode_steps=n_decode[0], min_top2_gap=float((top2[:, 1] - top2[:, 0]).min()),
+             n_params=cfg.param_count())
+    out = ASSETS / name
+    if out.exists():
+        shutil.rmtree(out)
+    out.mkdir(parents=True)
+    np.savez(out / "weights.npz", **_flatten(jax.tree.map(np.asarray, params)))
+    np.savez_compressed(
+        out / "golden.npz", prompts=prompts, max_new_tokens=np.asarray(m["max_new_tokens"]),
+        tokens=tokens, prefill_logits=np.asarray(logits0, np.float32),
+        decode_logits=np.asarray(logits1, np.float32),
+    )
+    (out / "manifest.json").write_text(json.dumps(m, indent=1) + "\n")
+    size = sum(f.stat().st_size for f in out.iterdir())
+    print(f"{name}: {n_decode[0]} decode steps, min top-2 gap {m['min_top2_gap']:.4f}; "
+          f"wrote {out} ({size} bytes)")
+
+
+LMS = {"smollm_smoke": make_smollm_smoke}
+
+
 if __name__ == "__main__":
-    for name in sys.argv[1:] or NETWORKS:
-        make(name)
+    for name in sys.argv[1:] or [*NETWORKS, *LMS]:
+        (LMS.get(name) or make)(name)
