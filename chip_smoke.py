@@ -4,7 +4,7 @@
     python3 chip_smoke.py            (from the repository root)
 
 Builds every CUDA kernel of the port from the sources in the checkout,
-then runs eight phases, each of which must pass:
+then runs eleven phases, each of which must pass:
 
 1. probe    the card (``nvidia-smi`` name and power limit), CUDA and nvcc
             versions, ptxas resource usage of each kernel, and that
@@ -55,7 +55,34 @@ then runs eight phases, each of which must pass:
             plain version and ``scaled_dot_product_attention`` (the
             library yardstick, which the port never calls), then the three
             timed as device time per call (CUDA-graph replays between CUDA
-            events) beside the kernel's bound.
+            events) beside the kernel's bound;
+9. kernels  the selective-scan kernel against its plain PyTorch version
+            on the card (the ``tests/test_ssm_kernel.py`` shapes, ragged
+            channels, N 1/4/8/16, S = 1, falcon-mamba-7b's prefill and
+            decode shapes, two halves chained through the state, the state
+            updated in place, B and C as strided views; atol 1e-5) and the
+            W8A8 matmul kernel against its plain version (the
+            ``tests/test_quant_matmul.py`` sweep, ragged M/N/K, K = 4096
+            with sums past 2^24; exact);
+10. ssm     the reduced falcon-mamba from the committed JAX weights
+            (``assets/falcon_mamba_smoke``) served on the card reproduces
+            the JAX engine's greedy tokens exactly and its prefill and
+            first decode logits within 1e-4 (f32), with n_layers x (1 +
+            decode steps) scan launches;
+11. serve   the SSM main path at full width: falcon-mamba-7b (64 Mamba-1
+            layers, d_model 4096, d_inner 8192, state 16, vocab 65024,
+            bf16, 7,272,140,800 parameters) with the port's own random
+            weights (seed 0, drawn on the card) in ``Engine(batch_size=8,
+            max_seq=512)`` serves 8 requests of 128-token prompts and 64
+            new tokens, as phase 8 does, counted (64 x 64 scan launches,
+            no other kernel) and checked by phase 8's rule against the
+            plain path; then the scan at the main path's layer-0 prefill
+            and decode inputs against its plain version, timed by
+            CUDA-graph replay beside its bound; and the W8A8 matmul, run
+            once through its public op (its only path), held exactly
+            against its plain version and ``torch._int_mm`` times the
+            scales (the library yardstick, which the port never calls) at
+            M 1024, K 4096, N 16384, the three timed beside its bound.
 
 The line before the last is the ``kernels`` JSON object; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without
@@ -65,6 +92,7 @@ any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -85,6 +113,9 @@ LM_F32_ATOL = 1e-4  # phase 7: float32 logits, the same arithmetic as JAX in ano
 # is 1/32 at |x| in [4, 8): 0.25 is 8 such steps.
 LM_BF16_ATOL = 0.25
 INT32_LANES_PER_SM = 64  # Hopper SM: 64 INT32 lanes per clock (architecture white paper)
+MUFU_PER_SM = 16  # Hopper SM: 16 special-function (exp2) results per clock
+INT8_OPS_PER_S = 1979e12  # H100 SXM data sheet, dense int8 tensor cores
+SCAN_ATOL = 1e-5  # the JAX selective-scan kernel tests' own
 
 
 class SmokeFailure(RuntimeError):
@@ -147,6 +178,7 @@ def probe(torch) -> dict:
         "nvcc": nvcc_version,
         "sms": props.multi_processor_count,
         "int32_ops_per_s": props.multi_processor_count * INT32_LANES_PER_SM * max_sm_mhz * 1e6,
+        "exp_per_s": props.multi_processor_count * MUFU_PER_SM * max_sm_mhz * 1e6,
         "ptxas": ptxas,
     }
 
@@ -256,8 +288,17 @@ def launch_counters() -> dict:
     driven with all of them zeroed just before and read just after."""
     from repro_torch.kernels.adder_graph import kernel as ag_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.quant_matmul import kernel as qm_kernel
+    from repro_torch.kernels.ssm_scan import kernel as ss_kernel
 
-    return {"adder_graph": ag_kernel.launches, "flash_attention": fa_kernel.launches}
+    return {"adder_graph": ag_kernel.launches, "flash_attention": fa_kernel.launches,
+            "ssm_scan": ss_kernel.launches, "quant_matmul": qm_kernel.launches}
+
+
+def check_only(counts: dict, kernel: str | None, what: str) -> None:
+    """No kernel but ``kernel`` was launched in the run that gave ``counts``."""
+    others = {k: v for k, v in counts.items() if k != kernel and v}
+    check(not others, f"{what} launched other kernels: {others}")
 
 
 def reset_counts() -> None:
@@ -479,15 +520,17 @@ def flash_cases(torch, dev) -> dict:
 
 
 # ----------------------------------------------------------------------
-# 7. reduced LM against the committed JAX golden outputs
+# 7 and 10. reduced LMs against the committed JAX golden outputs
 # ----------------------------------------------------------------------
-def lm_golden(torch, np, dev) -> None:
+def lm_golden(torch, np, dev, asset_name: str, kernel: str) -> None:
+    """The reduced LM of ``assets/<asset_name>`` served on the card: the JAX
+    engine's greedy tokens exactly, its logits within ``LM_F32_ATOL``, and
+    one launch of ``kernel`` per layer per step."""
     from repro_torch import configs
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.models import decode_step, params_from_numpy, prefill, unflatten
     from repro_torch.serve import Engine, Request
 
-    asset = ASSETS / "smollm_smoke"
+    asset = ASSETS / asset_name
     manifest = json.loads((asset / "manifest.json").read_text())
     cfg = configs.get_smoke(manifest["arch"], **manifest["smoke_kwargs"])
     with np.load(asset / "weights.npz") as w:
@@ -497,59 +540,109 @@ def lm_golden(torch, np, dev) -> None:
     reqs = [Request(p, int(n)) for p, n in zip(golden["prompts"], golden["max_new_tokens"])]
     eng = Engine(cfg, params, manifest["batch_size"], manifest["max_seq"],
                  eos_id=manifest["eos_id"], device=dev)
-    before = fa_kernel.launches.value
+    reset_counts()
     eng.generate(reqs)
-    launched = fa_kernel.launches.value - before
+    counts = read_counts()
+    launched = counts[kernel]
+    check_only(counts, kernel, f"{asset_name}'s serve")
     want_launches = cfg.n_layers * (1 + manifest["decode_steps"])
-    check(launched == want_launches, f"lm golden: {launched} flash launches, want {want_launches}")
+    check(launched == want_launches, f"{asset_name}: {launched} {kernel} launches, "
+                                     f"want {want_launches}")
     for i, (r, want) in enumerate(zip(reqs, golden["tokens"])):
         want = [int(t) for t in want if t >= 0]
-        check(r.out_tokens == want, f"lm golden: request {i} tokens {r.out_tokens} != JAX {want}")
+        check(r.out_tokens == want, f"{asset_name}: request {i} tokens {r.out_tokens} != JAX {want}")
     tokens = torch.from_numpy(np.stack([r.prompt for r in reqs])).to(dev)
     logits, cache = prefill(cfg, params, {"tokens": tokens}, manifest["max_seq"])
     err0 = float(np.abs(logits.cpu().numpy() - golden["prefill_logits"]).max())
     logits, _ = decode_step(cfg, params, logits.argmax(-1)[:, None], cache)
     err1 = float(np.abs(logits.cpu().numpy() - golden["decode_logits"]).max())
     check(max(err0, err1) <= LM_F32_ATOL,
-          f"lm golden: logits differ from JAX by {err0:.3g} (prefill), {err1:.3g} (decode)")
+          f"{asset_name}: logits differ from JAX by {err0:.3g} (prefill), {err1:.3g} (decode)")
     log(f"{cfg.name} ({cfg.param_count()} params, f32): {len(reqs)} requests' greedy tokens equal "
-        f"the JAX engine's; {launched} flash launches = {cfg.n_layers} layers x "
+        f"the JAX engine's; {launched} {kernel} launches = {cfg.n_layers} layers x "
         f"(1 + {manifest['decode_steps']}); max |logits - JAX| prefill {err0:.3g}, "
         f"decode {err1:.3g} (atol {LM_F32_ATOL})")
 
 
 # ----------------------------------------------------------------------
-# 8. the LM main path at full width
+# 8 and 11. an LM main path at full width
 # ----------------------------------------------------------------------
 PROMPT_LEN, NEW_TOKENS, SERVE_BATCH, SERVE_MAX_SEQ = 128, 64, 8, 512
-DECODE_TIMING_OFFSET = 160  # about the mean cache position of the 63 decode steps
+DECODE_TIMING_OFFSET = 160  # flash: about the mean cache position of the 63 decode steps
 
 
-def attention_inputs(torch, eng, prompts, new_tokens):
-    """Serve ``prompts`` once through a fresh engine and keep the layer-0
-    inputs of the flash kernel at prefill and at the decode step whose
-    cache position is ``DECODE_TIMING_OFFSET``: the main path's shapes and
-    values.  (Calls are counted, not inspected, so nothing syncs.)"""
-    from repro_torch.models import attention as attn_mod
+def plain_selective_scan_f64(dt, bmat, cmat, x, a, h0, h_out=None):
+    """The plain version's recurrence in float64, rounded to f32: another
+    correct scan, to measure how far two correct versions drift apart."""
+    from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
 
+    y, h = selective_scan_ref(*(u.double() for u in (dt, bmat, cmat, x, a, h0)))
+    y, h = y.float(), h.float()
+    return (y, h) if h_out is None else (y, h_out.copy_(h))
+
+
+def lm_paths() -> dict:
+    """Per served architecture: its kernel (launch counter and profiler
+    name), the model module's name for the op that reaches the kernel, the
+    plain version that replaces it on the plain path, where the weights
+    are drawn, and which layer-0 calls of the op to keep for timing (call
+    index -> name; the layer loop makes one call per layer per step)."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
+    from repro_torch.models import attention, ssm
+
+    return {
+        "smollm-135m": {
+            "kernel": "flash_attention", "profile_key": "flash_kernel",
+            "module": attention, "attr": "flash_attention", "plain": attention_ref,
+            "init_on_card": False,  # 0.3 GB: drawn on the host, as phase 8 always has
+            "f32_atol": None,  # held by LM_BF16_ATOL in bf16
+            "plain_f64": None,
+            "capture": {"prefill": 0, "decode": DECODE_TIMING_OFFSET - PROMPT_LEN + 1},
+        },
+        "falcon-mamba-7b": {
+            "kernel": "ssm_scan", "profile_key": "ssm_scan_kernel",
+            "module": ssm, "attr": "selective_scan", "plain": selective_scan_ref,
+            "init_on_card": True,  # 14.5 GB of bf16 weights, 29 GB of f32 draws
+            # 64 random bf16 layers amplify a one-ulp f32 difference in the
+            # scan's output (it flips a bf16 rounding) into logit differences
+            # above LM_BF16_ATOL: two correct plain versions of the scan (f32,
+            # and f64 rounded to f32) differ as much.  In f32 the same weights
+            # agree within about 1e-3, so the paths are held there, at 1e-2;
+            # the bf16 agreement is measured and printed.
+            "f32_atol": 1e-2,
+            "plain_f64": plain_selective_scan_f64,
+            "capture": {"prefill": 0, "decode": 1},
+        },
+    }
+
+
+def capture_op_inputs(torch, eng, path, prompts):
+    """Serve ``prompts`` once through a fresh engine and keep the (args,
+    kwargs) of the layer-0 calls of the path's op that ``path["capture"]``
+    names (by decode step: 0 is prefill): the main path's shapes and values.
+    (Calls are counted, not inspected, so nothing syncs.)"""
     layers = eng.cfg.n_layers
-    wanted = {0: "prefill", layers * (DECODE_TIMING_OFFSET - PROMPT_LEN + 1): "decode"}
+    wanted = {layers * step: name for name, step in path["capture"].items()}
     seen, n_calls = {}, [0]
-    orig = attn_mod.flash_attention
+    module, attr = path["module"], path["attr"]
+    orig = getattr(module, attr)
 
-    def record(q, k, v, causal=True, scale=None, offset=None):
+    def clone(v):
+        return v.clone() if isinstance(v, torch.Tensor) else v
+
+    def record(*args, **kw):
         name = wanted.get(n_calls[0])
         if name is not None:
-            off = offset.clone() if isinstance(offset, torch.Tensor) else offset
-            seen[name] = (q.clone(), k.clone(), v.clone(), causal, off)
+            seen[name] = ([clone(a) for a in args], {k: clone(v) for k, v in kw.items()})
         n_calls[0] += 1
-        return orig(q, k, v, causal=causal, scale=scale, offset=offset)
+        return orig(*args, **kw)
 
-    attn_mod.flash_attention = record
+    setattr(module, attr, record)
     try:
-        eng.generate(requests_for(prompts, new_tokens))
+        eng.generate(requests_for(prompts, max(path["capture"].values()) + 1))
     finally:
-        attn_mod.flash_attention = orig
+        setattr(module, attr, orig)
     return seen
 
 
@@ -559,21 +652,65 @@ def requests_for(prompts, new_tokens):
     return [Request(p, new_tokens) for p in prompts]
 
 
-def serve_lm(torch, np, dev) -> dict:
-    """Drive the main path once, counted; then check it against the plain
-    path and time it.  Returns what the kernels line and PERF.md need."""
+def teacher_forced(torch, cfg, params, prompts, dev, tokens, path, op) -> list:
+    """Logits of prefill and of one decode step per entry of ``tokens``
+    but the last, each step fed the given tokens, with the path's op
+    replaced by ``op`` (``None``: the op itself, which reaches the kernel)."""
+    from repro_torch.models import decode_step, prefill
+
+    module, attr = path["module"], path["attr"]
+    kernel_op = getattr(module, attr)
+    if op is not None:
+        setattr(module, attr, op)
+    try:
+        with torch.inference_mode():
+            logits, cache = prefill(cfg, params, {"tokens": torch.from_numpy(prompts).to(dev)},
+                                    SERVE_MAX_SEQ)
+            out = [logits]
+            for tok in tokens[:-1]:
+                logits, cache = decode_step(cfg, params, tok[:, None], cache)
+                out.append(logits)
+    finally:
+        setattr(module, attr, kernel_op)
+    return out
+
+
+def agreement(torch, kernel_logits, kernel_tokens, plain_logits, atol) -> dict:
+    """How a kernel path's logits and picks agree with the plain path's:
+    the max |difference|, the argmaxes that differ, those among them whose
+    plain top-two gap is at least ``atol`` (far flips), and the picks whose
+    gap is under it."""
+    worst, n_flip, n_far, n_close = 0.0, 0, 0, 0
+    for k_logits, k_tok, plain in zip(kernel_logits, kernel_tokens, plain_logits):
+        worst = max(worst, float((plain.float() - k_logits.float()).abs().amax()))
+        top2 = plain.float().topk(2, dim=-1).values
+        close = (top2[:, 0] - top2[:, 1]) < atol
+        flip = plain.argmax(-1) != k_tok
+        n_flip += int(flip.sum())
+        n_far += int((flip & ~close).sum())
+        n_close += int(close.sum())
+    return {"atol": atol, "max_abs_diff": worst, "n_picks": len(kernel_tokens) * SERVE_BATCH,
+            "n_flips": n_flip, "n_far_flips": n_far, "n_close_picks": n_close}
+
+
+def serve_lm(torch, np, dev, arch: str) -> dict:
+    """Drive the main path of ``arch`` once, counted; then check it against
+    the plain path and time it.  Returns what the kernels line and PERF.md
+    need."""
     from repro_torch import configs
-    from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.models import attention as attn_mod
     from repro_torch.models import decode_step, init_params, prefill
     from repro_torch.serve import Engine
 
-    cfg = configs.get("smollm-135m")
+    path = lm_paths()[arch]
+    kernel = path["kernel"]
+    cfg = configs.get(arch)
     t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    gen = torch.Generator(dev if path["init_on_card"] else "cpu").manual_seed(0)
+    params = init_params(cfg, gen, device=dev)
     torch.cuda.synchronize()
     log(f"{cfg.name}: {cfg.param_count()} params in {cfg.dtype}, random (seed 0, the port's "
-        f"init_params; no checkpoint ships), made in {time.perf_counter() - t0:.2f} s")
+        f"init_params, drawn on the {gen.device.type}; no checkpoint ships), made in "
+        f"{time.perf_counter() - t0:.2f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
     prompts = np.random.default_rng(0).integers(
         2, cfg.vocab_size, size=(SERVE_BATCH, PROMPT_LEN)).astype(np.int32)
 
@@ -582,7 +719,7 @@ def serve_lm(torch, np, dev) -> dict:
 
     # warm-up (CUDA context, cuBLAS handles), which also keeps the kernel's
     # main-path inputs for the timing below
-    inputs = attention_inputs(torch, engine(), prompts, DECODE_TIMING_OFFSET - PROMPT_LEN + 2)
+    inputs = capture_op_inputs(torch, engine(), path, prompts)
 
     eng = engine()
     picks, stamps = [], []
@@ -603,60 +740,77 @@ def serve_lm(torch, np, dev) -> dict:
     eng.generate(reqs)
     t_end = time.perf_counter()
     counts = read_counts()
-    launches = counts["flash_attention"]
-    check(counts["adder_graph"] == 0, f"the LM's serve launched {counts}")
+    launches = counts[kernel]
+    check_only(counts, kernel, f"{arch}'s serve")
 
     n_tok = sum(len(r.out_tokens) for r in reqs)
     check(launches == cfg.n_layers * NEW_TOKENS,
-          f"serve: {launches} flash launches, want {cfg.n_layers} x {NEW_TOKENS}")
+          f"serve: {launches} {kernel} launches, want {cfg.n_layers} x {NEW_TOKENS}")
     check(all(len(r.out_tokens) == NEW_TOKENS for r in reqs), "serve: a request fell short")
     check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens),
           "serve: a token outside the vocabulary")
+    check(all(bool(torch.isfinite(lg).all()) for lg, _ in picks), "serve: non-finite logits")
     prefill_ms = (stamps[0] - t_start) * 1e3
     decode_ms = (stamps[-1] - stamps[0]) * 1e3 / (len(stamps) - 1)
-    log(f"serve: {len(reqs)} requests x {NEW_TOKENS} tokens, {launches} flash launches "
+    log(f"serve: {len(reqs)} requests x {NEW_TOKENS} tokens, {launches} {kernel} launches "
         f"= {cfg.n_layers} x {NEW_TOKENS}; prefill {prefill_ms:.3f} ms, decode "
         f"{decode_ms:.3f} ms per step, {n_tok / (t_end - t_start):.1f} generated tokens/s "
-        f"({t_end - t_start:.3f} s for {n_tok} tokens)")
+        f"({t_end - t_start:.3f} s for {n_tok} tokens); finite logits")
 
     # the plain path, teacher-forced on the kernel path's tokens
-    kernel_op = attn_mod.flash_attention
-    attn_mod.flash_attention = attention_ref
-    try:
-        with torch.inference_mode():
-            tokens = torch.from_numpy(prompts).to(dev)
-            plain, cache = prefill(cfg, params, {"tokens": tokens}, SERVE_MAX_SEQ)
-            worst, n_flip, n_close = 0.0, 0, 0
-            for step, (k_logits, k_tok) in enumerate(picks):
-                if step:
-                    plain, cache = decode_step(cfg, params, picks[step - 1][1][:, None], cache)
-                diff = (plain.float() - k_logits.float()).abs().amax()
-                worst = max(worst, float(diff))
-                top2 = plain.float().topk(2, dim=-1).values
-                close = (top2[:, 0] - top2[:, 1]) < LM_BF16_ATOL
-                flip = plain.argmax(-1) != k_tok
-                check(not bool((flip & ~close).any()),
-                      f"serve: step {step}: an argmax differs where the plain top-two gap "
-                      f">= {LM_BF16_ATOL}")
-                n_flip += int(flip.sum())
-                n_close += int(close.sum())
-    finally:
-        attn_mod.flash_attention = kernel_op
-    check(worst <= LM_BF16_ATOL, f"serve: kernel vs plain logits differ by {worst}")
-    log(f"serve: plain path teacher-forced on the kernel path's tokens: max |logits diff| "
-        f"{worst:.4g} (atol {LM_BF16_ATOL}); {n_flip} of {len(picks) * SERVE_BATCH} argmaxes "
-        f"differ, all where the top-two gap < {LM_BF16_ATOL} ({n_close} such picks)")
+    toks = [t for _, t in picks]
+    t_plain = time.perf_counter()
+    plain = teacher_forced(torch, cfg, params, prompts, dev, toks, path, path["plain"])
+    agree = agreement(torch, [lg for lg, _ in picks], toks, plain, LM_BF16_ATOL)
+    log(f"serve: plain path teacher-forced on the kernel path's tokens "
+        f"({time.perf_counter() - t_plain:.1f} s), bf16: " + json.dumps(agree))
+    if path["plain_f64"] is not None:
+        # the spread between two correct plain versions, for scale
+        alt = teacher_forced(torch, cfg, params, prompts, dev, toks, path, path["plain_f64"])
+        spread = agreement(torch, alt, [lg.argmax(-1) for lg in alt], plain, LM_BF16_ATOL)
+        del alt
+        log("serve: the plain path with its op in float64, against the plain path, bf16: "
+            + json.dumps(spread))
+        agree = {"bf16": agree, "bf16_plain_f64_vs_plain": spread}
+    del plain
+    if path["f32_atol"] is None:
+        check(agree["n_far_flips"] == 0,
+              f"serve: an argmax differs where the plain top-two gap >= {LM_BF16_ATOL}")
+        check(agree["max_abs_diff"] <= LM_BF16_ATOL,
+              f"serve: kernel vs plain logits differ by {agree['max_abs_diff']}")
+    else:
+        # the same weights in f32: the kernel path against the plain path,
+        # both teacher-forced on the served tokens, held to f32_atol
+        from repro_torch.models.transformer import tree_map
 
-    step = decode_breakdown(torch, cfg, params, prompts, dev)
+        t32 = time.perf_counter()
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        params32 = tree_map(lambda t: t.float(), params)
+        k32 = teacher_forced(torch, cfg32, params32, prompts, dev, toks, path, None)
+        p32 = teacher_forced(torch, cfg32, params32, prompts, dev, toks, path, path["plain"])
+        agree32 = agreement(torch, k32, [lg.argmax(-1) for lg in k32], p32, path["f32_atol"])
+        del params32, k32, p32
+        torch.cuda.empty_cache()
+        log(f"serve: f32 at full width, kernel path vs plain path, both teacher-forced on the "
+            f"served tokens ({time.perf_counter() - t32:.1f} s): " + json.dumps(agree32))
+        check(agree32["n_far_flips"] == 0,
+              f"serve f32: an argmax differs where the plain top-two gap >= {path['f32_atol']}")
+        check(agree32["max_abs_diff"] <= path["f32_atol"],
+              f"serve f32: kernel vs plain logits differ by {agree32['max_abs_diff']}")
+        agree["f32"] = agree32
+
+    step = decode_breakdown(torch, cfg, params, prompts, dev, path["profile_key"])
     return {"launches": launches, "prefill_ms": prefill_ms, "decode_ms": decode_ms,
             "tokens_per_s": n_tok / (t_end - t_start), "inputs": inputs,
-            "logits_max_diff": worst, **step}
+            "kernel_vs_plain": agree, **step}
 
 
-def decode_breakdown(torch, cfg, params, prompts, dev) -> dict:
+def decode_breakdown(torch, cfg, params, prompts, dev, profile_key: str) -> dict:
     """One decode step at cache position ~PROMPT_LEN: its time (host clock
     over 20 back-to-back steps, ending in a sync) and, from the profiler,
-    the device time of the flash kernel and of all kernels in one step."""
+    the device time of the path's kernel (profiler name containing
+    ``profile_key``) and of all kernels in one step, and the step's kernel
+    launches."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import decode_step, prefill
@@ -683,23 +837,24 @@ def decode_breakdown(torch, cfg, params, prompts, dev) -> dict:
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-    by_kernel = {}
+    by_kernel, launches = {}, 0
     for ev in prof.key_averages():
         if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
             continue
         us = getattr(ev, "self_device_time_total", 0.0) or 0.0
         if us > 0:
             by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + us
+            launches += ev.count
     host = sorted(((ev.self_cpu_time_total, ev.count, ev.key) for ev in prof.key_averages()
                    if not str(getattr(ev, "device_type", "")).endswith("CUDA")), reverse=True)
     all_us = sum(by_kernel.values())
-    flash_us = sum(us for k, us in by_kernel.items() if "flash_kernel" in k)
+    kernel_us = sum(us for k, us in by_kernel.items() if profile_key in k)
     ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1])
-    rank = next((i + 1 for i, (k, _) in enumerate(ranked) if "flash_kernel" in k), None)
+    rank = next((i + 1 for i, (k, _) in enumerate(ranked) if profile_key in k), None)
     log(f"decode step (back to back, position ~{PROMPT_LEN + 3}; no host sync inside): "
         f"{step_ms:.3f} ms; device time: "
-        f"all kernels {all_us / 1e3:.4f} ms, flash kernel {flash_us / 1e3:.4f} ms "
-        f"(rank {rank} of {len(ranked)} kernels); idle "
+        f"all kernels {all_us / 1e3:.4f} ms in {launches} launches, {profile_key} "
+        f"{kernel_us / 1e3:.4f} ms (rank {rank} of {len(ranked)} kernels); idle "
         f"{(1 - all_us / 1e3 / step_ms) * 100 if all_us else float('nan'):.1f}%")
     for k, us in ranked[:8]:
         log(f"  {us / 1e3:.4f} ms  {k[:110]}")
@@ -710,8 +865,9 @@ def decode_breakdown(torch, cfg, params, prompts, dev) -> dict:
     return {
         "step_ms": step_ms,
         "profiler_all_kernels_ms": all_us / 1e3 if all_us else None,
-        "profiler_flash_ms": flash_us / 1e3 if flash_us else None,
-        "flash_rank": rank,
+        "profiler_kernel_ms": kernel_us / 1e3 if kernel_us else None,
+        "profiler_launches": launches,
+        "kernel_rank": rank,
         "idle_share": 1 - all_us / 1e3 / step_ms if all_us else None,
     }
 
@@ -747,7 +903,9 @@ def flash_times(torch, inputs) -> dict:
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     out = {}
-    for name, (q, k, v, causal, offset) in inputs.items():
+    for name, (args, kw) in inputs.items():
+        q, k, v = args
+        causal, offset = kw.get("causal", True), kw.get("offset")
         b, hq, sq, d = q.shape
         hkv, sk = k.shape[1], k.shape[2]
         start = (sk - sq) if offset is None else int(offset)
@@ -784,6 +942,198 @@ def flash_times(torch, inputs) -> dict:
         out[name] = row
         log(f"flash {name}: " + json.dumps(row))
     return out
+
+
+# ----------------------------------------------------------------------
+# 9. selective-scan and W8A8 matmul kernels vs their plain versions
+# ----------------------------------------------------------------------
+SCAN_SHAPES = [  # (B, S, D, N)
+    (2, 16, 32, 8), (1, 32, 64, 16), (3, 8, 16, 4),  # tests/test_ssm_kernel.py
+    (2, 100, 300, 16),  # ragged channels, several 32-step chunks of B and C
+    (4, 70, 129, 8), (1, 5, 7, 1),  # ragged, N = 8 and N = 1
+    (8, 1, 8192, 16), (8, 1, 8192, 8),  # decode at falcon-mamba-7b's width
+    (8, 128, 8192, 16),  # falcon-mamba-7b's prefill
+]
+QMM_SHAPES = [  # (M, K, N)
+    (128, 256, 128), (256, 512, 256), (64, 128, 32),  # tests/test_quant_matmul.py
+    (100, 200, 60), (33, 1000, 77), (1, 5, 3),  # ragged M, N and K: byte loads
+    (300, 4096, 520),
+]
+
+
+def scan_inputs(torch, dev, gen, b, s, d, n):
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    return (torch.nn.functional.softplus(normal(b, s, d) - 1.0), normal(b, s, n) * 0.5,
+            normal(b, s, n) * 0.5, normal(b, s, d), -torch.exp(normal(d, n) * 0.3),
+            normal(b, d, n) * 0.1)
+
+
+def scan_cases(torch, dev) -> float:
+    """Max |kernel - plain| over the phase's cases; each within SCAN_ATOL."""
+    from repro_torch.kernels.ssm_scan.kernel import selective_scan_cuda
+    from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
+
+    gen = torch.Generator(dev).manual_seed(0)
+    worst = 0.0
+
+    def held(name, got, want):
+        nonlocal worst
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        check(err <= SCAN_ATOL, f"scan {name}: max |kernel - plain| {err}")
+        worst = max(worst, err)
+
+    for shape in SCAN_SHAPES:
+        args = scan_inputs(torch, dev, gen, *shape)
+        held(shape, selective_scan_cuda(*args), selective_scan_ref(*args))
+    dt, bm, cm, x, a, h0 = scan_inputs(torch, dev, gen, 2, 24, 160, 16)
+    want = selective_scan_ref(dt, bm, cm, x, a, h0)
+    state = h0.clone()  # two halves, the state carried in place (the decode cache's use)
+    y1, _ = selective_scan_cuda(dt[:, :12].contiguous(), bm[:, :12], cm[:, :12],
+                                x[:, :12].contiguous(), a, state, h_out=state)
+    y2, _ = selective_scan_cuda(dt[:, 12:].contiguous(), bm[:, 12:], cm[:, 12:],
+                                x[:, 12:].contiguous(), a, state, h_out=state)
+    held("two halves chained in place", (torch.cat([y1, y2], dim=1), state), want)
+    proj = torch.cat([torch.zeros_like(bm[..., :3]), bm, cm], dim=-1)
+    held("B and C as strided views", selective_scan_cuda(dt, proj[..., 3:19], proj[..., 19:],
+                                                         x, a, h0), want)
+    log(f"  scan: {len(SCAN_SHAPES) + 2} cases, max |kernel - plain| = {worst:.3g} "
+        f"(atol {SCAN_ATOL})")
+    return worst
+
+
+def qmm_inputs(torch, dev, gen, m, k, n):
+    x = torch.randint(-128, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+    w = torch.randint(-128, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
+    xs = torch.rand(m, generator=gen, device=dev) * 1.5 + 0.5
+    ws = torch.rand(n, generator=gen, device=dev) * 0.09 + 0.01
+    return x, w, xs, ws
+
+
+def qmm_cases(torch, dev) -> float:
+    """Every case exact; returns the max |kernel - plain| (0)."""
+    from repro_torch.kernels.quant_matmul.kernel import quant_matmul_cuda
+    from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+
+    gen = torch.Generator(dev).manual_seed(1)
+    cases = {str(shape): qmm_inputs(torch, dev, gen, *shape) for shape in QMM_SHAPES}
+    x, w, xs, ws = qmm_inputs(torch, dev, gen, 64, 4096, 48)
+    x[:8], w[:, :8] = 127, 127
+    w[0, :8] = 126  # odd sums near 2^26: f32 summation would round them
+    x[8:12], w[:, 8:12] = -128, -128
+    exact = x.cpu().long() @ w.cpu().long()
+    check(int(exact.abs().max()) >= 2**25, "the K = 4096 case does not pass 2^24")
+    cases["(64, 4096, 48), sums to 2^26"] = (x, w, xs, ws)
+    ones = (torch.ones(64, device=dev), torch.ones(48, device=dev))
+    got = quant_matmul_cuda(x, w, *ones)
+    check(torch.equal(got.cpu(), exact.float()), "W8A8 kernel != exact integer product at K 4096")
+    worst = 0.0
+    for name, args in cases.items():
+        got = quant_matmul_cuda(*args)
+        want = quant_matmul_ref(*args)
+        worst = max(worst, float((got - want).abs().max()))
+        check(torch.equal(got, want), f"W8A8 kernel != plain version on {name}")
+    log(f"  W8A8 matmul: {len(cases)} cases bit-equal to the plain version (and the unit-scale "
+        f"K 4096 case to the exact int64 product)")
+    return worst
+
+
+# ----------------------------------------------------------------------
+# 11. the scan at the main path's inputs; the W8A8 matmul through its op
+# ----------------------------------------------------------------------
+def scan_times(torch, inputs, info) -> dict:
+    """The kernel at the main path's layer-0 prefill and decode inputs:
+    held against its plain version, then both timed as device time per
+    call (CUDA-graph replays) beside the bound.  The call is made as the
+    main path makes it, the state written in place (into a copy)."""
+    from repro_torch.kernels.ssm_scan.kernel import selective_scan_cuda
+    from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
+
+    out = {}
+    for name, (args, _) in inputs.items():
+        dt, bm, cm, x, a, h0 = args
+        b, s, d = dt.shape
+        n = a.shape[1]
+        y, h = selective_scan_cuda(*args)
+        y_p, h_p = selective_scan_ref(*args)
+        err = max(float((y - y_p).abs().max()), float((h - h_p).abs().max()))
+        check(err <= SCAN_ATOL, f"scan at the {name} inputs: max |kernel - plain| {err}")
+        state = h0.clone()
+        # each input read once, each output written once; B and C are read as
+        # the rows of the projection they are views of, counted at N each
+        nbytes = 4 * (3 * b * s * d + 2 * b * s * n + d * n + 2 * b * d * n)
+        exps = b * s * d * n
+        flops = 7 * exps  # dt*A, dt*B, *x, decay*h + bx (2), y += C*h (2)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        exp_ms = exps / info["exp_per_s"] * 1e3
+        flops_ms = flops / F32_FLOPS_PER_S * 1e3
+        kern = lambda: selective_scan_cuda(dt, bm, cm, x, a, state, h_out=state)  # noqa: E731
+        row = {
+            "shape": f"dt/x [{b}, {s}, {d}], B/C [{b}, {s}, {n}] (strided views), f32, "
+                     f"state in place",
+            "ms": graph_ms(torch, kern),
+            "plain_ms": graph_ms(torch, lambda: selective_scan_ref(*args),
+                                 calls=2 if s > 1 else 20, replays=5 if s > 1 else 20),
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes the recurrence",
+            "eager_ms": time_ms(torch, kern, iters=200),
+            "bytes": nbytes, "exps": exps, "flops": flops, "bytes_ms": bytes_ms,
+            "exp_ms": exp_ms, "flops_ms": flops_ms,
+            "bound_ms": max(bytes_ms, exp_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= max(exp_ms, flops_ms) else "operations",
+            "max_abs_err": err,
+        }
+        out[name] = row
+        log(f"scan {name}: " + json.dumps(row))
+    return out
+
+
+QMM_TIMED = (1024, 4096, 16384)  # falcon-mamba-7b's in_proj at the prefill batch (M, K, N)
+
+
+def qmm_path_and_times(torch, dev) -> dict:
+    """The W8A8 op's main path (its public op, as a caller uses it; nothing
+    in the port calls it) at QMM_TIMED, counted; the kernel held exactly
+    against its plain version and ``torch._int_mm`` times the scales (the
+    yardstick, which the port never calls); the three timed as device time
+    per call beside the bound."""
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.kernels.quant_matmul.kernel import quant_matmul_cuda
+    from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+
+    m, k, n = QMM_TIMED
+    x, w, xs, ws = qmm_inputs(torch, dev, torch.Generator(dev).manual_seed(2), m, k, n)
+    torch.cuda.synchronize()
+    reset_counts()
+    got = quant_matmul(x, w, xs, ws)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_only(counts, "quant_matmul", "the W8A8 op")
+    check(counts["quant_matmul"] == 1, f"the W8A8 op launched {counts}")
+    lib = lambda: torch._int_mm(x, w).float() * xs[:, None] * ws[None, :]  # noqa: E731
+    plain = quant_matmul_ref(x, w, xs, ws)
+    check(torch.equal(got, plain), "W8A8 kernel != plain version at the timed shape")
+    check(torch.equal(got, lib()), "W8A8 kernel != torch._int_mm yardstick at the timed shape")
+    del plain
+    nbytes = m * k + k * n + 4 * (m + n) + 4 * m * n
+    ops = 2 * m * n * k
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+    row = {
+        "shape": f"x int8 [{m}, {k}], w int8 [{k}, {n}], f32 scales -> f32 [{m}, {n}]",
+        "launches": counts["quant_matmul"],
+        "ms": graph_ms(torch, lambda: quant_matmul_cuda(x, w, xs, ws), calls=10, replays=10),
+        "plain_ms": graph_ms(torch, lambda: quant_matmul_ref(x, w, xs, ws), calls=2, replays=5),
+        "library_ms": graph_ms(torch, lib, calls=10, replays=10),
+        "library": "torch._int_mm, then * x_scale[:, None] * w_scale[None, :]",
+        "bytes": nbytes, "int8_ops": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "max_abs_err": 0.0,
+    }
+    log("W8A8 matmul: " + json.dumps(row))
+    return row
 
 
 # ----------------------------------------------------------------------
@@ -854,7 +1204,7 @@ def main() -> int:
     want_launches = (stats["n_batches"] + len(stats["buckets"])) * n_steps
     check(main_launches == want_launches,
           f"{main_launches} launches on the main path, expected {want_launches}")
-    check(counts["flash_attention"] == 0, f"the Mixer's serve launched {counts}")
+    check_only(counts, "adder_graph", "the Mixer's serve")
     rps = len(futs) / (t_done - t_reg)
     log(f"serve: {len(futs)} requests bit-exact; {rps:.0f} req/s, p50 {stats['p50_ms']:.3f} ms, "
         f"p99 {stats['p99_ms']:.3f} ms, {stats['n_batches']} batches, {main_launches} launches; "
@@ -900,10 +1250,10 @@ def main() -> int:
     flash_errs = flash_cases(torch, dev)
 
     log("== 7. reduced smollm-135m against the committed JAX golden outputs")
-    lm_golden(torch, np, dev)
+    lm_golden(torch, np, dev, "smollm_smoke", "flash_attention")
 
     log("== 8. serve smollm-135m at full width (main path)")
-    lm = serve_lm(torch, np, dev)
+    lm = serve_lm(torch, np, dev, "smollm-135m")
     ft = flash_times(torch, lm["inputs"])
     dec, pre = ft["decode"], ft["prefill"]
     kernels["kernels"].append({
@@ -923,6 +1273,52 @@ def main() -> int:
                                         "library_ms")},
     })
     log("serve summary: " + json.dumps({k: v for k, v in lm.items() if k != "inputs"}))
+    del lm, ft
+
+    log("== 9. selective-scan and W8A8 matmul kernels vs their plain versions")
+    scan_err = scan_cases(torch, dev)
+    qmm_err = qmm_cases(torch, dev)
+
+    log("== 10. reduced falcon-mamba against the committed JAX golden outputs")
+    lm_golden(torch, np, dev, "falcon_mamba_smoke", "ssm_scan")
+
+    log("== 11. serve falcon-mamba-7b at full width (main path); the W8A8 matmul's op")
+    sm = serve_lm(torch, np, dev, "falcon-mamba-7b")
+    st = scan_times(torch, sm["inputs"], info)
+    dec, pre = st["decode"], st["prefill"]
+    entry_keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
+                  "max_abs_err")
+    kernels["kernels"].append({
+        "name": "ssm_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan/kernel.py:25",
+        "launches": sm["launches"],
+        "max_abs_err": max(scan_err, dec["max_abs_err"], pre["max_abs_err"]),
+        "ms": dec["ms"],
+        "plain_ms": dec["plain_ms"],
+        "bound_ms": dec["bound_ms"],
+        "bound_by": dec["bound_by"],
+        "library_ms": None,
+        "library": dec["library"],
+        "shape": "one decode launch of the main path (layer 0): " + dec["shape"],
+        "decode": {k: dec[k] for k in entry_keys},
+        "prefill": {k: pre[k] for k in entry_keys},
+    })
+    log("serve summary: " + json.dumps({k: v for k, v in sm.items() if k != "inputs"}))
+    del sm, st
+    qm = qmm_path_and_times(torch, dev)
+    kernels["kernels"].append({
+        "name": "quant_matmul",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/quant_matmul/csrc/quant_matmul.cu",
+        "replaces": "src/repro/kernels/quant_matmul/kernel.py:24",
+        "launches": qm["launches"],
+        "max_abs_err": max(qmm_err, qm["max_abs_err"]),
+        **{k: qm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                              "library")},
+        "shape": "one call of the public op quant_matmul (its only path): " + qm["shape"],
+    })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(info["nvidia_smi"])
     print(json.dumps(kernels))

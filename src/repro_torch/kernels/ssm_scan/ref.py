@@ -1,0 +1,38 @@
+"""Plain PyTorch version of the Mamba-1 selective scan: the port of the
+JAX package's ``selective_scan_ref``, a time-major loop with its
+arithmetic.  The tests use it, and so does every CPU tensor; on the card
+it is what the kernel is held against."""
+
+from __future__ import annotations
+
+import torch
+
+
+def selective_scan_ref(
+    dt: torch.Tensor,  # f32 [B, S, D]   (post-softplus)
+    bmat: torch.Tensor,  # f32 [B, S, N]
+    cmat: torch.Tensor,  # f32 [B, S, N]
+    x: torch.Tensor,  # f32 [B, S, D]
+    a: torch.Tensor,  # f32 [D, N]      (negative)
+    h0: torch.Tensor,  # f32 [B, D, N]
+    h_out: torch.Tensor | None = None,  # f32 [B, D, N]; may be h0 itself
+):
+    """h_t = exp(dt_t * A) h_{t-1} + dt_t B_t x_t ; y_t = C_t . h_t.
+
+    Returns (y [B, S, D], h_final [B, D, N]); ``h_final`` is written into
+    ``h_out`` when one is given (the kernel's contract), and ``h0`` is
+    otherwise left alone."""
+    b, s, d = dt.shape
+    if h_out is not None and (h_out.shape != h0.shape or h_out.dtype != torch.float32):
+        raise ValueError(f"h_out must be f32 {tuple(h0.shape)}, got {h_out.dtype} "
+                         f"{tuple(h_out.shape)}")
+    y = dt.new_empty((b, s, d))
+    h = h0
+    for t in range(s):
+        dt_t = dt[:, t, :, None]  # [B, D, 1]
+        decay = torch.exp(dt_t * a)
+        h = decay * h + dt_t * bmat[:, t, None, :] * x[:, t, :, None]
+        y[:, t] = (h * cmat[:, t, None, :]).sum(dim=-1)
+    if h_out is not None:
+        return y, h_out.copy_(h)
+    return y, h.clone() if s == 0 else h

@@ -1,12 +1,14 @@
-"""The LM stack of the dense family: embeddings, a stack of pre-norm
-(attention, SwiGLU) blocks, final norm and head, with a head-major KV
-cache for prefill and decode.
+"""The LM stack of the dense and SSM families: embeddings, a stack of
+pre-norm blocks (attention and SwiGLU for the dense family, a Mamba-1
+mixer alone for the SSM family), final norm and head, with a decode
+cache (head-major K/V, or the SSM's conv window and state) for prefill
+and decode.
 
 Parameters keep the JAX package's period-stacked layout: every leaf of a
 block carries a leading ``n_periods`` dim, so a JAX parameter pytree
 carries across leaf for leaf (:func:`params_from_numpy`).  A Python loop
 over the periods takes the place of ``lax.scan``; remat, sharding and
-abstract parameters have no counterpart on one device.  The MoE, SSM,
+abstract parameters have no counterpart on one device.  The MoE,
 hybrid, encoder-decoder and VLM families are not ported yet (ROADMAP
 Queue 1) and raise ``NotImplementedError``.
 """
@@ -20,9 +22,10 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..configs.base import ATTN, MLP, ArchConfig
+from ..configs.base import ATTN, MLP, SSM, ArchConfig
 from .attention import attention_block
 from .layers import embed_tokens, rmsnorm, swiglu, unembed
+from .ssm import mamba_block
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -33,17 +36,21 @@ class PSpec:
     without its sharding axes, which mean nothing on one device)."""
 
     shape: tuple
-    init: str = "normal"  # normal | embed | ones
+    init: str = "normal"  # normal | embed | ones | zeros | ssm_a
     fan_in_axis: int | None = None  # for 1/sqrt(fan_in) scaling
 
 
+_PORTED = {"dense": [(ATTN, MLP)], "ssm": [(SSM, None)]}  # family -> its one layer pattern
+
+
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is of the dense family."""
-    if cfg.family != "dense" or cfg.n_experts or cfg.layer_pattern()[0] != [(ATTN, MLP)]:
+    """Raise ``NotImplementedError`` unless ``cfg`` is of the dense or the
+    SSM family."""
+    if cfg.n_experts or cfg.layer_pattern()[0] != _PORTED.get(cfg.family):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP Queue 1: "
-            "MoE and SSM families, then encoder-decoder and VLM); the port runs the "
-            "dense family only"
+            "MoE and hybrid families, then encoder-decoder and VLM); the port runs the "
+            "dense and SSM families only"
         )
 
 
@@ -79,20 +86,43 @@ def _mlp_specs(cfg: ArchConfig, periods: int) -> dict:
     }
 
 
+def _ssm_specs(cfg: ArchConfig, periods: int) -> dict:
+    d, di, st, k, dtr = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv, cfg.dt_rank
+    p = (periods,)
+    return {
+        "in_proj": PSpec(p + (d, 2 * di), fan_in_axis=1),
+        "conv": PSpec(p + (di, k), fan_in_axis=2),
+        "x_proj": PSpec(p + (di, dtr + 2 * st), fan_in_axis=1),
+        "dt_proj": PSpec(p + (dtr, di), fan_in_axis=1),
+        "dt_bias": PSpec(p + (di,), "zeros"),
+        "a_log": PSpec(p + (di, st), "ssm_a"),
+        "d": PSpec(p + (di,), "ones"),
+        "out_proj": PSpec(p + (di, d), fan_in_axis=1),
+    }
+
+
+def _block_specs(cfg: ArchConfig, mixer: str, ffn: str | None, periods: int) -> dict:
+    d = cfg.d_model
+    p = (periods,)
+    s: dict = {"norm1": PSpec(p + (d,), "ones")}
+    if mixer == ATTN:
+        s[ATTN] = _attn_specs(cfg, periods)
+    else:
+        s[SSM] = _ssm_specs(cfg, periods)
+    if ffn is not None:  # a block without an FFN (the SSM family's) has no norm2
+        s["norm2"] = PSpec(p + (d,), "ones")
+        s[MLP] = _mlp_specs(cfg, periods)
+    return s
+
+
 def param_specs(cfg: ArchConfig) -> dict:
     check_supported(cfg)
     d, v = cfg.d_model, cfg.padded_vocab
-    _, n_periods = cfg.layer_pattern()
-    p = (n_periods,)
+    period, n_periods = cfg.layer_pattern()
     specs: dict = {
         "embed": PSpec((v, d), "embed"),
         "final_norm": PSpec((d,), "ones"),
-        "blocks": [{
-            "norm1": PSpec(p + (d,), "ones"),
-            ATTN: _attn_specs(cfg, n_periods),
-            "norm2": PSpec(p + (d,), "ones"),
-            MLP: _mlp_specs(cfg, n_periods),
-        }],
+        "blocks": [_block_specs(cfg, mixer, ffn, n_periods) for mixer, ffn in period],
     }
     if not cfg.tie_embeddings:
         specs["head"] = PSpec((d, v), fan_in_axis=0)
@@ -128,24 +158,37 @@ def _zip_specs(fn, specs, tree, path=""):
 # ----------------------------------------------------------------------
 def init_params(cfg: ArchConfig, generator: torch.Generator, device=None) -> dict:
     """Random parameters (normal, 1/sqrt(fan_in) or 0.02 for the
-    embedding; ones for norms) drawn in f32 from ``generator`` on its own
-    device, then cast to ``cfg.dtype`` on ``device``.  The JAX package's
-    ``init_params`` draws other numbers from the same seed: weights cross
-    between the packages with :func:`params_from_numpy`."""
+    embedding; ones for norms and the SSM's ``d``, zeros for ``dt_bias``,
+    log(1..N) for ``a_log``) drawn in f32 from ``generator`` on its own
+    device, then cast to ``cfg.dtype`` on ``device``.  A period-stacked
+    block leaf is drawn one period slice at a time, so the f32 draw never
+    holds a whole stack (falcon-mamba-7b's ``in_proj`` alone would be
+    17 GB): pass a generator on the card to keep the draw off the host.
+    The JAX package's ``init_params`` draws other numbers from the same
+    seed: weights cross between the packages with :func:`params_from_numpy`."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
 
-    def make(spec: PSpec) -> torch.Tensor:
-        if spec.init == "ones":
-            return torch.ones(spec.shape, dtype=dtype, device=dev)
+    def make(spec: PSpec, stacked: bool) -> torch.Tensor:
+        out = torch.empty(spec.shape, dtype=dtype, device=dev)
+        if spec.init in ("ones", "zeros"):
+            return out.fill_(1.0 if spec.init == "ones" else 0.0)
+        if spec.init == "ssm_a":  # mamba: A_log = log(1..N), broadcast over d_inner
+            st = spec.shape[-1]
+            return out.copy_(torch.log(torch.arange(1, st + 1, dtype=torch.float32)))
         scale = 0.02 if spec.init == "embed" else 1.0
         if spec.fan_in_axis is not None:
             scale = 1.0 / math.sqrt(spec.shape[spec.fan_in_axis])
-        w = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                        device=generator.device)
-        return (w * scale).to(device=dev, dtype=dtype)
+        for piece in (out if stacked else [out]):
+            w = torch.randn(piece.shape, generator=generator, dtype=torch.float32,
+                            device=generator.device)
+            piece.copy_(w * scale)
+        return out
 
-    return tree_map(make, param_specs(cfg))
+    specs = param_specs(cfg)
+    params = {k: make(v, False) for k, v in specs.items() if k != "blocks"}
+    params["blocks"] = tree_map(lambda spec: make(spec, True), specs["blocks"])
+    return params
 
 
 def params_from_numpy(cfg: ArchConfig, tree, device=None) -> dict:
@@ -193,25 +236,32 @@ def unflatten(flat) -> dict:
 # ----------------------------------------------------------------------
 # Stack application
 # ----------------------------------------------------------------------
-def _apply_block(cfg, bp, x, positions, cache, pos):
+def _apply_block(cfg, bp, mixer, ffn, x, positions, cache, pos):
+    """One block; ``cache`` is this layer's slice, updated in place."""
     h = rmsnorm(x, bp["norm1"])
-    attn_cache = None if cache is None else {"k": cache["k"], "v": cache["v"], "pos": pos}
-    h, _ = attention_block(cfg, bp[ATTN], h, positions, attn_cache)
+    if mixer == ATTN:
+        attn_cache = None if cache is None else {"k": cache["k"], "v": cache["v"], "pos": pos}
+        h, _ = attention_block(cfg, bp[ATTN], h, positions, attn_cache)
+    else:
+        h = mamba_block(cfg, bp[SSM], h, cache)
     x = x + h
-    h = rmsnorm(x, bp["norm2"])
-    m = bp[MLP]
-    return x + swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
+    if ffn is not None:
+        h = rmsnorm(x, bp["norm2"])
+        m = bp[MLP]
+        x = x + swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
+    return x
 
 
 def _apply_stack(cfg, blocks, x, positions, caches=None, pos=None):
-    """Run the layer stack, one period at a time.  ``caches``: the
-    period-stacked cache of the one period position, updated in place."""
-    (bp_stacked,) = blocks
-    n_periods = bp_stacked["norm1"].shape[0]
+    """Run the layer stack, one period at a time.  ``blocks`` and
+    ``caches``: one period-stacked tree per period position; the caches
+    are updated in place."""
+    pattern, n_periods = cfg.layer_pattern()
     for t in range(n_periods):
-        bp = tree_map(lambda a, t=t: a[t], bp_stacked)
-        c = None if caches is None else {"k": caches[0]["k"][t], "v": caches[0]["v"][t]}
-        x = _apply_block(cfg, bp, x, positions, c, pos)
+        for i, (mixer, ffn) in enumerate(pattern):
+            bp = tree_map(lambda a, t=t: a[t], blocks[i])
+            c = None if caches is None else tree_map(lambda a, t=t: a[t], caches[i])
+            x = _apply_block(cfg, bp, mixer, ffn, x, positions, c, pos)
     return x
 
 
@@ -225,7 +275,7 @@ def _head(cfg, params, x):
 # ----------------------------------------------------------------------
 def forward(cfg: ArchConfig, params: dict, batch: dict):
     """Training/prefill forward without a cache.  batch: tokens [B, S].
-    Returns (logits [B, S, Vp], aux_loss), aux_loss 0 for the dense family."""
+    Returns (logits [B, S, Vp], aux_loss), aux_loss 0 (no MoE is ported)."""
     check_supported(cfg)
     tokens = batch["tokens"]
     x = embed_tokens(params["embed"], tokens)
@@ -242,25 +292,34 @@ def kv_cache_heads(cfg: ArchConfig) -> int:
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None) -> dict:
-    """Decode cache: per period position a head-major ``k``/``v`` of
-    [n_periods, B, H, max_seq, hd] in ``cfg.dtype``, zeroed, and ``pos``,
-    an int32 scalar tensor on the device."""
+    """Decode cache, zeroed: per period position, stacked over the periods,
+    a head-major ``k``/``v`` of [n_periods, B, H, max_seq, hd] in
+    ``cfg.dtype`` for attention, or the SSM's ``conv`` window [n_periods,
+    B, k-1, d_inner] in ``cfg.dtype`` and state ``h`` [n_periods, B,
+    d_inner, N] in f32; and ``pos``, an int32 scalar tensor on the device."""
     check_supported(cfg)
     dev = resolve_device(device)
-    _, n_periods = cfg.layer_pattern()
-    shp = (n_periods, batch, kv_cache_heads(cfg), max_seq, cfg.hd)
+    period, n_periods = cfg.layer_pattern()
     dtype = torch_dtype(cfg)
-    return {
-        "blocks": [{"k": torch.zeros(shp, dtype=dtype, device=dev),
-                    "v": torch.zeros(shp, dtype=dtype, device=dev)}],
-        "pos": torch.zeros((), dtype=torch.int32, device=dev),
-    }
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros((n_periods, batch, *shape), dtype=dt, device=dev)
+
+    blocks = []
+    for mixer, _ in period:
+        if mixer == ATTN:
+            shp = (kv_cache_heads(cfg), max_seq, cfg.hd)
+            blocks.append({"k": zeros(*shp), "v": zeros(*shp)})
+        else:
+            blocks.append({"conv": zeros(cfg.ssm_conv - 1, cfg.d_inner),
+                           "h": zeros(cfg.d_inner, cfg.ssm_state, dt=torch.float32)})
+    return {"blocks": blocks, "pos": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
 def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache: dict):
     """One-token decode. tokens: [B, 1].  Returns (logits [B, Vp], cache).
-    The cache's K/V are written in place; the returned cache shares them
-    and carries ``pos + 1``.  Nothing here syncs the host."""
+    The cache's tensors are written in place; the returned cache shares
+    them and carries ``pos + 1``.  Nothing here syncs the host."""
     check_supported(cfg)
     x = embed_tokens(params["embed"], tokens)
     pos = cache["pos"]

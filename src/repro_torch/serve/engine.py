@@ -7,7 +7,8 @@ caller's list), one token is taken after prefill, then up to
 ``budget - 1`` decode steps run, a request stops when the token before
 was EOS or it has its ``max_new_tokens``, and the loop ends when no
 request is alive.  The model runs eagerly (the JAX engine jits prefill
-and decode); the KV cache is preallocated to ``max_seq`` on the device.
+and decode); the decode cache (K/V preallocated to ``max_seq``, or the
+SSM's conv window and state) lives on the device.
 """
 
 from __future__ import annotations

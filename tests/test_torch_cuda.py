@@ -3,9 +3,11 @@ its plain PyTorch version, the committed full-size designs against their
 JAX golden outputs, and the serving engine (tolerance: exact equality);
 the hand-written flash-attention kernel against its plain PyTorch version
 (atol 2e-5 in float32, 2e-2 in bfloat16: the kernel keeps ``p`` in f32
-where the plain version casts it to the working dtype) and the reduced
-smollm-135m LM against its committed JAX golden tokens (exact) and logits
-(atol 1e-4 in float32).
+where the plain version casts it to the working dtype); the hand-written
+selective-scan kernel against its plain version (atol 1e-5, the JAX
+kernel tests' own) and the W8A8 matmul kernel against its plain version
+(exact); and the reduced smollm-135m and falcon-mamba LMs against their
+committed JAX golden tokens (exact) and logits (atol 1e-4 in float32).
 
 Every test here needs a card and skips without one.  This file imports
 neither ``jax`` nor ``repro``, so it runs where only PyTorch is
@@ -30,6 +32,12 @@ from repro_torch.kernels.adder_graph.ref import adder_graph_ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.quant_matmul import kernel as qm_kernel
+from repro_torch.kernels.quant_matmul import quant_matmul
+from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+from repro_torch.kernels.ssm_scan import kernel as ss_kernel
+from repro_torch.kernels.ssm_scan import selective_scan
+from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
 from repro_torch.models import decode_step, params_from_numpy, prefill, unflatten
 from repro_torch.nn.compiler import count_cmvm_steps
 from repro_torch.runtime import ServeEngine, load_design
@@ -194,12 +202,15 @@ def test_flash_wrapper_rejects_what_it_does_not_take(card):
         fa_kernel.flash_attention_cuda(q, k, v, offset=torch.tensor(0, device=card))
 
 
-def test_lm_asset_reproduces_jax_golden(card):
-    """The reduced smollm-135m from the committed JAX weights, served on
-    the card: the JAX engine's greedy tokens exactly, prefill and first
-    decode logits within 1e-4, one kernel launch per layer per step."""
+@pytest.mark.parametrize("asset,counter", [("smollm_smoke", fa_kernel),
+                                           ("falcon_mamba_smoke", ss_kernel)])
+def test_lm_asset_reproduces_jax_golden(card, asset, counter):
+    """A reduced LM from its committed JAX weights, served on the card:
+    the JAX engine's greedy tokens exactly, prefill and first decode
+    logits within 1e-4, one kernel launch (flash attention or selective
+    scan) per layer per step."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    asset = ASSETS / "smollm_smoke"
+    asset = ASSETS / asset
     manifest = json.loads((asset / "manifest.json").read_text())
     cfg = configs.get_smoke(manifest["arch"], **manifest["smoke_kwargs"])
     with np.load(asset / "weights.npz") as w:
@@ -207,10 +218,10 @@ def test_lm_asset_reproduces_jax_golden(card):
     with np.load(asset / "golden.npz") as g:
         golden = dict(g)
     reqs = [Request(p, int(n)) for p, n in zip(golden["prompts"], golden["max_new_tokens"])]
-    before = fa_kernel.launches.value
+    before = counter.launches.value
     Engine(cfg, params, manifest["batch_size"], manifest["max_seq"],
            eos_id=manifest["eos_id"]).generate(reqs)
-    assert fa_kernel.launches.value - before == cfg.n_layers * (1 + manifest["decode_steps"])
+    assert counter.launches.value - before == cfg.n_layers * (1 + manifest["decode_steps"])
     for r, want in zip(reqs, golden["tokens"]):
         assert r.out_tokens == [int(t) for t in want if t >= 0]
     tokens = torch.from_numpy(np.stack([r.prompt for r in reqs])).to(card)
@@ -218,3 +229,126 @@ def test_lm_asset_reproduces_jax_golden(card):
     np.testing.assert_allclose(logits.cpu().numpy(), golden["prefill_logits"], atol=1e-4, rtol=0)
     logits, _ = decode_step(cfg, params, logits.argmax(-1)[:, None], cache)
     np.testing.assert_allclose(logits.cpu().numpy(), golden["decode_logits"], atol=1e-4, rtol=0)
+
+
+# ----------------------------------------------------------------------
+# the selective-scan kernel (atol 1e-5: the JAX kernel tests' own)
+# ----------------------------------------------------------------------
+def _scan_inputs(card, b, s, d, n, seed=0):
+    g = torch.Generator(card).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=card)
+
+    return (torch.nn.functional.softplus(normal(b, s, d) - 1.0), normal(b, s, n) * 0.5,
+            normal(b, s, n) * 0.5, normal(b, s, d), -torch.exp(normal(d, n) * 0.3),
+            normal(b, d, n) * 0.1)
+
+
+@pytest.mark.parametrize("b,s,d,n", [
+    (2, 16, 32, 8), (1, 32, 64, 16), (3, 8, 16, 4),  # tests/test_ssm_kernel.py's shapes
+    (2, 100, 300, 16),  # ragged channels, several 32-step chunks
+    (8, 1, 8192, 16),  # falcon-mamba-7b's decode
+    (4, 70, 129, 8), (1, 5, 7, 1),
+])
+def test_scan_kernel_matches_plain_version(card, b, s, d, n):
+    args = _scan_inputs(card, b, s, d, n, seed=s + d)
+    before = ss_kernel.launches.value
+    y, h = selective_scan(*args)
+    assert ss_kernel.launches.value == before + 1
+    torch.cuda.synchronize()
+    y_ref, h_ref = selective_scan_ref(*args)
+    torch.testing.assert_close(y, y_ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(h, h_ref, atol=1e-5, rtol=1e-5)
+
+
+def test_scan_kernel_chains_state_in_place_and_reads_strided_b_c(card):
+    """Two halves with the state carried equal one scan; the state written
+    into h0 itself (the decode cache's use); B and C as views of one
+    projection."""
+    dt, bm, cm, x, a, h0 = _scan_inputs(card, 2, 24, 160, 16, seed=5)
+    y_full, h_full = selective_scan(dt, bm, cm, x, a, h0)
+    state = h0.clone()
+    y1, _ = selective_scan(dt[:, :12].contiguous(), bm[:, :12], cm[:, :12],
+                           x[:, :12].contiguous(), a, state, h_out=state)
+    y2, h2 = selective_scan(dt[:, 12:].contiguous(), bm[:, 12:], cm[:, 12:],
+                            x[:, 12:].contiguous(), a, state, h_out=state)
+    assert h2 is state
+    torch.testing.assert_close(torch.cat([y1, y2], dim=1), y_full, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(state, h_full, atol=1e-5, rtol=1e-5)
+    proj = torch.cat([torch.zeros_like(bm[..., :3]), bm, cm], dim=-1)
+    y_v, h_v = selective_scan(dt, proj[..., 3:19], proj[..., 19:], x, a, h0)
+    assert torch.equal(y_v, y_full) and torch.equal(h_v, h_full)
+
+
+def test_scan_wrapper_rejects_what_it_does_not_take(card):
+    dt, bm, cm, x, a, h0 = _scan_inputs(card, 2, 4, 32, 8)
+    with pytest.raises(TypeError, match="float32"):
+        ss_kernel.selective_scan_cuda(dt.double(), bm, cm, x, a, h0)
+    with pytest.raises(ValueError, match="one device"):
+        ss_kernel.selective_scan_cuda(dt, bm, cm, x, a.cpu(), h0)
+    with pytest.raises(ValueError, match="contiguous x"):
+        ss_kernel.selective_scan_cuda(dt, bm, cm, x.transpose(0, 1).contiguous().transpose(0, 1),
+                                      a, h0)
+    with pytest.raises(ValueError, match="unit stride"):
+        ss_kernel.selective_scan_cuda(dt, bm.transpose(1, 2).contiguous().transpose(1, 2), cm,
+                                      x, a, h0)
+    with pytest.raises(ValueError, match="state sizes"):
+        ss_kernel.selective_scan_cuda(*_scan_inputs(card, 1, 2, 8, 17))
+    with pytest.raises(ValueError, match="h_out"):
+        ss_kernel.selective_scan_cuda(dt, bm, cm, x, a, h0, h_out=h0[:1])
+
+
+# ----------------------------------------------------------------------
+# the W8A8 matmul kernel (exact: int32 sums, the oracle's epilogue order)
+# ----------------------------------------------------------------------
+def _qmm_inputs(card, m, k, n, seed=0):
+    g = torch.Generator(card).manual_seed(seed)
+    x = torch.randint(-128, 128, (m, k), generator=g, device=card, dtype=torch.int8)
+    w = torch.randint(-128, 128, (k, n), generator=g, device=card, dtype=torch.int8)
+    xs = torch.rand(m, generator=g, device=card) * 1.5 + 0.5
+    ws = torch.rand(n, generator=g, device=card) * 0.09 + 0.01
+    return x, w, xs, ws
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (128, 256, 128), (256, 512, 256), (64, 128, 32),  # tests/test_quant_matmul.py's sweep
+    (100, 200, 60), (33, 1000, 77), (1, 5, 3),  # ragged M, N and K
+    (300, 4096, 520),
+])
+def test_qmm_kernel_matches_plain_version_exactly(card, m, k, n):
+    args = _qmm_inputs(card, m, k, n, seed=m + n)
+    before = qm_kernel.launches.value
+    got = quant_matmul(*args)
+    assert qm_kernel.launches.value == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert torch.equal(got, quant_matmul_ref(*args))
+
+
+def test_qmm_kernel_sums_past_2_24_exactly(card):
+    x, w, xs, ws = _qmm_inputs(card, 64, 4096, 48, seed=11)
+    x[:8], w[:, :8] = 127, 127
+    w[0, :8] = 126  # odd sums near 2^26: not representable in f32
+    exact = x.cpu().long() @ w.cpu().long()
+    assert int(exact.abs().max()) >= 2**25
+    ones_m, ones_n = torch.ones(64, device=card), torch.ones(48, device=card)
+    assert torch.equal(quant_matmul(x, w, ones_m, ones_n).cpu(), exact.float())
+    assert torch.equal(quant_matmul(x, w, xs, ws), quant_matmul_ref(x, w, xs, ws))
+
+
+def test_qmm_wrapper_rejects_what_it_does_not_take(card):
+    x, w, xs, ws = _qmm_inputs(card, 16, 32, 8)
+    with pytest.raises(TypeError, match="int8"):
+        qm_kernel.quant_matmul_cuda(x.int(), w, xs, ws)
+    with pytest.raises(TypeError, match="float32"):
+        qm_kernel.quant_matmul_cuda(x, w, xs.double(), ws)
+    with pytest.raises(ValueError, match="contiguous"):
+        qm_kernel.quant_matmul_cuda(x, w.t().contiguous().t(), xs, ws)
+    with pytest.raises(ValueError, match="one device"):
+        qm_kernel.quant_matmul_cuda(x, w.cpu(), xs, ws)
+    with pytest.raises(ValueError, match=r"\[M, K\]"):
+        qm_kernel.quant_matmul_cuda(x, w[:16], xs, ws)
+    big = torch.zeros(1, qm_kernel.MAX_K + 1, dtype=torch.int8, device=card)
+    with pytest.raises(ValueError, match="overflow"):
+        qm_kernel.quant_matmul_cuda(big, big.t().contiguous(), xs[:1], xs[:1])

@@ -14,16 +14,19 @@ smallest integer type that holds the grid), and ``y``, the JAX
 ``forward_int`` of ``x`` as int32, checked equal to the numpy
 interpreter before it is written.
 
-It also writes one LM asset, ``smollm_smoke``: the reduced smollm-135m
-(``configs.get_smoke("smollm-135m", n_heads=9, n_kv_heads=3)``, float32)
-with weights from ``init_params(cfg, PRNGKey(0))`` in ``weights.npz``
-(keys are ``"/"``-joined tree paths), and in ``golden.npz`` the JAX
+It also writes two LM assets, each a reduced float32 config with
+weights from ``init_params(cfg, PRNGKey(0))`` in ``weights.npz`` (keys
+are ``"/"``-joined tree paths), and in ``golden.npz`` the JAX
 ``Engine``'s greedy serve of three prompts (``default_rng(0)``) padded to
 a batch of 4: the prompts, each request's ``max_new_tokens`` and output
 tokens, and the logits of prefill and of the first decode step.
 ``manifest.json`` holds the engine's settings, the number of decode
 steps it ran and the smallest gap between the top two logits of any
 greedy pick.
+
+    smollm_smoke        configs.get_smoke("smollm-135m", n_heads=9, n_kv_heads=3)
+    falcon_mamba_smoke  configs.get_smoke("falcon-mamba-7b"): 2 Mamba-1 layers,
+                        d_model 64, d_inner 128, state 8
 
 Run from the repository root:
 
@@ -101,19 +104,17 @@ def _flatten(tree, prefix=""):
     return out
 
 
-SMOLLM_SMOKE = {
-    "arch": "smollm-135m",
-    "smoke_kwargs": {"n_heads": 9, "n_kv_heads": 3},
-    "batch_size": 4,
-    "max_seq": 32,
-    "eos_id": 1,
-    "prompt_len": 12,
-    "max_new_tokens": [8, 5, 8],
+_SERVE = {"batch_size": 4, "max_seq": 32, "eos_id": 1, "prompt_len": 12,
+          "max_new_tokens": [8, 5, 8]}
+LMS = {
+    "smollm_smoke": {"arch": "smollm-135m", "smoke_kwargs": {"n_heads": 9, "n_kv_heads": 3},
+                     **_SERVE},
+    "falcon_mamba_smoke": {"arch": "falcon-mamba-7b", "smoke_kwargs": {}, **_SERVE},
 }
 
 
-def make_smollm_smoke(name: str = "smollm_smoke") -> None:
-    m = dict(SMOLLM_SMOKE)
+def make_lm_smoke(name: str) -> None:
+    m = dict(LMS[name])
     cfg = configs.get_smoke(m["arch"], **m["smoke_kwargs"])
     params = lm_init_params(cfg, jax.random.PRNGKey(0))
     rng = np.random.default_rng(0)
@@ -162,9 +163,6 @@ def make_smollm_smoke(name: str = "smollm_smoke") -> None:
           f"wrote {out} ({size} bytes)")
 
 
-LMS = {"smollm_smoke": make_smollm_smoke}
-
-
 if __name__ == "__main__":
     for name in sys.argv[1:] or [*NETWORKS, *LMS]:
-        (LMS.get(name) or make)(name)
+        (make_lm_smoke if name in LMS else make)(name)
