@@ -12,9 +12,12 @@ then runs eleven phases, each of which must pass:
 2. kernels  the adder-graph kernel against its plain PyTorch version on
             the card and against ``DAISProgram.evaluate`` (int64, reduced
             mod 2^32), exactly, on random programs (operand shifts 0-31,
-            output shifts -40..40, no ops, masked outputs) and on the 10
-            tables of the committed 64-particle Mixer, at batches 1, 7,
-            256, 1000 and 4097;
+            output shifts -40..40, no ops, masked outputs), on one of
+            60,032 live rows (past a block's shared memory: the
+            global-scratch entry point) and on the 10 tables of the
+            committed 64-particle Mixer (the shared-memory entry point),
+            at batches 1, 7, 256, 1000 and 4097, printing each case's
+            entry point and launch plan;
 3. designs  the committed Mixer and SVHN artifacts, loaded onto the card,
             reproduce their JAX golden outputs bit for bit, with exactly
             one kernel launch per CMVM step;
@@ -27,14 +30,17 @@ then runs eleven phases, each of which must pass:
             samples gives it: the kernel, held exactly against its plain
             version and the library yardstick (one float64
             ``torch.matmul`` by the table's dense matrix, which the port
-            never calls) on those inputs, then the three timed with CUDA
-            events, beside the table's bound;
+            never calls) on those inputs, then the three timed as device
+            time per call (CUDA-graph replays), beside the table's bound
+            and launch plan;
 6. flash    the flash-attention kernel against its plain PyTorch version
             on the card: f32 and bf16, causal and full, MHA, GQA 4:1,
             MQA and smollm's 9:3, head_dim 16/32/64/128, ragged Sq and
             Sk, and decode (Sq=1) against a 512-slot cache at offsets 0,
-            1, 127, 128 and 511 read from the card; max abs error per
-            dtype against atol 2e-5 (f32) and 2e-2 (bf16);
+            1, 127, 128 and 511 read from the card, at GQA group sizes 1,
+            3, 4 and 8; max abs error per dtype against atol 2e-5 (f32)
+            and 2e-2 (bf16), and how many cases each of the source's
+            kernels (decode, tensor-core, CUDA-core) took;
 7. lm       the reduced smollm-135m from the committed JAX weights
             (``assets/smollm_smoke``) served on the card reproduces the
             JAX engine's greedy tokens exactly and its prefill and first
@@ -108,9 +114,9 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 FA_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LM_F32_ATOL = 1e-4  # phase 7: float32 logits, the same arithmetic as JAX in another order
 # phase 8: bf16 logits of the kernel path against the plain path.  The two
-# round attention outputs to bf16 at different places (the kernel keeps p in
-# f32), and 30 layers carry those differences to logits whose bf16 spacing
-# is 1/32 at |x| in [4, 8): 0.25 is 8 such steps.
+# round attention outputs to bf16 at different places (the decode kernel
+# keeps p in f32), and 30 layers carry those differences to logits whose
+# bf16 spacing is 1/32 at |x| in [4, 8): 0.25 is 8 such steps.
 LM_BF16_ATOL = 0.25
 INT32_LANES_PER_SM = 64  # Hopper SM: 64 INT32 lanes per clock (architecture white paper)
 MUFU_PER_SM = 16  # Hopper SM: 16 special-function (exp2) results per clock
@@ -246,10 +252,40 @@ def random_program(rng, n_in, n_ops, n_out, max_shift, out_shifts, p_mask, p_neg
     return prog
 
 
+def wide_program(rng, n_in, n_wide, n_out):
+    """One level of ``n_wide`` ops over the inputs, read by the outputs:
+    n_in + n_wide rows live at once, past a block's shared memory (the
+    global-scratch entry point) for n_wide above 58,080."""
+    from repro_torch.core import DAISProgram, QInterval, Term
+
+    prog = DAISProgram()
+    for _ in range(n_in):
+        prog.add_input(QInterval(-128, 127, 0))
+    for _ in range(n_wide):
+        a, b = (int(i) for i in rng.integers(n_in, size=2))
+        prog.add_op(a, b, int(rng.integers(0, 4)), int(rng.integers(0, 4)), int(rng.choice([-1, 1])))
+    for _ in range(n_out):
+        row = int(rng.integers(len(prog.rows)))
+        prog.outputs.append(Term(int(rng.choice([-1, 1])), row, int(rng.integers(-4, 5))))
+    return prog
+
+
+def evaluate(np, prog, x, chunk: int = 1024):
+    """``prog.evaluate`` (int64, reduced mod 2^32) a chunk of samples at a
+    time, so a program of 60,000 rows needs no more than 0.5 GB."""
+    return np.concatenate([prog.evaluate(x[i:i + chunk]) for i in range(0, len(x), chunk)]
+                          ).astype(np.int32)
+
+
+def plan_text(plan) -> str:
+    return (f"{plan.entry} tile {plan.tile} x {plan.blocks} blocks, {plan.threads} threads, "
+            f"{plan.smem_bytes} B")
+
+
 def kernel_cases(torch, np, dev, mixer):
     from repro_torch.core import DAISProgram
     from repro_torch.kernels.adder_graph import compile_tables
-    from repro_torch.kernels.adder_graph.kernel import adder_graph_cuda
+    from repro_torch.kernels.adder_graph.kernel import adder_graph_cuda, plan_for
     from repro_torch.kernels.adder_graph.ref import adder_graph_ref
 
     rng = np.random.default_rng(0)
@@ -257,29 +293,38 @@ def kernel_cases(torch, np, dev, mixer):
         "shifts_0_31_out_-40_40": random_program(rng, 24, 400, 48, 31, (-40, 40), 0.1, 0.05),
         "no_ops": random_program(rng, 16, 0, 24, 0, (-40, 40), 0.25, 0.0),
         "masked": random_program(rng, 32, 200, 40, 3, (0, 2), 0.5, 0.05),
+        "wide_60000": wide_program(rng, 32, 60_000, 48),
     }
     for i, parr in enumerate(mixer.programs):
         progs[f"mixer_table{i}"] = DAISProgram.from_arrays(parr)
     max_err = 0
     n_cases = 0
+    entries = set()
     for name, prog in progs.items():
         tables = compile_tables(prog)
         qs = [r.qint for r in prog.rows[: prog.n_inputs]]
         lo = np.array([q.lo for q in qs])
         hi = np.array([q.hi for q in qs])
+        plans = []
         for batch in BATCHES:
             x = rng.integers(lo, hi + 1, size=(batch, prog.n_inputs)).astype(np.int32)
             xd = torch.from_numpy(x).to(dev)
             got = adder_graph_cuda(tables, xd).cpu().numpy()
             plain = adder_graph_ref(tables, xd).cpu().numpy()
-            want = prog.evaluate(x).astype(np.int32)  # int64 reduced mod 2^32
+            want = evaluate(np, prog, x)
             err = int(np.abs(got.astype(np.int64) - plain.astype(np.int64)).max(initial=0))
             max_err = max(max_err, err)
             check(np.array_equal(got, plain), f"kernel != plain version on {name}, batch {batch}")
             check(np.array_equal(got, want), f"kernel != evaluate on {name}, batch {batch}")
             n_cases += 1
+            plan = plan_for(tables, batch, dev)
+            entries.add(plan.entry)
+            plans.append(f"{batch}: {plan_text(plan)}")
         log(f"  {name}: n_in {tables.n_inputs} n_ops {tables.n_ops} "
-            f"levels {len(tables.level_bounds)} n_out {tables.n_outputs}: exact at batches {BATCHES}")
+            f"levels {len(tables.level_bounds)} n_out {tables.n_outputs} "
+            f"slots {tables.slot_plan.n_slots} of {tables.n_rows} rows: exact at batches {BATCHES}")
+        log("    plans: " + "; ".join(plans))
+    check(entries == {"shared", "global"}, f"phase 2 drove the entry points {sorted(entries)}")
     return max_err, n_cases
 
 
@@ -389,8 +434,12 @@ def int32_ops_per_row(np, tables) -> int:
 
 
 def table_times(torch, np, design, x, info) -> tuple[list[dict], int]:
+    """Each adder-graph call of one forward at the main path's inputs: the
+    kernel held exactly against its plain version and the float64
+    ``torch.matmul`` yardstick, then the three timed as device time per
+    call (CUDA-graph replays), beside the table's bound."""
     from repro_torch.core import DAISProgram
-    from repro_torch.kernels.adder_graph.kernel import adder_graph_cuda
+    from repro_torch.kernels.adder_graph.kernel import adder_graph_cuda, plan_for
     from repro_torch.kernels.adder_graph.ref import adder_graph_ref
 
     index = {t.digest: i for i, t in enumerate(design.tables)}
@@ -402,6 +451,7 @@ def table_times(torch, np, design, x, info) -> tuple[list[dict], int]:
         m = prog.evaluate(np.eye(tables.n_inputs, dtype=np.int64))
         md = torch.from_numpy(m.astype(np.float64)).to(xt.device)
         xf = xt.to(torch.float64)
+        dev = tables.device_arrays(xt.device)  # the tables on the card before any capture
         got = adder_graph_cuda(tables, xt)
         plain = adder_graph_ref(tables, xt)
         max_err = max(max_err, int((got.to(torch.int64) - plain.to(torch.int64)).abs().max()))
@@ -409,17 +459,20 @@ def table_times(torch, np, design, x, info) -> tuple[list[dict], int]:
         check(torch.equal(torch.matmul(xf, md).to(torch.int32), got),
               f"table {i}, {xt.shape[0]} rows: kernel != float64 matmul yardstick")
         del got, plain
-        k_ms = time_ms(torch, lambda t=tables, v=xt: adder_graph_cuda(t, v))
-        p_ms = time_ms(torch, lambda t=tables, v=xt: adder_graph_ref(t, v))
-        l_ms = time_ms(torch, lambda a=xf, b=md: torch.matmul(a, b))
-        dev = tables.device_arrays(xt.device)
+        k_ms = graph_ms(torch, lambda t=tables, v=xt: adder_graph_cuda(t, v))
+        p_ms = graph_ms(torch, lambda t=tables, v=xt: adder_graph_ref(t, v), calls=2, replays=5)
+        l_ms = graph_ms(torch, lambda a=xf, b=md: torch.matmul(a, b))
         n = xt.shape[0]
+        plan = plan_for(tables, n, xt.device)
+        # the bytes the entry point must move: x, y and the tables it reads
+        read = ((dev.slot_ops, dev.slot_outs) if plan.entry == "shared" else (dev.instr, dev.outs))
         nbytes = 4 * n * (tables.n_inputs + tables.n_outputs) + sum(
-            a.numel() * 4 for a in dev)
+            a.numel() * 4 for a in (*read, dev.level_starts))
         ops = n * int32_ops_per_row(np, tables)
         rows.append({
             "table": i, "rows": n, "n_in": tables.n_inputs, "n_ops": tables.n_ops,
             "levels": len(tables.level_bounds), "n_out": tables.n_outputs,
+            "slots": tables.slot_plan.n_slots, "plan": plan_text(plan),
             "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
             "bytes": nbytes, "int32_ops": ops,
             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -445,7 +498,7 @@ def forward_breakdown(torch, design, x) -> dict:
             continue  # host-side ops; their kernels are listed on their own
         us = getattr(ev, "self_device_time_total", 0.0) or 0.0
         all_us += us
-        if "adder_graph_kernel" in ev.key:
+        if "namespace)::adder_graph_" in ev.key:  # either entry point
             kernel_us += us
     return {
         "forward_ms": fwd_ms,
@@ -468,12 +521,14 @@ FLASH_SHAPES = [  # (B, Hq, Hkv, Sq, Sk, D)
     (1, 4, 4, 100, 300, 32),  # ragged, Sq < Sk
 ]
 DECODE_OFFSETS = (0, 1, 127, 128, 511)
+DECODE_GROUPS = (1, 3, 4, 8)  # GQA group sizes (query heads per KV head) of the decode cases
 DECODE_MAX_SEQ = 512
 
 
 def flash_cases(torch, dev) -> dict:
     """Max |kernel - plain| per dtype over the phase's cases."""
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, flash_plan
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     gen = torch.Generator(dev).manual_seed(0)
@@ -495,14 +550,21 @@ def flash_cases(torch, dev) -> dict:
                        ((9, 40), (3, 70), (3, 70)))
             cases.append((f"unaligned (2, 9, 3, 40, 70, 64) causal={causal}", q, k, v, causal,
                           None))
-        for pos in DECODE_OFFSETS:
-            k = rand(8, 3, DECODE_MAX_SEQ, 64, dtype=dtype)
-            v = rand(8, 3, DECODE_MAX_SEQ, 64, dtype=dtype)
-            k[:, :, pos + 1:] = 1e4  # unwritten slots: the mask must hide them
-            v[:, :, pos + 1:] = -1e4
-            cases.append((f"decode offset {pos}", rand(8, 9, 1, 64, dtype=dtype), k, v, True,
-                          torch.tensor(pos, dtype=torch.int32, device=dev)))
+        for group in DECODE_GROUPS:
+            for pos in DECODE_OFFSETS:
+                k = rand(8, 3, DECODE_MAX_SEQ, 64, dtype=dtype)
+                v = rand(8, 3, DECODE_MAX_SEQ, 64, dtype=dtype)
+                k[:, :, pos + 1:] = 1e4  # unwritten slots: the mask must hide them
+                v[:, :, pos + 1:] = -1e4
+                cases.append((f"decode group {group} offset {pos}",
+                              rand(8, 3 * group, 1, 64, dtype=dtype), k, v, True,
+                              torch.tensor(pos, dtype=torch.int32, device=dev)))
+        plans = {}
         for name, q, k, v, causal, off in cases:
+            plan = flash_plan(*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.dtype,
+                              sm_count(q.device))
+            key = f"{plan.kernel} x{plan.splits}"
+            plans[key] = plans.get(key, 0) + 1
             got = flash_attention_cuda(q, k, v, causal=causal, offset=off)
             torch.cuda.synchronize()
             if off is None:
@@ -515,7 +577,7 @@ def flash_cases(torch, dev) -> dict:
             worst = max(worst, err)
         errs[dname] = worst
         log(f"  {dname}: {len(cases)} cases, max |kernel - plain| = {worst:.3g} "
-            f"(atol {FA_ATOL[dname]})")
+            f"(atol {FA_ATOL[dname]}); cases per kernel and splits: {json.dumps(plans)}")
     return errs
 
 
@@ -593,7 +655,7 @@ def lm_paths() -> dict:
 
     return {
         "smollm-135m": {
-            "kernel": "flash_attention", "profile_key": "flash_kernel",
+            "kernel": "flash_attention", "profile_key": "namespace)::flash_",
             "module": attention, "attr": "flash_attention", "plain": attention_ref,
             "init_on_card": False,  # 0.3 GB: drawn on the host, as phase 8 always has
             "f32_atol": None,  # held by LM_BF16_ATOL in bf16
@@ -899,7 +961,8 @@ def flash_times(torch, inputs) -> dict:
     """The kernel at the main path's prefill and decode inputs: held
     against its plain version and the library yardstick, then the three
     timed with CUDA events, beside the bound."""
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, flash_plan
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     out = {}
@@ -926,9 +989,11 @@ def flash_times(torch, inputs) -> dict:
         check(err <= atol, f"flash at the {name} inputs: max |kernel - plain| {err}")
         check(lib_err <= atol, f"flash at the {name} inputs: max |kernel - library| {lib_err}")
         kern = lambda: flash_attention_cuda(q, k, v, causal=causal, offset=offset)  # noqa: E731
+        plan = flash_plan(b, hq, hkv, sq, sk, q.dtype, sm_count(q.device))
         row = {
             "shape": f"q {list(q.shape)}, k/v {list(k.shape)}, {str(q.dtype)[6:]}, "
                      f"causal={causal}, offset {start}",
+            "plan": f"{plan.kernel} kernel, {plan.splits} split(s)",
             "ms": graph_ms(torch, kern),
             "plain_ms": graph_ms(torch, lambda: attention_ref(q, k, v, causal=causal,
                                                                 offset=offset)),
@@ -1211,7 +1276,7 @@ def main() -> int:
         f"load + register + warm-up {t_reg - t0:.2f} s")
     log("serve stages: " + json.dumps(stats["per_stage"]))
 
-    log("== 5. times (CUDA events; per call, back to back)")
+    log("== 5. times (device time per call: CUDA-graph replays)")
     timings = {}
     for batch in (256, 4096):
         xb = torch.from_numpy(np.concatenate([x_gold] * (batch // 1024 or 1))[:batch]).to(dev)
@@ -1242,6 +1307,8 @@ def main() -> int:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": sum(r["library_ms"] for r in fwd),
         "shape": "one forward of the 64-particle Mixer at 256 samples: its 10 CMVM calls",
+        "at_4096": {k: sum(r[k] for r in timings[4096]["tables"])
+                    for k in ("kernel_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")},
     }]}
 
     log("== 6. flash-attention kernel vs plain version")

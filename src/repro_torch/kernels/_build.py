@@ -30,6 +30,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_n_sms: dict[int, int] = {}
 
 
 def sources() -> dict[str, Path]:
@@ -112,3 +113,15 @@ def library(name: str) -> ctypes.CDLL:
                 raise RuntimeError(f"no CUDA source for kernel {name!r}")
             lib = _loaded[name] = ctypes.CDLL(str(paths[name]))
         return lib
+
+
+def sm_count(device) -> int:
+    """The SMs of a CUDA device (read once per device); the launch plans
+    size their grids by it."""
+    import torch
+
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    n = _n_sms.get(index)
+    if n is None:
+        n = _n_sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return n

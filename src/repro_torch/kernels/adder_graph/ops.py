@@ -14,6 +14,7 @@ import torch
 from ...core.dais import KIND_ADD, KIND_INPUT, KIND_NEG, DAISProgram
 from .kernel import adder_graph_cuda
 from .ref import adder_graph_ref
+from .slots import SlotPlan, plan_slots
 
 
 class DeviceTables(NamedTuple):
@@ -22,6 +23,8 @@ class DeviceTables(NamedTuple):
     instr: torch.Tensor  # [n_ops, 5]
     outs: torch.Tensor  # [n_out, 4]
     level_starts: torch.Tensor  # [n_levels + 1]: level k is instr[starts[k]:starts[k+1]]
+    slot_ops: torch.Tensor  # [n_ops, 4]: the slot plan's instructions (shared-memory kernel)
+    slot_outs: torch.Tensor  # [n_out, 4]: the slot plan's output table
 
 
 @dataclass(frozen=True)
@@ -42,7 +45,9 @@ class AdderGraphTables:
             to keep it truthful.
 
     :meth:`device_arrays` keeps one copy of the tables per device, made
-    on first use, so a call never copies them again.
+    on first use, so a call never copies them again; with them the slot
+    plan of the shared-memory kernel (:attr:`slot_plan`), which is
+    derived from the fields above and enters neither them nor the digest.
     """
 
     n_inputs: int
@@ -81,16 +86,29 @@ class AdderGraphTables:
     def n_outputs(self) -> int:
         return int(self.outs.shape[0])
 
+    @property
+    def slot_plan(self) -> SlotPlan:
+        """Each row's slot in the shared-memory kernel (planned once)."""
+        plan = self.__dict__.get("_slot_plan")
+        if plan is None:
+            plan = plan_slots(self)
+            object.__setattr__(self, "_slot_plan", plan)
+        return plan
+
     def device_arrays(self, device: torch.device) -> DeviceTables:
-        """The tables on ``device`` (copied there once, then reused)."""
+        """The tables and their slot plan on ``device`` (copied there
+        once, then reused)."""
         cache = self._on_device  # type: ignore[attr-defined]
         dev = cache.get(device)
         if dev is None:
             starts = [lo for lo, _ in self.level_bounds[:1]] + [hi for _, hi in self.level_bounds]
+            plan = self.slot_plan
             dev = DeviceTables(
                 torch.tensor(self.instr, dtype=torch.int32, device=device).reshape(-1, 5),
                 torch.tensor(self.outs, dtype=torch.int32, device=device).reshape(-1, 4),
                 torch.tensor(starts or [0], dtype=torch.int32, device=device),
+                torch.tensor(plan.ops, dtype=torch.int32, device=device).reshape(-1, 4),
+                torch.tensor(plan.outs, dtype=torch.int32, device=device).reshape(-1, 4),
             )
             dev = cache.setdefault(device, dev)
         return dev

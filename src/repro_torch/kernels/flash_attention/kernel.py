@@ -3,22 +3,29 @@
 
 It replaces the TPU kernel ``repro/kernels/flash_attention/kernel.py``
 (``_flash_kernel``, launched by ``flash_attention_pallas``).  The wrapper
-checks what the kernel takes, allocates the output with ``torch.empty``,
-launches on the current stream, raises on a launch error, and counts its
-launches in ``launches``.  Nothing is built on import: the library is
-built and loaded on the first launch.
+checks what the kernel takes, picks one of the source's three kernels by
+:func:`flash_plan` (shapes and dtype only), allocates the output with
+``torch.empty``, launches on the current stream, raises on a launch
+error, and counts its launches in ``launches``.  Nothing is built on
+import: the library is built and loaded on the first launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
-from .._build import LaunchCounter, library
+from .._build import LaunchCounter, library, sm_count
 
 HEAD_DIMS = (16, 32, 64, 128)  # the head_dims the kernel is compiled for
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_CODES = {"cuda_core": 0, "decode": 1, "tensor_core": 2}
+DECODE_ROWS = 16  # the decode kernel packs at most this many (query head, query row) pairs
+MAX_SPLITS = 8  # blocks of a decode cluster (the portable cluster size)
+SPLIT_MIN_KEYS = 32  # cached keys per split at least: one warp's worth
+H100_SMS = 132
 
 launches = LaunchCounter()
 
@@ -26,11 +33,36 @@ _c_int = ctypes.c_int
 _c_ptr = ctypes.c_void_p
 
 
+class FlashPlan(NamedTuple):
+    """Which of the source's kernels a call takes, and its key splits."""
+
+    kernel: str  # "decode", "tensor_core" (bf16) or "cuda_core" (f32)
+    splits: int  # blocks of a decode cluster that share the keys (1 elsewhere)
+
+
+def flash_plan(b: int, hq: int, hkv: int, sq: int, sk: int, dtype: torch.dtype,
+               n_sms: int = H100_SMS) -> FlashPlan:
+    """The kernel for q [b, hq, sq, D] against k/v [b, hkv, sk, D].
+
+    Decode, where one GQA group's rows (hq / hkv query heads times sq)
+    fit one block: the splits double, up to 8, while b * hkv * splits
+    blocks fit the card's SMs and every split keeps 32 of the sk cached
+    keys.  Otherwise bf16 takes the tensor cores and f32 the CUDA cores.
+    The plan depends on shapes alone, never on the offset's value."""
+    if (hq // hkv) * sq <= DECODE_ROWS:
+        splits = 1
+        while (splits < MAX_SPLITS and b * hkv * 2 * splits <= n_sms
+               and 2 * splits * SPLIT_MIN_KEYS <= sk):
+            splits *= 2
+        return FlashPlan("decode", splits)
+    return FlashPlan("tensor_core" if dtype == torch.bfloat16 else "cuda_core", 1)
+
+
 def _lib() -> ctypes.CDLL:
     lib = library("flash_attention")
     if lib.da4ml_flash_attention.argtypes is None:
         lib.da4ml_flash_attention.argtypes = [
-            _c_int, _c_int,  # dtype, head_dim
+            _c_int, _c_int, _c_int, _c_int,  # dtype, kernel, splits, head_dim
             _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # q, k, v, o
             _c_int, _c_int, _c_int, _c_int, _c_int,  # B, Hq, Hkv, Sq, Sk
             ctypes.POINTER(ctypes.c_longlong),  # the 9 strides of q, k, v
@@ -100,10 +132,12 @@ def flash_attention_cuda(
         return out
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     scale = d**-0.5 if scale is None else scale
+    plan = flash_plan(b, hq, hkv, sq, sk, q.dtype, sm_count(q.device))
     lib = _lib()
     with torch.cuda.device(q.device):
         err = lib.da4ml_flash_attention(
-            _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            _DTYPE_CODES[q.dtype], _KERNEL_CODES[plan.kernel], plan.splits, d,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), b, hq, hkv, sq, sk, strides, scale, int(causal),
             off_ptr, off_host, int(_aligned16(q, k, v)),
             torch.cuda.current_stream(q.device).cuda_stream,

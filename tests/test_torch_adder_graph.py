@@ -200,8 +200,3 @@ def test_kernel_wrapper_rejects_what_it_does_not_take():
         ag_kernel.adder_graph_cuda(pt, torch.zeros((4, 2), dtype=torch.int32))
     with pytest.raises(ValueError, match="unsupported device"):
         adder_graph_apply(pt, torch.zeros((4, 2), dtype=torch.int32, device="meta"))
-
-
-@pytest.mark.parametrize("batch,tile", [(1, 1), (2, 2), (7, 8), (32, 32), (4097, 32)])
-def test_tile_for(batch, tile):
-    assert ag_kernel.tile_for(batch) == tile

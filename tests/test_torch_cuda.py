@@ -1,13 +1,17 @@
-"""The port on the CUDA card: the hand-written adder-graph kernel against
-its plain PyTorch version, the committed full-size designs against their
-JAX golden outputs, and the serving engine (tolerance: exact equality);
-the hand-written flash-attention kernel against its plain PyTorch version
-(atol 2e-5 in float32, 2e-2 in bfloat16: the kernel keeps ``p`` in f32
-where the plain version casts it to the working dtype); the hand-written
-selective-scan kernel against its plain version (atol 1e-5, the JAX
-kernel tests' own) and the W8A8 matmul kernel against its plain version
-(exact); and the reduced smollm-135m and falcon-mamba LMs against their
-committed JAX golden tokens (exact) and logits (atol 1e-4 in float32).
+"""The port on the CUDA card: the hand-written adder-graph kernel (both
+entry points: values in shared memory, and the global scratch for a
+table too large for it) against its plain PyTorch version, the committed
+full-size designs against their JAX golden outputs, and the serving
+engine (tolerance: exact equality); the hand-written flash-attention
+kernel (decode at GQA group sizes 1, 3, 4 and 8, tensor-core and
+CUDA-core prefill) against its plain PyTorch version (atol 2e-5 in
+float32, 2e-2 in bfloat16: the decode kernel keeps ``p`` in f32 where
+the plain version casts it to the working dtype, and the outputs round
+to bf16); the hand-written selective-scan kernel against its plain
+version (atol 1e-5, the JAX kernel tests' own) and the W8A8 matmul
+kernel against its plain version (exact); and the reduced smollm-135m
+and falcon-mamba LMs against their committed JAX golden tokens (exact)
+and logits (atol 1e-4 in float32).
 
 Every test here needs a card and skips without one.  This file imports
 neither ``jax`` nor ``repro``, so it runs where only PyTorch is
@@ -93,6 +97,64 @@ def test_kernel_matches_plain_version(card, seed, batch):
     np.testing.assert_array_equal(got.cpu().numpy(), adder_graph_apply(pt, torch.from_numpy(x)).numpy())
 
 
+def _wide_program(seed, n_wide, n_in=32, n_out=48):
+    """One level of ``n_wide`` ops over the inputs, read by the outputs:
+    about ``n_in + n_wide`` rows live at once, so the size rule sends the
+    table to one entry point or the other."""
+    rng = np.random.default_rng(seed)
+    prog = DAISProgram()
+    for _ in range(n_in):
+        prog.add_input(QInterval(-128, 127, 0))
+    for _ in range(n_wide):
+        a, b = (int(i) for i in rng.integers(n_in, size=2))
+        prog.add_op(a, b, int(rng.integers(0, 4)), int(rng.integers(0, 4)), int(rng.choice([-1, 1])))
+    for _ in range(n_out):
+        row = int(rng.integers(len(prog.rows)))
+        prog.outputs.append(Term(int(rng.choice([-1, 1])), row, int(rng.integers(-4, 5))))
+    return prog
+
+
+@pytest.mark.parametrize("batch", [1, 7, 300])
+@pytest.mark.parametrize("n_wide,entry", [(50_000, "shared"), (60_000, "global")])
+def test_both_entry_points_match_plain_version(card, n_wide, entry, batch):
+    """A table just inside and one just outside a block's shared memory
+    (one sample: 50,032 and 60,032 slots of 4 bytes against 232,448):
+    each entry point is bit-equal to the plain version and evaluate()."""
+    prog = _wide_program(n_wide, n_wide)
+    pt = compile_tables(prog)
+    assert pt.slot_plan.n_slots == n_wide + 32
+    assert ag_kernel.plan_for(pt, batch, card).entry == entry
+    x = np.random.default_rng(batch).integers(-128, 128, size=(batch, 32)).astype(np.int32)
+    xd = torch.from_numpy(x).to(card)
+    before = ag_kernel.launches.value
+    got = ag_kernel.adder_graph_cuda(pt, xd).cpu().numpy()
+    assert ag_kernel.launches.value == before + 1
+    np.testing.assert_array_equal(got, adder_graph_ref(pt, xd).cpu().numpy())
+    np.testing.assert_array_equal(got, prog.evaluate(x).astype(np.int32))
+
+
+@pytest.mark.parametrize("batch", [1, 5, 64, 4097])
+def test_mixer_tables_match_plain_version_at_every_tile(card, batch):
+    """Every table of the committed Mixer through the shared-memory entry
+    point, at batches whose launch plans take tiles of 1 to 32 samples."""
+    design = load_design(ASSETS / "mixer_full")
+    tiles = set()
+    for i, t in enumerate(design.tables):
+        prog = DAISProgram.from_arrays(design.programs[i])
+        plan = ag_kernel.plan_for(t, batch * 16, card)
+        assert plan.entry == "shared"
+        tiles.add(plan.tile)
+        qs = [r.qint for r in prog.rows[: prog.n_inputs]]
+        rng = np.random.default_rng(i)
+        x = rng.integers([q.lo for q in qs], [q.hi + 1 for q in qs],
+                         size=(batch * 16, prog.n_inputs)).astype(np.int32)
+        xd = torch.from_numpy(x).to(card)
+        got = ag_kernel.adder_graph_cuda(t, xd).cpu().numpy()
+        np.testing.assert_array_equal(got, adder_graph_ref(t, xd).cpu().numpy())
+        np.testing.assert_array_equal(got, prog.evaluate(x).astype(np.int32))
+    assert tiles
+
+
 def test_kernel_wrapper_rejects_what_it_does_not_take(card):
     pt = compile_tables(_random_program(0))
     with pytest.raises(TypeError, match="int32"):
@@ -172,6 +234,40 @@ def test_flash_kernel_decode_reads_the_offset_on_the_card(card, dtype, pos):
     kt = k.transpose(1, 2).contiguous().transpose(1, 2)
     torch.testing.assert_close(flash_attention(q, kt, v, causal=True, offset=off), got,
                                atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [1, 3, 4, 8])
+@pytest.mark.parametrize("pos", [0, 1, 127, 128, 511])
+def test_flash_decode_packs_gqa_groups(card, dtype, group, pos):
+    """Decode (Sq = 1) at GQA group sizes 1, 3, 4 and 8: the group's query
+    heads share one block and the live keys are split over a cluster;
+    slots past ``pos`` hold garbage that the mask must hide."""
+    hkv = 2
+    q, k, v = _qkv(card, dtype, 3, hkv * group, hkv, 1, 512, 64, seed=group * 1000 + pos)
+    k[:, :, pos + 1:] = 1e4
+    v[:, :, pos + 1:] = -1e4
+    off = torch.tensor(pos, dtype=torch.int32, device=card)
+    plan = fa_kernel.flash_plan(3, hkv * group, hkv, 1, 512, dtype)
+    assert plan.kernel == "decode" and plan.splits == 8
+    got = flash_attention(q, k, v, causal=True, offset=off)
+    want = attention_ref(q, k[:, :, : pos + 1], v[:, :, : pos + 1], causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=FA_ATOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d", [
+    (2, 4, 4, 4, 300, 32),  # 4 rows of one head: decode with Sq > 1
+    (1, 8, 2, 4, 64, 128),  # 16 rows: the decode kernel's widest tile
+    (1, 16, 1, 2, 40, 16),  # MQA, 32 rows: past the decode tile
+])
+def test_flash_kernel_short_queries(card, dtype, b, hq, hkv, sq, sk, d):
+    """Short query blocks on either side of the decode kernel's 16 rows."""
+    q, k, v = _qkv(card, dtype, b, hq, hkv, sq, sk, d)
+    for causal in (True, False):
+        got = flash_attention(q, k, v, causal=causal)
+        want = attention_ref(q, k, v, causal=causal)
+        torch.testing.assert_close(got.float(), want.float(), atol=FA_ATOL[dtype], rtol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

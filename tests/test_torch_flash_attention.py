@@ -150,3 +150,19 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     with pytest.raises(ValueError, match="CUDA tensors"):
         fa_kernel.flash_attention_cuda(q, k, v)
 
+
+
+@pytest.mark.parametrize("shape,dtype,want", [
+    ((8, 9, 3, 1, 512), torch.bfloat16, ("decode", 4)),  # smollm-135m's decode: 24 (b, KV head) pairs
+    ((8, 9, 3, 128, 128), torch.bfloat16, ("tensor_core", 1)),  # smollm-135m's prefill
+    ((8, 9, 3, 128, 128), torch.float32, ("cuda_core", 1)),
+    ((1, 4, 4, 1, 512), torch.float32, ("decode", 8)),
+    ((64, 8, 8, 1, 512), torch.bfloat16, ("decode", 1)),  # 512 pairs fill the card alone
+    ((2, 32, 1, 1, 128), torch.bfloat16, ("tensor_core", 1)),  # 32 rows: past the decode tile
+    ((1, 2, 1, 8, 40), torch.float32, ("decode", 1)),  # 40 keys: one split of at least 32
+], ids=["smollm-decode", "smollm-prefill", "f32-prefill", "mha-decode", "wide-batch",
+        "mqa-32-rows", "short-cache"])
+def test_flash_plan(shape, dtype, want):
+    """The kernel and the decode splits follow from the shapes and dtype
+    alone (never the offset), on a 132-SM card."""
+    assert tuple(fa_kernel.flash_plan(*shape, dtype, n_sms=132)) == want
