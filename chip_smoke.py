@@ -62,14 +62,21 @@ then runs eleven phases, each of which must pass:
             library yardstick, which the port never calls), then the three
             timed as device time per call (CUDA-graph replays between CUDA
             events) beside the kernel's bound;
-9. kernels  the selective-scan kernel against its plain PyTorch version
-            on the card (the ``tests/test_ssm_kernel.py`` shapes, ragged
-            channels, N 1/4/8/16, S = 1, falcon-mamba-7b's prefill and
-            decode shapes, two halves chained through the state, the state
-            updated in place, B and C as strided views; atol 1e-5) and the
-            W8A8 matmul kernel against its plain version (the
-            ``tests/test_quant_matmul.py`` sweep, ragged M/N/K, K = 4096
-            with sums past 2^24; exact);
+9. kernels  every kernel of the selective-scan source against its plain
+            PyTorch version on the card (atol 1e-5): the decode kernel
+            (S = 1) at every N from 1 to 16 with ragged channels (D 129),
+            B 1 and 8, the state updated in place and B and C as strided
+            views, and at falcon-mamba-7b's decode shapes; the prefill
+            kernel at the ``tests/test_ssm_kernel.py`` shapes, S 2, 33 and
+            128, ragged channels, N 1/4/5/8/13/16, falcon-mamba-7b's
+            prefill, two halves chained through the state in place, B and C
+            as strided views; and both kernels of the W8A8 source against
+            their plain version, exactly: the TMA/wgmma kernel at aligned
+            rows with ragged M and N tiles and at K = 4096 with sums past
+            2^24, the mma.sync kernel at rows TMA cannot describe (K or N
+            not a multiple of 16) and at a base 8 bytes off 16-byte
+            alignment.  Each case prints the kernel it took, and each
+            kernel must have run;
 10. ssm     the reduced falcon-mamba from the committed JAX weights
             (``assets/falcon_mamba_smoke``) served on the card reproduces
             the JAX engine's greedy tokens exactly and its prefill and
@@ -80,25 +87,30 @@ then runs eleven phases, each of which must pass:
             bf16, 7,272,140,800 parameters) with the port's own random
             weights (seed 0, drawn on the card) in ``Engine(batch_size=8,
             max_seq=512)`` serves 8 requests of 128-token prompts and 64
-            new tokens, as phase 8 does, counted (64 x 64 scan launches,
-            no other kernel) and checked by phase 8's rule against the
-            plain path; then the scan at the main path's layer-0 prefill
-            and decode inputs against its plain version, timed by
-            CUDA-graph replay beside its bound; and the W8A8 matmul, run
-            once through its public op (its only path), held exactly
+            new tokens, as phase 8 does, counted (64 x 64 scan launches, no
+            other kernel: 64 on the prefill kernel, 64 x 63 on the decode
+            kernel) and checked by phase 8's rule against the plain path;
+            then the scan at the main path's layer-0 prefill and decode
+            inputs against its plain version, timed by CUDA-graph replay
+            beside its bound, each call on its own of 32 states (128 MB at
+            decode, past the 50 MB L2, as the main path's 64 layers bring
+            theirs from device memory) and, labelled L2-warm, on one state
+            again and again; and the W8A8 matmul, run once through its
+            public op (its only path, on the TMA kernel), held exactly
             against its plain version and ``torch._int_mm`` times the
             scales (the library yardstick, which the port never calls) at
             M 1024, K 4096, N 16384, the three timed beside its bound.
 
-The line before the last is the ``kernels`` JSON object; the last line
-is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without
-the rest of the repository beside it, the script fails before printing
-any result.
+The line before the last is the ``kernels`` JSON object, with each
+source's kernels under ``entry_points``; the last line is ``{"ok": true,
+"device": {...}}``.  Without a CUDA card, or without the rest of the
+repository beside it, the script fails before printing any result.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -122,6 +134,7 @@ INT32_LANES_PER_SM = 64  # Hopper SM: 64 INT32 lanes per clock (architecture whi
 MUFU_PER_SM = 16  # Hopper SM: 16 special-function (exp2) results per clock
 INT8_OPS_PER_S = 1979e12  # H100 SXM data sheet, dense int8 tensor cores
 SCAN_ATOL = 1e-5  # the JAX selective-scan kernel tests' own
+SCAN_STATES = 32  # distinct states per timed graph: 32 x 4 MB at falcon-mamba's decode
 
 
 class SmokeFailure(RuntimeError):
@@ -340,6 +353,18 @@ def launch_counters() -> dict:
             "ssm_scan": ss_kernel.launches, "quant_matmul": qm_kernel.launches}
 
 
+def kernel_counters() -> dict:
+    """The launch counters by kernel of the sources that hold several, as
+    "source.kernel": each launch counted in ``launch_counters`` is also
+    counted here under the kernel it took."""
+    from repro_torch.kernels.quant_matmul import kernel as qm_kernel
+    from repro_torch.kernels.ssm_scan import kernel as ss_kernel
+
+    return {f"{source}.{name}": counter
+            for source, mod in (("ssm_scan", ss_kernel), ("quant_matmul", qm_kernel))
+            for name, counter in mod.kernel_launches.items()}
+
+
 def check_only(counts: dict, kernel: str | None, what: str) -> None:
     """No kernel but ``kernel`` was launched in the run that gave ``counts``."""
     others = {k: v for k, v in counts.items() if k != kernel and v}
@@ -347,12 +372,18 @@ def check_only(counts: dict, kernel: str | None, what: str) -> None:
 
 
 def reset_counts() -> None:
-    for counter in launch_counters().values():
+    for counter in [*launch_counters().values(), *kernel_counters().values()]:
         counter.reset()
 
 
 def read_counts() -> dict:
     return {name: counter.value for name, counter in launch_counters().items()}
+
+
+def read_kernel_counts(source: str) -> dict:
+    """Launches by kernel of ``source`` since the last ``reset_counts``."""
+    return {name.split(".", 1)[1]: counter.value for name, counter in kernel_counters().items()
+            if name.startswith(source + ".")}
 
 
 # ----------------------------------------------------------------------
@@ -663,7 +694,7 @@ def lm_paths() -> dict:
             "capture": {"prefill": 0, "decode": DECODE_TIMING_OFFSET - PROMPT_LEN + 1},
         },
         "falcon-mamba-7b": {
-            "kernel": "ssm_scan", "profile_key": "ssm_scan_kernel",
+            "kernel": "ssm_scan", "profile_key": "namespace)::ssm_",
             "module": ssm, "attr": "selective_scan", "plain": selective_scan_ref,
             "init_on_card": True,  # 14.5 GB of bf16 weights, 29 GB of f32 draws
             # 64 random bf16 layers amplify a one-ulp f32 difference in the
@@ -803,6 +834,7 @@ def serve_lm(torch, np, dev, arch: str) -> dict:
     t_end = time.perf_counter()
     counts = read_counts()
     launches = counts[kernel]
+    by_kernel = read_kernel_counts(kernel)
     check_only(counts, kernel, f"{arch}'s serve")
 
     n_tok = sum(len(r.out_tokens) for r in reqs)
@@ -862,7 +894,7 @@ def serve_lm(torch, np, dev, arch: str) -> dict:
         agree["f32"] = agree32
 
     step = decode_breakdown(torch, cfg, params, prompts, dev, path["profile_key"])
-    return {"launches": launches, "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+    return {"launches": launches, "launches_by_kernel": by_kernel, "prefill_ms": prefill_ms, "decode_ms": decode_ms,
             "tokens_per_s": n_tok / (t_end - t_start), "inputs": inputs,
             "kernel_vs_plain": agree, **step}
 
@@ -1014,14 +1046,19 @@ def flash_times(torch, inputs) -> dict:
 # ----------------------------------------------------------------------
 SCAN_SHAPES = [  # (B, S, D, N)
     (2, 16, 32, 8), (1, 32, 64, 16), (3, 8, 16, 4),  # tests/test_ssm_kernel.py
-    (2, 100, 300, 16),  # ragged channels, several 32-step chunks of B and C
+    (2, 100, 300, 16),  # ragged channels, several chunks of steps
     (4, 70, 129, 8), (1, 5, 7, 1),  # ragged, N = 8 and N = 1
+    (2, 2, 129, 16), (4, 33, 129, 5), (2, 128, 129, 13),  # prefill at S 2, 33 and 128
     (8, 1, 8192, 16), (8, 1, 8192, 8),  # decode at falcon-mamba-7b's width
     (8, 128, 8192, 16),  # falcon-mamba-7b's prefill
 ]
+# decode (S = 1) at every state size, ragged channels, one and eight batch
+# rows, the state updated in place and B and C as strided views
+SCAN_DECODE = [(b, 1, 129, n) for n in range(1, 17) for b in (1, 8)]
 QMM_SHAPES = [  # (M, K, N)
     (128, 256, 128), (256, 512, 256), (64, 128, 32),  # tests/test_quant_matmul.py
-    (100, 200, 60), (33, 1000, 77), (1, 5, 3),  # ragged M, N and K: byte loads
+    (1000, 4096, 16400), (129, 48, 272), (1, 16, 16),  # TMA: ragged M and N tiles, aligned rows
+    (100, 200, 60), (33, 1000, 77), (1, 5, 3),  # mma.sync: rows TMA cannot describe
     (300, 4096, 520),
 ]
 
@@ -1035,24 +1072,40 @@ def scan_inputs(torch, dev, gen, b, s, d, n):
             normal(b, d, n) * 0.1)
 
 
-def scan_cases(torch, dev) -> float:
-    """Max |kernel - plain| over the phase's cases; each within SCAN_ATOL."""
-    from repro_torch.kernels.ssm_scan.kernel import selective_scan_cuda
+def scan_cases(torch, dev) -> dict:
+    """Every case within SCAN_ATOL of the plain version; returns the max
+    |kernel - plain| and the number of cases by the kernel each took."""
+    from repro_torch.kernels.ssm_scan.kernel import scan_kernel_for, selective_scan_cuda
     from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
 
     gen = torch.Generator(dev).manual_seed(0)
-    worst = 0.0
+    worst = {"decode": 0.0, "prefill": 0.0}
+    taken = {"decode": 0, "prefill": 0}
 
-    def held(name, got, want):
-        nonlocal worst
+    def held(name, shape, got, want):
         torch.cuda.synchronize()
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         check(err <= SCAN_ATOL, f"scan {name}: max |kernel - plain| {err}")
-        worst = max(worst, err)
+        kernel = scan_kernel_for(shape[1])
+        worst[kernel] = max(worst[kernel], err)
+        taken[kernel] += 1
+        return kernel
 
     for shape in SCAN_SHAPES:
         args = scan_inputs(torch, dev, gen, *shape)
-        held(shape, selective_scan_cuda(*args), selective_scan_ref(*args))
+        kernel = held(shape, shape, selective_scan_cuda(*args), selective_scan_ref(*args))
+        log(f"  scan {shape}: {kernel}")
+    for shape in SCAN_DECODE:
+        b, s, d, n = shape
+        dt, bm, cm, x, a, h0 = scan_inputs(torch, dev, gen, *shape)
+        want = selective_scan_ref(dt, bm, cm, x, a, h0)
+        proj = torch.cat([torch.zeros(b, s, 3, device=dev), bm, cm], dim=-1)
+        state = h0.clone()
+        got = selective_scan_cuda(dt, proj[..., 3:3 + n], proj[..., 3 + n:], x, a, state,
+                                  h_out=state)
+        held(f"decode {shape} in place, strided B/C", shape, got, want)
+    log(f"  scan decode: N 1..16 at D 129, B 1 and 8, in place, strided B/C: "
+        f"{len(SCAN_DECODE)} cases")
     dt, bm, cm, x, a, h0 = scan_inputs(torch, dev, gen, 2, 24, 160, 16)
     want = selective_scan_ref(dt, bm, cm, x, a, h0)
     state = h0.clone()  # two halves, the state carried in place (the decode cache's use)
@@ -1060,13 +1113,16 @@ def scan_cases(torch, dev) -> float:
                                 x[:, :12].contiguous(), a, state, h_out=state)
     y2, _ = selective_scan_cuda(dt[:, 12:].contiguous(), bm[:, 12:], cm[:, 12:],
                                 x[:, 12:].contiguous(), a, state, h_out=state)
-    held("two halves chained in place", (torch.cat([y1, y2], dim=1), state), want)
+    held("two halves chained in place", (2, 12, 160, 16), (torch.cat([y1, y2], dim=1), state),
+         want)
     proj = torch.cat([torch.zeros_like(bm[..., :3]), bm, cm], dim=-1)
-    held("B and C as strided views", selective_scan_cuda(dt, proj[..., 3:19], proj[..., 19:],
-                                                         x, a, h0), want)
-    log(f"  scan: {len(SCAN_SHAPES) + 2} cases, max |kernel - plain| = {worst:.3g} "
-        f"(atol {SCAN_ATOL})")
-    return worst
+    held("B and C as strided views", (2, 24, 160, 16),
+         selective_scan_cuda(dt, proj[..., 3:19], proj[..., 19:], x, a, h0), want)
+    check(all(taken.values()), f"phase 9 drove the scan kernels {taken}")
+    log(f"  scan: {sum(taken.values())} cases, by kernel {taken}, max |kernel - plain| "
+        f"{worst} (atol {SCAN_ATOL})")
+    return {"max_abs_err": max(worst.values()),
+            "entry_points": {k: {"cases": taken[k], "max_abs_err": worst[k]} for k in taken}}
 
 
 def qmm_inputs(torch, dev, gen, m, k, n):
@@ -1077,13 +1133,18 @@ def qmm_inputs(torch, dev, gen, m, k, n):
     return x, w, xs, ws
 
 
-def qmm_cases(torch, dev) -> float:
-    """Every case exact; returns the max |kernel - plain| (0)."""
-    from repro_torch.kernels.quant_matmul.kernel import quant_matmul_cuda
+def qmm_cases(torch, dev) -> dict:
+    """Every case bit-equal to the plain version; returns the max |kernel -
+    plain| (0) and the number of cases by the kernel each took."""
+    from repro_torch.kernels.quant_matmul.kernel import qmm_entry, quant_matmul_cuda
     from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
 
     gen = torch.Generator(dev).manual_seed(1)
     cases = {str(shape): qmm_inputs(torch, dev, gen, *shape) for shape in QMM_SHAPES}
+    x, w, xs, ws = qmm_inputs(torch, dev, gen, 64, 256, 128)
+    base = torch.empty(x.numel() + 8, dtype=torch.int8, device=dev)[8:]  # 8 bytes off 16
+    cases["(64, 256, 128), x 8 bytes off 16-byte alignment"] = (
+        base.view(64, 256).copy_(x), w, xs, ws)
     x, w, xs, ws = qmm_inputs(torch, dev, gen, 64, 4096, 48)
     x[:8], w[:, :8] = 127, 127
     w[0, :8] = 126  # odd sums near 2^26: f32 summation would round them
@@ -1094,15 +1155,22 @@ def qmm_cases(torch, dev) -> float:
     ones = (torch.ones(64, device=dev), torch.ones(48, device=dev))
     got = quant_matmul_cuda(x, w, *ones)
     check(torch.equal(got.cpu(), exact.float()), "W8A8 kernel != exact integer product at K 4096")
-    worst = 0.0
+    worst = {"tma": 0.0, "mma_sync": 0.0}
+    taken = {"tma": 0, "mma_sync": 0}
     for name, args in cases.items():
         got = quant_matmul_cuda(*args)
         want = quant_matmul_ref(*args)
-        worst = max(worst, float((got - want).abs().max()))
-        check(torch.equal(got, want), f"W8A8 kernel != plain version on {name}")
+        (m, k), n = args[0].shape, args[1].shape[1]
+        entry = qmm_entry(n, k, args[0].data_ptr(), args[1].data_ptr(), got.data_ptr())
+        worst[entry] = max(worst[entry], float((got - want).abs().max()))
+        check(torch.equal(got, want), f"W8A8 kernel ({entry}) != plain version on {name}")
+        taken[entry] += 1
+        log(f"  W8A8 {name}: {entry}")
+    check(all(taken.values()), f"phase 9 drove the W8A8 kernels {taken}")
     log(f"  W8A8 matmul: {len(cases)} cases bit-equal to the plain version (and the unit-scale "
-        f"K 4096 case to the exact int64 product)")
-    return worst
+        f"K 4096 case to the exact int64 product), by kernel {taken}")
+    return {"max_abs_err": max(worst.values()),
+            "entry_points": {k: {"cases": taken[k], "max_abs_err": worst[k]} for k in taken}}
 
 
 # ----------------------------------------------------------------------
@@ -1112,8 +1180,11 @@ def scan_times(torch, inputs, info) -> dict:
     """The kernel at the main path's layer-0 prefill and decode inputs:
     held against its plain version, then both timed as device time per
     call (CUDA-graph replays) beside the bound.  The call is made as the
-    main path makes it, the state written in place (into a copy)."""
-    from repro_torch.kernels.ssm_scan.kernel import selective_scan_cuda
+    main path makes it, the state written in place (into copies): ``ms``
+    cycles through SCAN_STATES distinct states, as the main path's layers
+    do, so each call reads its state from device memory; ``l2_warm_ms``
+    calls one state again and again, which then sits in L2."""
+    from repro_torch.kernels.ssm_scan.kernel import scan_kernel_for, selective_scan_cuda
     from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
 
     out = {}
@@ -1135,10 +1206,20 @@ def scan_times(torch, inputs, info) -> dict:
         exp_ms = exps / info["exp_per_s"] * 1e3
         flops_ms = flops / F32_FLOPS_PER_S * 1e3
         kern = lambda: selective_scan_cuda(dt, bm, cm, x, a, state, h_out=state)  # noqa: E731
+        # the main path's 64 layers each bring their own state from device
+        # memory; one state buffer called again and again stays in L2 instead
+        states = [h0.clone() for _ in range(SCAN_STATES)]
+        cycle = itertools.cycle(states)
+        from_hbm = lambda: (lambda st: selective_scan_cuda(  # noqa: E731
+            dt, bm, cm, x, a, st, h_out=st))(next(cycle))
         row = {
             "shape": f"dt/x [{b}, {s}, {d}], B/C [{b}, {s}, {n}] (strided views), f32, "
                      f"state in place",
-            "ms": graph_ms(torch, kern),
+            "kernel": scan_kernel_for(s),
+            "ms": graph_ms(torch, from_hbm, calls=SCAN_STATES),
+            "timed": f"{SCAN_STATES} distinct states in one graph "
+                     f"({SCAN_STATES * h0.numel() * 4 / 1e6:.0f} MB, past the 50 MB L2)",
+            "l2_warm_ms": graph_ms(torch, kern),
             "plain_ms": graph_ms(torch, lambda: selective_scan_ref(*args),
                                  calls=2 if s > 1 else 20, replays=5 if s > 1 else 20),
             "library_ms": None,
@@ -1150,6 +1231,7 @@ def scan_times(torch, inputs, info) -> dict:
             "bound_by": "bytes" if bytes_ms >= max(exp_ms, flops_ms) else "operations",
             "max_abs_err": err,
         }
+        del states
         out[name] = row
         log(f"scan {name}: " + json.dumps(row))
     return out
@@ -1175,8 +1257,10 @@ def qmm_path_and_times(torch, dev) -> dict:
     got = quant_matmul(x, w, xs, ws)
     torch.cuda.synchronize()
     counts = read_counts()
+    by_kernel = read_kernel_counts("quant_matmul")
     check_only(counts, "quant_matmul", "the W8A8 op")
     check(counts["quant_matmul"] == 1, f"the W8A8 op launched {counts}")
+    check(by_kernel == {"tma": 1, "mma_sync": 0}, f"the W8A8 op took {by_kernel}")
     lib = lambda: torch._int_mm(x, w).float() * xs[:, None] * ws[None, :]  # noqa: E731
     plain = quant_matmul_ref(x, w, xs, ws)
     check(torch.equal(got, plain), "W8A8 kernel != plain version at the timed shape")
@@ -1188,6 +1272,7 @@ def qmm_path_and_times(torch, dev) -> dict:
     row = {
         "shape": f"x int8 [{m}, {k}], w int8 [{k}, {n}], f32 scales -> f32 [{m}, {n}]",
         "launches": counts["quant_matmul"],
+        "launches_by_kernel": by_kernel,
         "ms": graph_ms(torch, lambda: quant_matmul_cuda(x, w, xs, ws), calls=10, replays=10),
         "plain_ms": graph_ms(torch, lambda: quant_matmul_ref(x, w, xs, ws), calls=2, replays=5),
         "library_ms": graph_ms(torch, lib, calls=10, replays=10),
@@ -1343,34 +1428,43 @@ def main() -> int:
     del lm, ft
 
     log("== 9. selective-scan and W8A8 matmul kernels vs their plain versions")
-    scan_err = scan_cases(torch, dev)
-    qmm_err = qmm_cases(torch, dev)
+    scan_phase9 = scan_cases(torch, dev)
+    qmm_phase9 = qmm_cases(torch, dev)
 
     log("== 10. reduced falcon-mamba against the committed JAX golden outputs")
     lm_golden(torch, np, dev, "falcon_mamba_smoke", "ssm_scan")
 
     log("== 11. serve falcon-mamba-7b at full width (main path); the W8A8 matmul's op")
     sm = serve_lm(torch, np, dev, "falcon-mamba-7b")
+    n_layers = sm["launches"] // NEW_TOKENS
+    want = {"decode": n_layers * (NEW_TOKENS - 1), "prefill": n_layers}
+    check(sm["launches_by_kernel"] == want,
+          f"falcon-mamba's serve took the scan kernels {sm['launches_by_kernel']}, want {want}")
+    log(f"serve: scan launches by kernel {sm['launches_by_kernel']}")
     st = scan_times(torch, sm["inputs"], info)
     dec, pre = st["decode"], st["prefill"]
-    entry_keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
-                  "max_abs_err")
+    entry_keys = ("shape", "kernel", "ms", "timed", "l2_warm_ms", "plain_ms", "bound_ms",
+                  "bound_by", "library_ms", "library", "max_abs_err")
     kernels["kernels"].append({
         "name": "ssm_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:25",
         "launches": sm["launches"],
-        "max_abs_err": max(scan_err, dec["max_abs_err"], pre["max_abs_err"]),
+        "max_abs_err": max(scan_phase9["max_abs_err"], dec["max_abs_err"], pre["max_abs_err"]),
         "ms": dec["ms"],
+        "l2_warm_ms": dec["l2_warm_ms"],
         "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"],
         "bound_by": dec["bound_by"],
         "library_ms": None,
         "library": dec["library"],
-        "shape": "one decode launch of the main path (layer 0): " + dec["shape"],
+        "shape": "one decode launch of the main path (layer 0), its state read from device "
+                 "memory: " + dec["shape"],
         "decode": {k: dec[k] for k in entry_keys},
         "prefill": {k: pre[k] for k in entry_keys},
+        "entry_points": {k: {**v, "launches": sm["launches_by_kernel"][k]}
+                         for k, v in scan_phase9["entry_points"].items()},
     })
     log("serve summary: " + json.dumps({k: v for k, v in sm.items() if k != "inputs"}))
     del sm, st
@@ -1381,10 +1475,12 @@ def main() -> int:
         "source": "src/repro_torch/kernels/quant_matmul/csrc/quant_matmul.cu",
         "replaces": "src/repro/kernels/quant_matmul/kernel.py:24",
         "launches": qm["launches"],
-        "max_abs_err": max(qmm_err, qm["max_abs_err"]),
+        "max_abs_err": max(qmm_phase9["max_abs_err"], qm["max_abs_err"]),
         **{k: qm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                               "library")},
         "shape": "one call of the public op quant_matmul (its only path): " + qm["shape"],
+        "entry_points": {k: {**v, "launches": qm["launches_by_kernel"][k]}
+                         for k, v in qmm_phase9["entry_points"].items()},
     })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(info["nvidia_smi"])

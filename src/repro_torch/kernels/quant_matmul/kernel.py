@@ -1,11 +1,15 @@
 """Launch wrapper of the Hopper W8A8 matmul kernel (``csrc/quant_matmul.cu``).
 
 It replaces the TPU kernel ``repro/kernels/quant_matmul/kernel.py``
-(``_qmm_kernel``, launched by ``quant_matmul_pallas``).  The wrapper
-checks what the kernel takes, allocates the output with ``torch.empty``,
-launches on the current stream, raises on a launch error, and counts its
-launches in ``launches``.  Nothing is built on import: the library is
-built and loaded on the first launch.
+(``_qmm_kernel``, launched by ``quant_matmul_pallas``).  The source
+holds two kernels: wgmma on TMA-fed tiles where a tensor map can describe
+the operands, and mma.sync with the threads' own loads for the rest;
+``qmm_entry`` picks one by a rule on shapes and alignment alone.  The
+wrapper checks what the kernels take, allocates the output with
+``torch.empty``, launches on the current stream, raises on a launch
+error, and counts its launches in ``launches`` (and by kernel in
+``kernel_launches``).  Nothing is built on import: the library is built
+and loaded on the first launch.
 """
 
 from __future__ import annotations
@@ -20,7 +24,10 @@ from .._build import LaunchCounter, library
 # while K * 2^14 < 2^31
 MAX_K = (1 << 31) // (128 * 128) - 1
 
+KERNELS = ("tma", "mma_sync")  # the source's kernels, in the C entry point's numbering
+
 launches = LaunchCounter()
+kernel_launches = {k: LaunchCounter() for k in KERNELS}  # the same launches, by kernel
 
 _c_int = ctypes.c_int
 _c_ptr = ctypes.c_void_p
@@ -30,6 +37,7 @@ def _lib() -> ctypes.CDLL:
     lib = library("quant_matmul")
     if lib.da4ml_quant_matmul.argtypes is None:
         lib.da4ml_quant_matmul.argtypes = [
+            _c_int,  # kernel: an index into KERNELS
             _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # x, w, x_scale, w_scale, out
             _c_int, _c_int, _c_int,  # M, N, K
             _c_ptr,  # stream
@@ -38,6 +46,17 @@ def _lib() -> ctypes.CDLL:
         lib.da4ml_cuda_error_string.argtypes = [_c_int]
         lib.da4ml_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def qmm_entry(n: int, k: int, x_ptr: int, w_ptr: int, out_ptr: int) -> str:
+    """The kernel that x int8 [M, k] @ w int8 [k, n] into a float32 out
+    takes, from the shapes and the three base addresses alone: ``"tma"``
+    where a tensor map can describe x and w (rows a multiple of 16 bytes,
+    bases on 16 bytes; out on 16 bytes for the epilogue's vector stores),
+    ``"mma_sync"`` otherwise.  Any M, and n and k past their multiples of
+    the tile, may be ragged on either kernel."""
+    aligned = all(p % 16 == 0 for p in (x_ptr, w_ptr, out_ptr))
+    return "tma" if k > 0 and k % 16 == 0 and n % 16 == 0 and aligned else "mma_sync"
 
 
 def quant_matmul_cuda(
@@ -76,12 +95,15 @@ def quant_matmul_cuda(
         return out
     lib = _lib()
     with torch.cuda.device(x.device):
+        entry = qmm_entry(n, k, x.data_ptr(), w.data_ptr(), out.data_ptr())
         err = lib.da4ml_quant_matmul(
-            x.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
+            KERNELS.index(entry), x.data_ptr(), w.data_ptr(), x_scale.data_ptr(),
+            w_scale.data_ptr(), out.data_ptr(),
             m, n, k, torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
         msg = lib.da4ml_cuda_error_string(err).decode()
         raise RuntimeError(f"W8A8 matmul kernel launch failed: {msg} (cudaError {err})")
     launches.add()
+    kernel_launches[entry].add()
     return out

@@ -1,12 +1,14 @@
 """Launch wrapper of the Hopper selective-scan kernel (``csrc/ssm_scan.cu``).
 
 It replaces the TPU kernel ``repro/kernels/ssm_scan/kernel.py``
-(``_ssm_kernel``, launched by ``selective_scan_pallas``).  The wrapper
-checks what the kernel takes, allocates ``y`` (and ``h_out`` unless the
+(``_ssm_kernel``, launched by ``selective_scan_pallas``).  The source
+holds two kernels, decode (S == 1) and prefill (any other S);
+``scan_kernel_for`` picks one from the shape alone.  The wrapper
+checks what the kernels take, allocates ``y`` (and ``h_out`` unless the
 caller gives one) with ``torch.empty``, launches on the current stream,
-raises on a launch error, and counts its launches in ``launches``.
-Nothing is built on import: the library is built and loaded on the
-first launch.
+raises on a launch error, and counts its launches in ``launches`` (and
+by kernel in ``kernel_launches``).  Nothing is built on import: the
+library is built and loaded on the first launch.
 """
 
 from __future__ import annotations
@@ -18,8 +20,10 @@ import torch
 from .._build import LaunchCounter, library
 
 MAX_STATE = 16  # the state sizes N the kernel is compiled for: 1 .. 16
+KERNELS = ("decode", "prefill")  # the source's kernels, in the C entry point's numbering
 
 launches = LaunchCounter()
+kernel_launches = {k: LaunchCounter() for k in KERNELS}  # the same launches, by kernel
 
 _c_int = ctypes.c_int
 _c_ll = ctypes.c_longlong
@@ -30,6 +34,7 @@ def _lib() -> ctypes.CDLL:
     lib = library("ssm_scan")
     if lib.da4ml_ssm_scan.argtypes is None:
         lib.da4ml_ssm_scan.argtypes = [
+            _c_int,  # kernel: an index into KERNELS
             _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # dt, B, C, x, A, h0
             _c_ptr, _c_ptr,  # y, h_out
             _c_int, _c_int, _c_int, _c_int,  # B, S, D, N
@@ -40,6 +45,13 @@ def _lib() -> ctypes.CDLL:
         lib.da4ml_cuda_error_string.argtypes = [_c_int]
         lib.da4ml_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def scan_kernel_for(s: int) -> str:
+    """The kernel that a scan of S = s steps takes: ``"decode"`` for one
+    step, ``"prefill"`` for any other length.  The choice depends on the
+    shape alone, so calls capture into a CUDA graph."""
+    return "decode" if s == 1 else "prefill"
 
 
 def selective_scan_cuda(
@@ -90,9 +102,11 @@ def selective_scan_cuda(
     if b == 0 or d == 0:
         return y, h_out
     lib = _lib()
+    kernel = scan_kernel_for(s)
     with torch.cuda.device(dt.device):
         err = lib.da4ml_ssm_scan(
-            dt.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), x.data_ptr(), a.data_ptr(),
+            KERNELS.index(kernel), dt.data_ptr(), bmat.data_ptr(),
+            cmat.data_ptr(), x.data_ptr(), a.data_ptr(),
             h0.data_ptr(), y.data_ptr(), h_out.data_ptr(), b, s, d, n,
             bmat.stride(0), bmat.stride(1), cmat.stride(0), cmat.stride(1),
             torch.cuda.current_stream(dt.device).cuda_stream,
@@ -101,4 +115,5 @@ def selective_scan_cuda(
         msg = lib.da4ml_cuda_error_string(err).decode()
         raise RuntimeError(f"selective-scan kernel launch failed: {msg} (cudaError {err})")
     launches.add()
+    kernel_launches[kernel].add()
     return y, h_out

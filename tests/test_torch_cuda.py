@@ -7,9 +7,10 @@ kernel (decode at GQA group sizes 1, 3, 4 and 8, tensor-core and
 CUDA-core prefill) against its plain PyTorch version (atol 2e-5 in
 float32, 2e-2 in bfloat16: the decode kernel keeps ``p`` in f32 where
 the plain version casts it to the working dtype, and the outputs round
-to bf16); the hand-written selective-scan kernel against its plain
-version (atol 1e-5, the JAX kernel tests' own) and the W8A8 matmul
-kernel against its plain version (exact); and the reduced smollm-135m
+to bf16); the hand-written selective-scan kernels (decode at every N from 1
+to 16, prefill) against their plain version (atol 1e-5, the JAX kernel
+tests' own) and the W8A8 matmul kernels (TMA/wgmma and mma.sync)
+against their plain version (exact); and the reduced smollm-135m
 and falcon-mamba LMs against their committed JAX golden tokens (exact)
 and logits (atol 1e-4 in float32).
 
@@ -377,6 +378,50 @@ def test_scan_kernel_chains_state_in_place_and_reads_strided_b_c(card):
     assert torch.equal(y_v, y_full) and torch.equal(h_v, h_full)
 
 
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("n", range(1, 17))
+def test_scan_decode_kernel_every_state_size(card, b, n):
+    """S = 1 takes the decode kernel at every N (1, 2 or 4 lanes of 4
+    states; a slice past N masked), ragged channels, the state written into
+    h0 itself and B and C as strided views of one projection."""
+    dt, bm, cm, x, a, h0 = _scan_inputs(card, b, 1, 129, n, seed=n)
+    y_ref, h_ref = selective_scan_ref(dt, bm, cm, x, a, h0)
+    proj = torch.cat([torch.zeros(b, 1, 3, device=card), bm, cm], dim=-1)
+    state = h0.clone()
+    before = ss_kernel.kernel_launches["decode"].value
+    y, h = selective_scan(dt, proj[..., 3:3 + n], proj[..., 3 + n:], x, a, state, h_out=state)
+    assert h is state and ss_kernel.kernel_launches["decode"].value == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(state, h_ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("s", [2, 33, 128])
+@pytest.mark.parametrize("n", [5, 13, 16])
+def test_scan_prefill_kernel_lengths(card, s, n):
+    dt, bm, cm, x, a, h0 = _scan_inputs(card, 3, s, 129, n, seed=s + n)
+    before = ss_kernel.kernel_launches["prefill"].value
+    state = h0.clone()
+    y, _ = selective_scan(dt, bm, cm, x, a, state, h_out=state)
+    assert ss_kernel.kernel_launches["prefill"].value == before + 1
+    torch.cuda.synchronize()
+    y_ref, h_ref = selective_scan_ref(dt, bm, cm, x, a, h0)
+    torch.testing.assert_close(y, y_ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(state, h_ref, atol=1e-5, rtol=1e-5)
+
+
+def test_scan_decode_steps_in_place_equal_one_prefill(card):
+    """The decode cache's use with several lanes per channel: six decode
+    calls on one state, in place, equal one prefill scan of the six steps."""
+    dt, bm, cm, x, a, h0 = _scan_inputs(card, 8, 6, 300, 16, seed=9)
+    y_full, h_full = selective_scan(dt, bm, cm, x, a, h0)
+    state = h0.clone()
+    ys = [selective_scan(dt[:, t:t + 1].contiguous(), bm[:, t:t + 1], cm[:, t:t + 1],
+                         x[:, t:t + 1].contiguous(), a, state, h_out=state)[0] for t in range(6)]
+    torch.testing.assert_close(torch.cat(ys, dim=1), y_full, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(state, h_full, atol=1e-5, rtol=1e-5)
+
+
 def test_scan_wrapper_rejects_what_it_does_not_take(card):
     dt, bm, cm, x, a, h0 = _scan_inputs(card, 2, 4, 32, 8)
     with pytest.raises(TypeError, match="float32"):
@@ -420,6 +465,33 @@ def test_qmm_kernel_matches_plain_version_exactly(card, m, k, n):
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == (m, n)
     assert torch.equal(got, quant_matmul_ref(*args))
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (1000, 512, 16400), (129, 48, 272), (1, 16, 16), (300, 4096, 512),  # TMA: aligned rows
+    (100, 200, 60), (33, 1000, 77), (64, 256, 520),  # mma.sync: rows TMA cannot describe
+])
+def test_qmm_each_kernel_bit_exact(card, m, k, n):
+    args = _qmm_inputs(card, m, k, n, seed=m * n)
+    entry = qm_kernel.qmm_entry(n, k, args[0].data_ptr(), args[1].data_ptr(), 0)
+    assert entry == ("tma" if k % 16 == 0 and n % 16 == 0 else "mma_sync")
+    before = qm_kernel.kernel_launches[entry].value
+    got = quant_matmul(*args)
+    assert qm_kernel.kernel_launches[entry].value == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, quant_matmul_ref(*args))
+
+
+def test_qmm_unaligned_base_takes_the_mma_sync_kernel(card):
+    x, w, xs, ws = _qmm_inputs(card, 64, 256, 128, seed=5)
+    off = torch.empty(x.numel() + 8, dtype=torch.int8, device=card)[8:].view(64, 256)
+    off.copy_(x)
+    assert off.data_ptr() % 16 == 8
+    before = qm_kernel.kernel_launches["mma_sync"].value
+    got = quant_matmul(off, w, xs, ws)
+    assert qm_kernel.kernel_launches["mma_sync"].value == before + 1
+    assert torch.equal(got, quant_matmul_ref(x, w, xs, ws))
+    assert torch.equal(quant_matmul(x, w, xs, ws), got)  # the TMA kernel agrees
 
 
 def test_qmm_kernel_sums_past_2_24_exactly(card):

@@ -20,6 +20,7 @@ from repro.kernels.ssm_scan import selective_scan as jax_selective_scan
 from repro.kernels.ssm_scan.ref import selective_scan_ref as jax_selective_scan_ref
 from repro_torch.kernels.ssm_scan import selective_scan
 from repro_torch.kernels.ssm_scan import kernel as scan_kernel
+from repro_torch.kernels.ssm_scan.kernel import scan_kernel_for
 from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -113,3 +114,15 @@ def test_strided_b_and_c_views_and_dtype_cast():
     assert y16.dtype == torch.float32
     np.testing.assert_allclose(y16.numpy(), np.asarray(y16_ref), **TOL)
     assert scan_kernel.launches.value == before
+
+
+@pytest.mark.parametrize("s,kernel", [
+    (1, "decode"),  # one step: the decode kernel, at any width and state size
+    (0, "prefill"),  # no steps: the state is copied through
+    (2, "prefill"), (33, "prefill"), (128, "prefill"),  # falcon-mamba-7b's prefill is 128
+])
+def test_scan_kernel_for_picks_by_length(s, kernel):
+    """The wrapper's rule: S == 1 takes the decode kernel, any other S the
+    prefill kernel."""
+    assert scan_kernel_for(s) == kernel
+    assert kernel in scan_kernel.KERNELS
