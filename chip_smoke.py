@@ -4,7 +4,7 @@
     python3 chip_smoke.py            (from the repository root)
 
 Builds every CUDA kernel of the port from the sources in the checkout,
-then runs eleven phases, each of which must pass:
+then runs thirteen phases, each of which must pass:
 
 1. probe    the card (``nvidia-smi`` name and power limit), CUDA and nvcc
             versions, ptxas resource usage of each kernel, and that
@@ -23,24 +23,36 @@ then runs eleven phases, each of which must pass:
             one kernel launch per CMVM step;
 4. serve    the main path, as a user drives it: ``load_design`` ->
             ``ServeEngine(ServeConfig(max_batch=256, shards=2))`` ->
-            ``register`` -> ``submit_batch`` of 4096 requests -> results
-            and ``stats``.  Launch counts are zeroed just before and read
-            just after; every future must resolve to the golden output;
+            ``register`` (no warm-up) -> ``submit_batch`` of 4096 requests
+            -> results and ``stats``, then the same burst again (every
+            graph captured: the steady state).  Each shard captures a
+            bucket's CUDA graph at its first batch of that shape:
+            ``jit_compiles`` must
+            count exactly the (shard, bucket) pairs used, every batch must
+            be one replay, no batch may fall back.  Launch counts are
+            zeroed just before and read just after (one eager warm-up per
+            capture plus one replay per batch, each one launch per CMVM
+            step), and the profiler's kernel count of one replay must equal
+            the launches recorded at capture; every future must resolve to
+            the golden output;
 5. times    per Mixer table, at the shapes one forward at 256 and at 4096
             samples gives it: the kernel, held exactly against its plain
             version and the library yardstick (one float64
             ``torch.matmul`` by the table's dense matrix, which the port
             never calls) on those inputs, then the three timed as device
             time per call (CUDA-graph replays), beside the table's bound
-            and launch plan;
+            and launch plan; one forward eagerly and as a graph replay;
 6. flash    the flash-attention kernel against its plain PyTorch version
             on the card: f32 and bf16, causal and full, MHA, GQA 4:1,
-            MQA and smollm's 9:3, head_dim 16/32/64/128, ragged Sq and
-            Sk, and decode (Sq=1) against a 512-slot cache at offsets 0,
-            1, 127, 128 and 511 read from the card, at GQA group sizes 1,
-            3, 4 and 8; max abs error per dtype against atol 2e-5 (f32)
-            and 2e-2 (bf16), and how many cases each of the source's
-            kernels (decode, tensor-core, CUDA-core) took;
+            MQA and smollm's 9:3, head_dim 16/32/64/80/112/128
+            (stablelm-3b's prefill at 80), ragged Sq and Sk, and decode
+            (Sq=1) against a 512-slot cache at offsets 0, 1, 127, 128 and
+            511 read from the card, at GQA group sizes 1, 3, 4 and 8
+            (head_dim 64) and 1, 4 and 8 (head_dim 80 and 112), and at
+            granite-20b's 48:1 (head_dim 128: 48 rows, the prefill
+            kernels); max abs error per dtype against atol 2e-5 (f32) and
+            2e-2 (bf16), and how many cases each of the source's kernels
+            (decode, tensor-core, CUDA-core) took;
 7. lm       the reduced smollm-135m from the committed JAX weights
             (``assets/smollm_smoke``) served on the card reproduces the
             JAX engine's greedy tokens exactly and its prefill and first
@@ -49,14 +61,21 @@ then runs eleven phases, each of which must pass:
 8. serve    the LM main path at full width: smollm-135m (30 layers,
             d_model 576, 9:3 heads, vocab 49152, bf16) with the port's own
             random weights (seed 0; the repository ships no checkpoint)
-            in ``Engine(batch_size=8, max_seq=512)`` serves 8 requests of
-            128-token prompts and 64 new tokens.  Launch counts are zeroed
-            just before and read just after (30 x 64 flash launches); the
-            plain path, teacher-forced on the kernel path's tokens, agrees
-            on the logits within 0.25 and on every argmax whose top-two gap
-            is at least that; prefill and decode times, tokens/s and the
-            profiler's device time of one decode step, which must not
-            sync the host (``set_sync_debug_mode("error")``); then the kernel at
+            in ``Engine(batch_size=8, max_seq=512)``, which captures its
+            decode step as a CUDA graph, serves 8 requests of 128-token
+            prompts and 64 new tokens.  Launch counts are zeroed just
+            before and read just after (30 x 64 flash launches: prefill
+            eager, 63 replays counted as recorded at capture); the tokens
+            equal exactly those of an eager loop over ``prefill`` and
+            ``decode_step`` on the same kernels; the plain path,
+            teacher-forced on the kernel path's tokens, agrees on the
+            logits within 0.25 and on every argmax whose top-two gap is at
+            least that; prefill and decode times and tokens/s of the
+            served run and of the eager loop; the time, and the profiler's
+            device time, launches and idle share, of one decode step
+            replayed and one run eagerly, neither of which may sync the
+            host (``set_sync_debug_mode("error")``), the profiler's kernel
+            count of the replay held to the capture's; then the kernel at
             the main path's prefill and decode inputs, held against its
             plain version and ``scaled_dot_product_attention`` (the
             library yardstick, which the port never calls), then the three
@@ -87,9 +106,10 @@ then runs eleven phases, each of which must pass:
             bf16, 7,272,140,800 parameters) with the port's own random
             weights (seed 0, drawn on the card) in ``Engine(batch_size=8,
             max_seq=512)`` serves 8 requests of 128-token prompts and 64
-            new tokens, as phase 8 does, counted (64 x 64 scan launches, no
-            other kernel: 64 on the prefill kernel, 64 x 63 on the decode
-            kernel) and checked by phase 8's rule against the plain path;
+            new tokens through its decode graph, as phase 8 does, counted
+            (64 x 64 scan launches, no other kernel: 64 on the prefill
+            kernel, 64 x 63 on the decode kernel), held to an eager loop's
+            tokens exactly and by phase 8's rule against the plain path;
             then the scan at the main path's layer-0 prefill and decode
             inputs against its plain version, timed by CUDA-graph replay
             beside its bound, each call on its own of 32 states (128 MB at
@@ -99,7 +119,23 @@ then runs eleven phases, each of which must pass:
             public op (its only path, on the TMA kernel), held exactly
             against its plain version and ``torch._int_mm`` times the
             scales (the library yardstick, which the port never calls) at
-            M 1024, K 4096, N 16384, the three timed beside its bound.
+            M 1024, K 4096, N 16384, the three timed beside its bound;
+12. fallback the Mixer registered with ``fallback="interpreter"`` (which
+            captures every bucket on both shards at ``register``) under a
+            seeded fault plan on ``serve.dispatch`` (its first three hits
+            raise) that opens the breaker: bursts of the golden inputs,
+            past the cooldown between them, until the probes go back to the
+            kernel and one whole burst runs on it.  Every future resolves
+            to the golden output, ``n_fallback_batches > 0``, each fault is
+            one ``dispatch_fault`` flight event (none taken for the
+            device's), the breaker ends closed, and the adder-graph
+            launches are those of the replays;
+13. serve   the dense main path at head_dim 80: stablelm-3b (32 layers,
+            d_model 2560, 32:32 heads, head_dim 80, d_ff 6912, vocab
+            50304, bf16) with random weights (seed 0, drawn on the card),
+            served and checked as phase 8 serves smollm-135m (32 x 64 flash
+            launches); the kernel timed at its prefill and decode inputs,
+            and at kimi-k2's head_dim 112 and granite-20b's 48:1 decode.
 
 The line before the last is the ``kernels`` JSON object, with each
 source's kernels under ``entry_points``; the last line is ``{"ok": true,
@@ -178,15 +214,9 @@ def probe(torch) -> dict:
     paths = _build.build_all()
     log(f"built {sorted(paths)} in {time.perf_counter() - t0:.2f} s")
     ptxas = {}
-    for name, src in _build.sources().items():
-        out = _build.BUILD_DIR / f"{name}.ptxas.o"
-        res = subprocess.run(
-            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-Xptxas", "-v", "-c", "-o", str(out), str(src)],
-            capture_output=True, text=True, check=True,
-        )
-        out.unlink(missing_ok=True)
-        ptxas[name] = [ln.strip() for ln in res.stderr.splitlines() if "ptxas info" in ln]
+    for name in sorted(paths):  # ptxas's -v report, from the build's own log
+        ptxas[name] = [ln.strip() for ln in _build.build_log(name).splitlines()
+                       if "ptxas info" in ln]
         for ln in ptxas[name]:
             log(f"  {name}: {ln}")
     return {
@@ -430,6 +460,43 @@ def graph_ms(torch, fn, calls: int = 20, replays: int = 20) -> float:
     return start.elapsed_time(end) / (replays * calls)
 
 
+def profile_once(torch, fn, key: str) -> dict:
+    """One call of ``fn`` under the profiler (ending in a synchronise): the
+    device time and launches of all kernels and of those whose profiler
+    name contains ``key``, device time by kernel, and the host ops by self
+    CPU time.  Kernels launched by a CUDA-graph replay are listed as
+    kernels too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_kernel, launches, key_launches = {}, 0, 0
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue  # host-side ops; their kernels are listed on their own
+        us = getattr(ev, "self_device_time_total", 0.0) or 0.0
+        if us > 0:
+            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + us
+            launches += ev.count
+            key_launches += ev.count if key in ev.key else 0
+    host = sorted(((ev.self_cpu_time_total, ev.count, ev.key) for ev in prof.key_averages()
+                   if not str(getattr(ev, "device_type", "")).endswith("CUDA")), reverse=True)
+    all_us = sum(by_kernel.values())
+    key_us = sum(us for k, us in by_kernel.items() if key in k)
+    ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1])
+    return {
+        "all_ms": all_us / 1e3 if all_us else None,
+        "key_ms": key_us / 1e3 if key_us else None,
+        "launches": launches,
+        "key_launches": key_launches,
+        "rank": next((i + 1 for i, (k, _) in enumerate(ranked) if key in k), None),
+        "n_kernels": len(ranked),
+        "ranked": ranked,
+        "host": host,
+    }
+
+
 def capture_cmvm_inputs(torch, design, x):
     """The (tables, x) of every adder-graph call one forward makes: the
     shapes and values the main path gives the kernel."""
@@ -514,27 +581,21 @@ def table_times(torch, np, design, x, info) -> tuple[list[dict], int]:
 
 def forward_breakdown(torch, design, x) -> dict:
     """One forward of the design: its time per call (CUDA events, back to
-    back) and, from the profiler's trace, the device time of the
-    adder-graph kernel and of all kernels (None where the trace shows no
-    device time)."""
-    from torch.profiler import ProfilerActivity, profile
+    back) run eagerly and as the replay of a CUDA graph (as the serve
+    engine runs it), and, from the profiler's trace, the device time of
+    the adder-graph kernel (either entry point) and of all kernels (None
+    where the trace shows no device time)."""
+    from repro_torch.kernels.graphs import capture
 
     fwd_ms = time_ms(torch, lambda: design.forward_int(x), iters=20)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        design.forward_int(x)
-        torch.cuda.synchronize()
-    kernel_us = all_us = 0.0
-    for ev in prof.key_averages():
-        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            continue  # host-side ops; their kernels are listed on their own
-        us = getattr(ev, "self_device_time_total", 0.0) or 0.0
-        all_us += us
-        if "namespace)::adder_graph_" in ev.key:  # either entry point
-            kernel_us += us
+    graph = capture(lambda: design.forward_int(x))
+    graph_ms_ = time_ms(torch, graph.replay, iters=20)
+    prof = profile_once(torch, lambda: design.forward_int(x), "namespace)::adder_graph_")
     return {
         "forward_ms": fwd_ms,
-        "profiler_kernel_ms": kernel_us / 1e3 if kernel_us > 0 else None,
-        "profiler_all_kernels_ms": all_us / 1e3 if all_us > 0 else None,
+        "forward_graph_ms": graph_ms_,
+        "profiler_kernel_ms": prof["key_ms"],
+        "profiler_all_kernels_ms": prof["all_ms"],
     }
 
 
@@ -550,9 +611,15 @@ FLASH_SHAPES = [  # (B, Hq, Hkv, Sq, Sk, D)
     (1, 4, 2, 37, 53, 16),  # head_dim 16, ragged
     (2, 9, 3, 77, 77, 64),  # ragged square
     (1, 4, 4, 100, 300, 32),  # ragged, Sq < Sk
+    (8, 32, 32, 128, 128, 80),  # stablelm-3b's prefill, head_dim 80
+    (2, 4, 1, 77, 130, 80),  # ragged, head_dim 80
+    (1, 8, 2, 128, 128, 112),  # head_dim 112 (kimi-k2's)
+    (2, 6, 3, 37, 300, 112),  # ragged, head_dim 112
 ]
 DECODE_OFFSETS = (0, 1, 127, 128, 511)
-DECODE_GROUPS = (1, 3, 4, 8)  # GQA group sizes (query heads per KV head) of the decode cases
+# (head_dim, GQA group sizes: query heads per KV head) of the decode cases
+DECODE_GROUPS = ((64, (1, 3, 4, 8)), (80, (1, 4, 8)), (112, (1, 4, 8)))
+GRANITE_DECODE = (8, 48, 1, 128)  # granite-20b's decode: B, Hq, Hkv, head_dim (48 rows)
 DECODE_MAX_SEQ = 512
 
 
@@ -570,6 +637,7 @@ def flash_cases(torch, dev) -> dict:
     errs = {}
     for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         worst = 0.0
+        by_dim = {}
         cases = []
         for b, hq, hkv, sq, sk, d in FLASH_SHAPES:
             for causal in (True, False):
@@ -581,15 +649,18 @@ def flash_cases(torch, dev) -> dict:
                        ((9, 40), (3, 70), (3, 70)))
             cases.append((f"unaligned (2, 9, 3, 40, 70, 64) causal={causal}", q, k, v, causal,
                           None))
-        for group in DECODE_GROUPS:
+        decodes = [(8, 3 * group, 3, d, f"decode head_dim {d} group {group}")
+                   for d, groups in DECODE_GROUPS for group in groups]
+        b, hq, hkv, d = GRANITE_DECODE
+        decodes.append((b, hq, hkv, d, f"decode head_dim {d} group {hq // hkv} (granite-20b)"))
+        for b, hq, hkv, d, what in decodes:
             for pos in DECODE_OFFSETS:
-                k = rand(8, 3, DECODE_MAX_SEQ, 64, dtype=dtype)
-                v = rand(8, 3, DECODE_MAX_SEQ, 64, dtype=dtype)
+                k = rand(b, hkv, DECODE_MAX_SEQ, d, dtype=dtype)
+                v = rand(b, hkv, DECODE_MAX_SEQ, d, dtype=dtype)
                 k[:, :, pos + 1:] = 1e4  # unwritten slots: the mask must hide them
                 v[:, :, pos + 1:] = -1e4
-                cases.append((f"decode group {group} offset {pos}",
-                              rand(8, 3 * group, 1, 64, dtype=dtype), k, v, True,
-                              torch.tensor(pos, dtype=torch.int32, device=dev)))
+                cases.append((f"{what} offset {pos}", rand(b, hq, 1, d, dtype=dtype), k, v,
+                              True, torch.tensor(pos, dtype=torch.int32, device=dev)))
         plans = {}
         for name, q, k, v, causal, off in cases:
             plan = flash_plan(*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.dtype,
@@ -606,9 +677,12 @@ def flash_cases(torch, dev) -> dict:
             err = float((got.float() - want.float()).abs().max())
             check(err <= FA_ATOL[dname], f"flash {dname} {name}: max |kernel - plain| {err}")
             worst = max(worst, err)
+            d = q.shape[3]
+            by_dim[d] = max(by_dim.get(d, 0.0), err)
         errs[dname] = worst
         log(f"  {dname}: {len(cases)} cases, max |kernel - plain| = {worst:.3g} "
-            f"(atol {FA_ATOL[dname]}); cases per kernel and splits: {json.dumps(plans)}")
+            f"(atol {FA_ATOL[dname]}); by head_dim {json.dumps(dict(sorted(by_dim.items())))}; "
+            f"cases per kernel and splits: {json.dumps(plans)}")
     return errs
 
 
@@ -684,15 +758,18 @@ def lm_paths() -> dict:
     from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
     from repro_torch.models import attention, ssm
 
+    dense = {
+        "kernel": "flash_attention", "profile_key": "namespace)::flash_",
+        "module": attention, "attr": "flash_attention", "plain": attention_ref,
+        "f32_atol": None,  # held by LM_BF16_ATOL in bf16
+        "plain_f64": None,
+        "capture": {"prefill": 0, "decode": DECODE_TIMING_OFFSET - PROMPT_LEN + 1},
+    }
     return {
-        "smollm-135m": {
-            "kernel": "flash_attention", "profile_key": "namespace)::flash_",
-            "module": attention, "attr": "flash_attention", "plain": attention_ref,
-            "init_on_card": False,  # 0.3 GB: drawn on the host, as phase 8 always has
-            "f32_atol": None,  # held by LM_BF16_ATOL in bf16
-            "plain_f64": None,
-            "capture": {"prefill": 0, "decode": DECODE_TIMING_OFFSET - PROMPT_LEN + 1},
-        },
+        # 0.3 GB: drawn on the host, as phase 8 always has
+        "smollm-135m": {**dense, "init_on_card": False},
+        # 5.6 GB of bf16 weights (head_dim 80)
+        "stablelm-3b": {**dense, "init_on_card": True},
         "falcon-mamba-7b": {
             "kernel": "ssm_scan", "profile_key": "namespace)::ssm_",
             "module": ssm, "attr": "selective_scan", "plain": selective_scan_ref,
@@ -710,13 +787,18 @@ def lm_paths() -> dict:
     }
 
 
-def capture_op_inputs(torch, eng, path, prompts):
-    """Serve ``prompts`` once through a fresh engine and keep the (args,
-    kwargs) of the layer-0 calls of the path's op that ``path["capture"]``
-    names (by decode step: 0 is prefill): the main path's shapes and values.
-    (Calls are counted, not inspected, so nothing syncs.)"""
-    layers = eng.cfg.n_layers
-    wanted = {layers * step: name for name, step in path["capture"].items()}
+def eager_serve(torch, cfg, params, prompts, dev, path) -> dict:
+    """The engine's loop run eagerly on the same kernels: prefill, then 63
+    greedy decode steps through ``decode_step``, each pick brought to the
+    host (``tolist``) as the engine brings it.  Returns the picks per step,
+    the loop's prefill ms, decode ms per step and tokens/s, and under
+    ``inputs`` the (args, kwargs) of the layer-0 calls of the path's op that
+    ``path["capture"]`` names (by decode step: 0 is prefill): the main
+    path's shapes and values.  (Calls are counted, not inspected, so
+    nothing syncs; the op is unwrapped after the last of them.)"""
+    from repro_torch.models import decode_step, prefill
+
+    wanted = {cfg.n_layers * step: name for name, step in path["capture"].items()}
     seen, n_calls = {}, [0]
     module, attr = path["module"], path["attr"]
     orig = getattr(module, attr)
@@ -728,15 +810,34 @@ def capture_op_inputs(torch, eng, path, prompts):
         name = wanted.get(n_calls[0])
         if name is not None:
             seen[name] = ([clone(a) for a in args], {k: clone(v) for k, v in kw.items()})
+            if len(seen) == len(wanted):
+                setattr(module, attr, orig)
         n_calls[0] += 1
         return orig(*args, **kw)
 
     setattr(module, attr, record)
     try:
-        eng.generate(requests_for(prompts, max(path["capture"].values()) + 1))
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tokens = torch.from_numpy(prompts).to(dev).long()
+            logits, cache = prefill(cfg, params, {"tokens": tokens}, SERVE_MAX_SEQ)
+            tok = logits.argmax(-1)
+            picks = [tok.tolist()]
+            t_first = time.perf_counter()
+            for _ in range(NEW_TOKENS - 1):
+                logits, cache = decode_step(cfg, params, tok[:, None], cache)
+                tok = logits.argmax(-1)
+                picks.append(tok.tolist())
+            t_end = time.perf_counter()
     finally:
         setattr(module, attr, orig)
-    return seen
+    check(len(seen) == len(wanted), f"eager loop: kept {sorted(seen)} of the op's calls, "
+                                    f"want {sorted(wanted.values())}")
+    n_tok = SERVE_BATCH * NEW_TOKENS
+    return {"picks": picks, "inputs": seen, "prefill_ms": (t_first - t0) * 1e3,
+            "decode_ms": (t_end - t_first) * 1e3 / (NEW_TOKENS - 1),
+            "tokens_per_s": n_tok / (t_end - t0)}
 
 
 def requests_for(prompts, new_tokens):
@@ -791,7 +892,7 @@ def serve_lm(torch, np, dev, arch: str) -> dict:
     the plain path and time it.  Returns what the kernels line and PERF.md
     need."""
     from repro_torch import configs
-    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models import init_params, prefill
     from repro_torch.serve import Engine
 
     path = lm_paths()[arch]
@@ -807,14 +908,23 @@ def serve_lm(torch, np, dev, arch: str) -> dict:
     prompts = np.random.default_rng(0).integers(
         2, cfg.vocab_size, size=(SERVE_BATCH, PROMPT_LEN)).astype(np.int32)
 
-    def engine():  # no EOS id: every request runs its 64 tokens
-        return Engine(cfg, params, batch_size=SERVE_BATCH, max_seq=SERVE_MAX_SEQ, eos_id=-1)
+    # warm-up of the eager prefill (cuBLAS's choices for these shapes), so
+    # neither the served nor the eager loop's prefill pays for it
+    with torch.inference_mode():
+        prefill(cfg, params, {"tokens": torch.from_numpy(prompts).to(dev).long()}, SERVE_MAX_SEQ)
+    torch.cuda.synchronize()
 
-    # warm-up (CUDA context, cuBLAS handles), which also keeps the kernel's
-    # main-path inputs for the timing below
-    inputs = capture_op_inputs(torch, engine(), path, prompts)
-
-    eng = engine()
+    # no EOS id: every request runs its 64 tokens.  The engine captures its
+    # decode step here, before the counted run
+    t_cap = time.perf_counter()
+    eng = Engine(cfg, params, batch_size=SERVE_BATCH, max_seq=SERVE_MAX_SEQ, eos_id=-1)
+    capture_s = time.perf_counter() - t_cap
+    per_replay = eng.decode_graph.launches_by_kernel()
+    check(per_replay.get(kernel) == cfg.n_layers,
+          f"{arch}: the decode graph records {per_replay} launches per replay, want "
+          f"{cfg.n_layers} of {kernel}")
+    log(f"serve: decode step captured as a CUDA graph in {capture_s:.2f} s (warm-up step "
+        f"included); launches per replay, recorded at capture: {json.dumps(per_replay)}")
     picks, stamps = [], []
     pick = eng._pick
 
@@ -841,15 +951,32 @@ def serve_lm(torch, np, dev, arch: str) -> dict:
     check(launches == cfg.n_layers * NEW_TOKENS,
           f"serve: {launches} {kernel} launches, want {cfg.n_layers} x {NEW_TOKENS}")
     check(all(len(r.out_tokens) == NEW_TOKENS for r in reqs), "serve: a request fell short")
-    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens),
-          "serve: a token outside the vocabulary")
+    # the logits span the padded vocabulary, and neither this engine nor the
+    # JAX engine masks the padding; with random weights an argmax can land
+    # there (stablelm-3b: 50,304 ids padded to 50,432)
+    check(all(0 <= t < cfg.padded_vocab for r in reqs for t in r.out_tokens),
+          "serve: a token outside the logits")
+    n_pad = sum(t >= cfg.vocab_size for r in reqs for t in r.out_tokens)
     check(all(bool(torch.isfinite(lg).all()) for lg, _ in picks), "serve: non-finite logits")
     prefill_ms = (stamps[0] - t_start) * 1e3
     decode_ms = (stamps[-1] - stamps[0]) * 1e3 / (len(stamps) - 1)
-    log(f"serve: {len(reqs)} requests x {NEW_TOKENS} tokens, {launches} {kernel} launches "
-        f"= {cfg.n_layers} x {NEW_TOKENS}; prefill {prefill_ms:.3f} ms, decode "
+    log(f"serve (decode graph): {len(reqs)} requests x {NEW_TOKENS} tokens, {launches} {kernel} "
+        f"launches = {cfg.n_layers} x {NEW_TOKENS}; prefill {prefill_ms:.3f} ms, decode "
         f"{decode_ms:.3f} ms per step, {n_tok / (t_end - t_start):.1f} generated tokens/s "
-        f"({t_end - t_start:.3f} s for {n_tok} tokens); finite logits")
+        f"({t_end - t_start:.3f} s for {n_tok} tokens); finite logits; {n_pad} tokens in the "
+        f"vocabulary's padding ({cfg.vocab_size} to {cfg.padded_vocab})")
+
+    # the same loop eagerly, on the same kernels: the same tokens exactly
+    eager = eager_serve(torch, cfg, eng.params, prompts, dev, path)
+    inputs = eager.pop("inputs")
+    served = [[r.out_tokens[i] for r in reqs] for i in range(NEW_TOKENS)]
+    n_diff = sum(a != b for a, b in zip(served, eager["picks"]))
+    check(n_diff == 0, f"serve: {n_diff} of {NEW_TOKENS} steps' tokens differ between the "
+                       "decode graph and the eager loop")
+    log(f"serve (eager loop over prefill/decode_step): the same {n_tok} tokens exactly; prefill "
+        f"{eager['prefill_ms']:.3f} ms, decode {eager['decode_ms']:.3f} ms per step, "
+        f"{eager['tokens_per_s']:.1f} generated tokens/s")
+    del eager["picks"]
 
     # the plain path, teacher-forced on the kernel path's tokens
     toks = [t for _, t in picks]
@@ -893,77 +1020,102 @@ def serve_lm(torch, np, dev, arch: str) -> dict:
               f"serve f32: kernel vs plain logits differ by {agree32['max_abs_diff']}")
         agree["f32"] = agree32
 
-    step = decode_breakdown(torch, cfg, params, prompts, dev, path["profile_key"])
-    return {"launches": launches, "launches_by_kernel": by_kernel, "prefill_ms": prefill_ms, "decode_ms": decode_ms,
-            "tokens_per_s": n_tok / (t_end - t_start), "inputs": inputs,
+    step = decode_breakdown(torch, cfg, eng, prompts, dev, path["profile_key"], per_replay[kernel])
+    return {"launches": launches, "launches_by_kernel": by_kernel,
+            "launches_per_replay": per_replay, "capture_s": capture_s,
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "tokens_per_s": n_tok / (t_end - t_start), "eager": eager, "inputs": inputs,
             "kernel_vs_plain": agree, **step}
 
 
-def decode_breakdown(torch, cfg, params, prompts, dev, profile_key: str) -> dict:
-    """One decode step at cache position ~PROMPT_LEN: its time (host clock
-    over 20 back-to-back steps, ending in a sync) and, from the profiler,
-    the device time of the path's kernel (profiler name containing
-    ``profile_key``) and of all kernels in one step, and the step's kernel
-    launches."""
-    from torch.profiler import ProfilerActivity, profile
-
+def decode_breakdown(torch, cfg, eng, prompts, dev, profile_key: str, per_replay: int) -> dict:
+    """One decode step at cache position ~PROMPT_LEN, run eagerly and as
+    the engine's graph replay: its time (host clock over 20 back-to-back
+    steps, ending in a sync) and, from the profiler, the device time of the
+    path's kernel (profiler name containing ``profile_key``) and of all
+    kernels in one step, the step's kernel launches and its idle share.
+    Neither may sync the host.  The profiler's count of the path's kernel
+    in one replay must equal ``per_replay``, the launches the capture
+    recorded."""
     from repro_torch.models import decode_step, prefill
 
+    graph = eng.decode_graph
     with torch.inference_mode():
-        tokens = torch.from_numpy(prompts).to(dev)
-        logits, cache = prefill(cfg, params, {"tokens": tokens}, SERVE_MAX_SEQ)
+        tokens = torch.from_numpy(prompts).to(dev).long()
+        logits, cache = prefill(cfg, eng.params, {"tokens": tokens}, SERVE_MAX_SEQ)
         tok = logits.argmax(-1)[:, None]
-        for _ in range(3):
-            logits, cache = decode_step(cfg, params, tok, cache)
-        torch.cuda.synchronize()
-        n = 20
-        t0 = time.perf_counter()
-        for _ in range(n):
-            logits, cache = decode_step(cfg, params, tok, cache)
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 1e3 / n
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            logits, cache = decode_step(cfg, params, tok, cache)
+        state = {"cache": cache}
+
+        def eager_step():
+            state["cache"] = decode_step(cfg, eng.params, tok, state["cache"])[1]
+
+        def replay_step():
+            eng.static_tokens.copy_(tok)
+            graph.replay()
+
+        logits, _ = prefill(cfg, eng.params, {"tokens": tokens}, SERVE_MAX_SEQ,
+                            cache=eng.static_cache)
+        out = {}
+        for name, step in (("eager", eager_step), ("graph", replay_step)):
+            for _ in range(3):
+                step()
             torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")  # a step that waits for the card raises
-        try:
-            logits, cache = decode_step(cfg, params, tok, cache)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-    by_kernel, launches = {}, 0
-    for ev in prof.key_averages():
-        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            continue
-        us = getattr(ev, "self_device_time_total", 0.0) or 0.0
-        if us > 0:
-            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + us
-            launches += ev.count
-    host = sorted(((ev.self_cpu_time_total, ev.count, ev.key) for ev in prof.key_averages()
-                   if not str(getattr(ev, "device_type", "")).endswith("CUDA")), reverse=True)
-    all_us = sum(by_kernel.values())
-    kernel_us = sum(us for k, us in by_kernel.items() if profile_key in k)
-    ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1])
-    rank = next((i + 1 for i, (k, _) in enumerate(ranked) if profile_key in k), None)
-    log(f"decode step (back to back, position ~{PROMPT_LEN + 3}; no host sync inside): "
-        f"{step_ms:.3f} ms; device time: "
-        f"all kernels {all_us / 1e3:.4f} ms in {launches} launches, {profile_key} "
-        f"{kernel_us / 1e3:.4f} ms (rank {rank} of {len(ranked)} kernels); idle "
-        f"{(1 - all_us / 1e3 / step_ms) * 100 if all_us else float('nan'):.1f}%")
-    for k, us in ranked[:8]:
-        log(f"  {us / 1e3:.4f} ms  {k[:110]}")
-    log(f"host ops of the step: {sum(h[1] for h in host)} calls, "
-        f"{sum(h[0] for h in host) / 1e3:.3f} ms of self CPU time under the profiler; the largest:")
-    for us, n, k in host[:8]:
-        log(f"  {us / 1e3:.4f} ms  {n:5d} x {k[:90]}")
-    return {
-        "step_ms": step_ms,
-        "profiler_all_kernels_ms": all_us / 1e3 if all_us else None,
-        "profiler_kernel_ms": kernel_us / 1e3 if kernel_us else None,
-        "profiler_launches": launches,
-        "kernel_rank": rank,
-        "idle_share": 1 - all_us / 1e3 / step_ms if all_us else None,
-    }
+            n = 20
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3 / n
+            # the host's time to enqueue one step (no sync inside), the card idle
+            launch_ms = 0.0
+            for _ in range(5):
+                t1 = time.perf_counter()
+                step()
+                launch_ms += (time.perf_counter() - t1) * 1e3 / 5
+                torch.cuda.synchronize()
+            prof = profile_once(torch, step, profile_key)
+            torch.cuda.set_sync_debug_mode("error")  # a step that waits for the card raises
+            try:
+                step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            all_ms = prof["all_ms"]
+            log(f"decode step, {name} (back to back, position ~{PROMPT_LEN + 3}; no host sync "
+                f"inside): {step_ms:.3f} ms; the host enqueues one in {launch_ms:.3f} ms; "
+                f"device time: all kernels "
+                f"{all_ms if all_ms is None else round(all_ms, 4)} ms in {prof['launches']} "
+                f"launches, {profile_key} {prof['key_ms']} ms in {prof['key_launches']} launches "
+                f"(rank {prof['rank']} of {prof['n_kernels']} kernels); idle "
+                f"{(1 - all_ms / step_ms) * 100 if all_ms else float('nan'):.1f}%")
+            for k, us in prof["ranked"][:8]:
+                log(f"  {us / 1e3:.4f} ms  {k[:110]}")
+            host = prof["host"]
+            log(f"  host ops of the step: {sum(h[1] for h in host)} calls, "
+                f"{sum(h[0] for h in host) / 1e3:.3f} ms of self CPU time under the profiler; "
+                "the largest:")
+            for us, cnt, k in host[:6]:
+                log(f"    {us / 1e3:.4f} ms  {cnt:5d} x {k[:90]}")
+            out[name] = {
+                "step_ms": step_ms,
+                "enqueue_ms": launch_ms,
+                "profiler_all_kernels_ms": all_ms,
+                "profiler_kernel_ms": prof["key_ms"],
+                "profiler_launches": prof["launches"],
+                "profiler_kernel_launches": prof["key_launches"],
+                "kernel_rank": prof["rank"],
+                "idle_share": 1 - all_ms / step_ms if all_ms else None,
+            }
+    seen = out["graph"]["profiler_kernel_launches"]
+    check(out["graph"]["profiler_all_kernels_ms"] is not None,
+          "the profiler shows no device time inside a graph replay: the launches per replay "
+          "cannot be cross-checked")
+    check(seen == per_replay, f"the profiler sees {seen} launches of {profile_key} in one "
+                              f"replay, the capture recorded {per_replay}")
+    log(f"profiler cross-check: {seen} launches of {profile_key} in one replay = "
+        f"{per_replay} recorded at capture")
+    return {"decode_step": out, "step_ms": out["graph"]["step_ms"],
+            "idle_share": out["graph"]["idle_share"]}
 
 
 def sdpa(torch, q, k, v, causal, offset):
@@ -1287,6 +1439,104 @@ def qmm_path_and_times(torch, dev) -> dict:
 
 
 # ----------------------------------------------------------------------
+# 12. the interpreter fallback; 13. flash at the head dims of stablelm-3b,
+# kimi-k2 and granite-20b's group
+# ----------------------------------------------------------------------
+FALLBACK_FIRES = 3  # the fault plan's raises at serve.dispatch: open, reopen, then recover
+FALLBACK_COOLDOWN_MS = 50.0
+
+
+def serve_fallback(torch, np, mixer_path, x_gold, y_gold, n_steps: int) -> dict:
+    """The Mixer behind ``fallback="interpreter"`` with a seeded fault plan
+    whose first FALLBACK_FIRES hits of ``serve.dispatch`` raise: the first
+    two batches (one per shard) fail and open the breaker, the interpreter
+    serves what follows, a probe after the cooldown fails once more
+    (reopen), the next one succeeds and the batches go back to the graphs.
+    Bursts of the golden inputs, past the cooldown between them, run until
+    one whole burst has run on the kernel.  Every output must be golden."""
+    from repro_torch.chaos import FaultPlan, FaultRule, active
+    from repro_torch.flow import ServeConfig
+    from repro_torch.runtime import ServeEngine, load_design
+
+    cfg = ServeConfig(max_batch=256, shards=2, fallback="interpreter", breaker_threshold=2,
+                      breaker_cooldown_ms=FALLBACK_COOLDOWN_MS,
+                      breaker_cooldown_max_ms=2 * FALLBACK_COOLDOWN_MS)
+    plan = FaultPlan([FaultRule("serve.dispatch", rate=1.0, max_fires=FALLBACK_FIRES)], seed=12)
+    bursts = []
+    reset_counts()
+    t0 = time.perf_counter()
+    with active(plan), ServeEngine(cfg) as eng:
+        # with the fallback, register captures every bucket on every shard
+        eng.register("mixer", load_design(mixer_path))
+        captured = eng.stats("mixer")["jit_compiles"]
+        check(set(captured.values()) == {cfg.shards},
+              f"fallback phase: register captured {captured}, want every bucket on "
+              f"{cfg.shards} shards")
+        for _ in range(8):
+            before = eng.stats("mixer")["n_fallback_batches"]
+            futs = eng.submit_batch("mixer", x_gold)
+            got = np.stack([f.result(120) for f in futs])
+            check(np.array_equal(got, y_gold), f"fallback phase: burst {len(bursts)} != golden")
+            s = eng.stats("mixer")
+            bursts.append({"fallback_batches": s["n_fallback_batches"] - before,
+                           "breaker": s["breaker"]["state"]})
+            if bursts[-1]["fallback_batches"] == 0 and s["breaker"]["state"] == "closed":
+                break
+            time.sleep(2 * 2 * FALLBACK_COOLDOWN_MS / 1e3)  # past the (doubled) cooldown
+        stats = eng.stats("mixer")
+    counts = read_counts()
+    fires = plan.stats()["sites"]["serve.dispatch"]["fires"]
+    faults = [e for e in stats["flight"]["events"] if e["kind"] == "dispatch_fault"]
+    events = [e["kind"] for e in stats["flight"]["events"] if e["kind"] != "dispatch_fault"]
+    log(f"fallback: {len(bursts)} bursts of {len(x_gold)} requests, every output golden; "
+        f"{json.dumps(bursts)}; {fires} injected faults; breaker events {events}")
+    check(fires == FALLBACK_FIRES, f"fallback phase: {fires} faults fired")
+    check(len(faults) == fires and all(f["fallback"] and not f["device"] for f in faults),
+          f"fallback phase: {len(faults)} dispatch_fault events for {fires} faults, or one "
+          "taken for the device's")
+    check(stats["n_fallback_batches"] > 0, "fallback phase: no batch was served by the fallback")
+    check(stats["breaker"]["n_trips"] >= 1 and stats["breaker"]["state"] == "closed",
+          f"fallback phase: breaker {stats['breaker']}")
+    check(bursts[-1]["fallback_batches"] == 0, "fallback phase: the probes never went back to "
+                                               "the kernel")
+    check(stats["n_graph_replays"] + stats["n_fallback_batches"] == stats["n_batches"],
+          f"fallback phase: {stats['n_graph_replays']} replays + {stats['n_fallback_batches']} "
+          f"fallback batches != {stats['n_batches']} batches")
+    want = (stats["n_jit_compiles"] + stats["n_graph_replays"]) * n_steps
+    check(counts["adder_graph"] == want,
+          f"fallback phase: {counts['adder_graph']} adder-graph launches, want {want}")
+    check_only(counts, "adder_graph", "the fallback phase")
+    return {"bursts": bursts, "faults": fires, "n_batches": stats["n_batches"],
+            "n_fallback_batches": stats["n_fallback_batches"],
+            "n_graph_replays": stats["n_graph_replays"], "breaker": stats["breaker"],
+            "events": events, "adder_graph_launches": counts["adder_graph"],
+            "seconds": time.perf_counter() - t0}
+
+
+def head_dim_inputs(torch, dev) -> dict:
+    """Flash inputs of the main path's shapes at the head dims no served
+    model of this script reaches: kimi-k2's (64:8 heads, head_dim 112),
+    at decode (cache of 512, offset DECODE_TIMING_OFFSET) and at a
+    128-token prefill, and granite-20b's 48:1 decode (head_dim 128: 48
+    packed rows, the prefill kernels).  Random bf16 values, seed 3."""
+    gen = torch.Generator(dev).manual_seed(3)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    off = torch.tensor(DECODE_TIMING_OFFSET, dtype=torch.int32, device=dev)
+    out = {}
+    for name, (b, hq, hkv, d) in (("kimi-k2 head_dim 112", (SERVE_BATCH, 64, 8, 112)),
+                                  ("granite-20b 48:1", GRANITE_DECODE)):
+        out[f"{name} decode"] = ([rand(b, hq, 1, d), rand(b, hkv, SERVE_MAX_SEQ, d),
+                                  rand(b, hkv, SERVE_MAX_SEQ, d)], {"causal": True, "offset": off})
+    b, hq, hkv, d = SERVE_BATCH, 64, 8, 112
+    out["kimi-k2 head_dim 112 prefill"] = ([rand(b, hq, PROMPT_LEN, d), rand(b, hkv, PROMPT_LEN, d),
+                                            rand(b, hkv, PROMPT_LEN, d)], {"causal": True})
+    return out
+
+
+# ----------------------------------------------------------------------
 def main() -> int:
     import numpy as np
     import torch
@@ -1336,30 +1586,74 @@ def main() -> int:
     reset_counts()
     t0 = time.perf_counter()
     served = load_design(mixer_path)
+    n_steps = count_cmvm_steps(served.step_specs)
     with ServeEngine(cfg) as eng:
-        eng.register("mixer", served, warmup=True)
+        eng.register("mixer", served)  # no warm-up: graphs are captured at first use
         t_reg = time.perf_counter()
         futs = eng.submit_batch("mixer", np.concatenate([x_gold] * reps))
         outs = [f.result(120) for f in futs]
         t_done = time.perf_counter()
+        first = eng.stats("mixer")
+        # the same burst again, every graph captured: the steady state
+        t_again = time.perf_counter()
+        futs2 = eng.submit_batch("mixer", np.concatenate([x_gold] * reps))
+        outs += [f.result(120) for f in futs2]
+        t_done2 = time.perf_counter()
         stats = eng.stats("mixer")
         counts = read_counts()
         main_launches = counts["adder_graph"]
+        # the profiler's count of one replay of a shard's graph, against
+        # the launches its capture recorded
+        shard = eng._runner("mixer").shards[0]
+        with shard._device_lock:
+            bucket, (_, graph) = max(shard._graphs.items())
+            prof = profile_once(torch, graph.replay, "namespace)::adder_graph_")
     got = np.stack(outs)
-    check(np.array_equal(got, np.concatenate([y_gold] * reps)), "served outputs != JAX golden")
+    check(np.array_equal(got, np.concatenate([y_gold] * 2 * reps)), "served outputs != JAX golden")
     check(stats["n_fallback_batches"] == 0, "fallback batches")
     check(stats["breaker"]["n_trips"] == 0, "the circuit breaker opened")
     check(stats["supervision"]["n_crashes"] == 0, "a dispatch shard crashed")
-    n_steps = count_cmvm_steps(served.step_specs)
-    want_launches = (stats["n_batches"] + len(stats["buckets"])) * n_steps
+    used = {b: sum(sh["bucket_hits"][b] > 0 for sh in stats["shards"]) for b in stats["buckets"]}
+    check(stats["jit_compiles"] == used,
+          f"graphs captured {stats['jit_compiles']}, (shard, bucket) pairs used {used}")
+    check(stats["n_graph_replays"] == stats["n_batches"],
+          f"{stats['n_graph_replays']} replays for {stats['n_batches']} batches")
+    per_replay = stats["graph_launches_per_replay"]
+    check(all(v == {"adder_graph": n_steps} for v in per_replay.values()),
+          f"launches per replay {per_replay}, want {n_steps} adder-graph launches")
+    want_launches = (stats["n_jit_compiles"] + stats["n_batches"]) * n_steps
     check(main_launches == want_launches,
-          f"{main_launches} launches on the main path, expected {want_launches}")
+          f"{main_launches} launches on the main path, expected {want_launches} (one warm-up "
+          f"per capture and one replay per batch, {n_steps} CMVM steps each)")
     check_only(counts, "adder_graph", "the Mixer's serve")
+    check(prof["all_ms"] is not None,
+          "the profiler shows no device time inside a graph replay: the launches per replay "
+          "cannot be cross-checked")
+    check(prof["key_launches"] == n_steps,
+          f"the profiler sees {prof['key_launches']} adder-graph launches in one replay, "
+          f"the capture recorded {n_steps}")
     rps = len(futs) / (t_done - t_reg)
-    log(f"serve: {len(futs)} requests bit-exact; {rps:.0f} req/s, p50 {stats['p50_ms']:.3f} ms, "
-        f"p99 {stats['p99_ms']:.3f} ms, {stats['n_batches']} batches, {main_launches} launches; "
-        f"load + register + warm-up {t_reg - t0:.2f} s")
-    log("serve stages: " + json.dumps(stats["per_stage"]))
+    rps2 = len(futs2) / (t_done2 - t_again)
+
+    def second_burst_mean_us(st):  # per batch (queue_wait: per request)
+        total = stats["per_stage"][st]["total_ms"] - first["per_stage"][st]["total_ms"]
+        count = stats["per_stage"][st]["count"] - first["per_stage"][st]["count"]
+        return total * 1e3 / max(1, count)
+
+    log(f"serve: {len(futs)} requests, then {len(futs2)} again, all bit-exact; first burst "
+        f"(graphs captured at first use) {rps:.0f} req/s, p50 {first['p50_ms']:.3f} ms, p99 "
+        f"{first['p99_ms']:.3f} ms, {first['n_batches']} batches; second burst {rps2:.0f} req/s, "
+        f"{stats['n_batches'] - first['n_batches']} batches; {main_launches} launches = "
+        f"({stats['n_jit_compiles']} captures + {stats['n_batches']} replays) x {n_steps}; "
+        f"graphs captured per bucket (shards): {json.dumps(stats['jit_compiles'])} in "
+        f"{stats['jit_compile_ms']:.1f} ms (warm-up runs included); "
+        f"load + register {t_reg - t0:.2f} s")
+    log("serve stage means, us: first burst "
+        + json.dumps({st: v["mean_us"] for st, v in first["per_stage"].items()})
+        + "; second burst " + json.dumps({st: second_burst_mean_us(st) for st in first["per_stage"]}))
+    log(f"serve: profiler over one replay of bucket {bucket}: {prof['key_launches']} adder-graph "
+        f"launches (recorded at capture: {n_steps}), device time {prof['all_ms']} ms, of which "
+        f"the kernel {prof['key_ms']} ms, in {prof['launches']} launches")
 
     log("== 5. times (device time per call: CUDA-graph replays)")
     timings = {}
@@ -1408,7 +1702,7 @@ def main() -> int:
     lm = serve_lm(torch, np, dev, "smollm-135m")
     ft = flash_times(torch, lm["inputs"])
     dec, pre = ft["decode"], ft["prefill"]
-    kernels["kernels"].append({
+    flash_entry = {
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -1423,7 +1717,8 @@ def main() -> int:
         "shape": "one decode launch of the main path (layer 0): " + dec["shape"],
         "prefill": {k: pre[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                                         "library_ms")},
-    })
+    }
+    kernels["kernels"].append(flash_entry)
     log("serve summary: " + json.dumps({k: v for k, v in lm.items() if k != "inputs"}))
     del lm, ft
 
@@ -1482,6 +1777,24 @@ def main() -> int:
         "entry_points": {k: {**v, "launches": qm["launches_by_kernel"][k]}
                          for k, v in qmm_phase9["entry_points"].items()},
     })
+    log("== 12. the interpreter fallback while the breaker is open")
+    fb = serve_fallback(torch, np, mixer_path, x_gold, y_gold, n_steps)
+
+    log("== 13. serve stablelm-3b at full width (head_dim 80)")
+    sl = serve_lm(torch, np, dev, "stablelm-3b")
+    ft = flash_times(torch, {f"stablelm-3b {k}": v for k, v in sl["inputs"].items()})
+    ft.update(flash_times(torch, head_dim_inputs(torch, dev)))
+    flash_entry["head_dims"] = {
+        name: {k: row[k] for k in ("shape", "plan", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "max_abs_err")}
+        for name, row in ft.items()}
+    flash_entry["launches_stablelm_3b"] = sl["launches"]
+    flash_entry["max_abs_err"] = max(flash_entry["max_abs_err"],
+                                     *(row["max_abs_err"] for row in ft.values()))
+    log("serve summary: " + json.dumps({k: v for k, v in sl.items() if k != "inputs"}))
+    log("fallback summary: " + json.dumps(fb))
+    del sl, ft
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(info["nvidia_smi"])
     print(json.dumps(kernels))

@@ -221,9 +221,11 @@ class ServeConfig(_ConfigBase):
                   default; per-call ``deadline_s`` always wins).
     fallback      degraded mode while the circuit breaker is open:
                   "none" fails fast with CircuitOpenError; "interpreter"
-                  (the JAX package's numpy StepSpec interpreter) is
-                  accepted here so configs interchange, but the port's
-                  ServeEngine refuses it until the interpreter is ported.
+                  serves the batch from the numpy StepSpec interpreter
+                  (``repro_torch.nn.interpreter``), as it does a batch
+                  whose dispatch raised, except where the card itself
+                  failed (a kernel that does not build, load, launch or
+                  capture, or a CUDA error): such a batch fails.
     breaker_threshold      consecutive dispatch failures that trip the
                   per-model breaker (closed -> open).
     breaker_cooldown_ms    initial open-state cooldown before a single

@@ -7,12 +7,14 @@ at first use, never on import; all sources that are not built yet are
 compiled together, one ``nvcc`` process each, started at once.  The
 output goes to ``src/repro_torch/_build/`` (listed in ``.gitignore``),
 named by a hash of the source, its headers and the flags, so an edit
-rebuilds and an unchanged tree reuses the library.  A build or load
-failure raises.
+rebuilds and an unchanged tree reuses the library.  A build, load or
+launch failure raises :class:`KernelError`.  nvcc's output of a build, ptxas's resource report
+included, is kept beside the library (:func:`build_log`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -26,7 +28,18 @@ BUILD_DIR = KERNELS_DIR.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # each kernel's registers, shared memory and spills, kept in the log
 )
+
+
+
+class KernelError(RuntimeError):
+    """A hand-written kernel could not be built, loaded or launched.
+
+    Callers that may degrade around other faults (the serve engine's
+    interpreter fallback) let this one through: the work of a kernel
+    that fails never moves to the CPU."""
+
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -42,7 +55,7 @@ def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and Path(cand).is_file():
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    raise KernelError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def _target(src: Path) -> Path:
@@ -55,7 +68,7 @@ def _target(src: Path) -> Path:
 
 def build_all() -> dict[str, Path]:
     """Build every kernel source that is not built yet, all in parallel;
-    returns name -> library path.  Raises ``RuntimeError`` naming each
+    returns name -> library path.  Raises :class:`KernelError` naming each
     source that failed, with nvcc's output."""
     targets = {name: (src, _target(src)) for name, src in sources().items()}
     todo = {n: st for n, st in targets.items() if not st[1].exists()}
@@ -76,23 +89,40 @@ def build_all() -> dict[str, Path]:
                 failed.append(f"{name} (exit {proc.returncode}):\n{log}")
                 tmp.unlink(missing_ok=True)
             else:
+                out.with_suffix(".log").write_text(log)
                 tmp.replace(out)
         if failed:
-            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+            raise KernelError("nvcc failed for " + "\n".join(failed))
     return {name: out for name, (_, out) in targets.items()}
+
+
+def build_log(name: str) -> str:
+    """nvcc's output when it built kernel ``name`` (built first if need
+    be), ptxas's ``-v`` resource report included."""
+    return build_all()[name].with_suffix(".log").read_text()
 
 
 class LaunchCounter:
     """A thread-safe count of kernel launches: each wrapper adds one where
-    it launches its kernel, and nowhere else."""
+    it launches its kernel, and nowhere else.
 
-    def __init__(self) -> None:
+    Inside a CUDA-graph capture on the calling thread (:func:`tally`)
+    nothing runs, so a wrapper's ``add`` goes to the capture's tally
+    instead; the graph adds the tally to the counters at every replay
+    (``graphs.CapturedGraph.replay``)."""
+
+    def __init__(self, name: str) -> None:
+        self.name = name
         self._lock = threading.Lock()
         self._n = 0
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
+        pending = getattr(_capturing, "tally", None)
+        if pending is not None:
+            pending[self] = pending.get(self, 0) + n
+            return
         with self._lock:
-            self._n += 1
+            self._n += n
 
     @property
     def value(self) -> int:
@@ -103,6 +133,23 @@ class LaunchCounter:
             self._n = 0
 
 
+_capturing = threading.local()
+
+
+@contextlib.contextmanager
+def tally():
+    """Collect the launches the calling thread's wrappers make in the
+    ``with`` body into a dict (counter -> launches) instead of counting
+    them: the body is a capture, which launches nothing."""
+    if getattr(_capturing, "tally", None) is not None:
+        raise RuntimeError("a capture is already being tallied on this thread")
+    _capturing.tally = launches = {}
+    try:
+        yield launches
+    finally:
+        _capturing.tally = None
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     with _lock:
@@ -110,8 +157,12 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             paths = build_all()
             if name not in paths:
-                raise RuntimeError(f"no CUDA source for kernel {name!r}")
-            lib = _loaded[name] = ctypes.CDLL(str(paths[name]))
+                raise KernelError(f"no CUDA source for kernel {name!r}")
+            try:
+                lib = ctypes.CDLL(str(paths[name]))
+            except OSError as e:
+                raise KernelError(f"cannot load kernel library {paths[name]}: {e}") from e
+            _loaded[name] = lib
         return lib
 
 

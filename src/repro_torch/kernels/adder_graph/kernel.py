@@ -17,10 +17,10 @@ import ctypes
 
 import torch
 
-from .._build import LaunchCounter, library, sm_count
+from .._build import KernelError, LaunchCounter, library, sm_count
 from .slots import LaunchPlan, launch_plan
 
-launches = LaunchCounter()
+launches = LaunchCounter("adder_graph")
 
 _c_int = ctypes.c_int
 _c_ptr = ctypes.c_void_p
@@ -95,6 +95,6 @@ def adder_graph_cuda(tables, x: torch.Tensor) -> torch.Tensor:
             )
     if err != 0:
         msg = lib.da4ml_cuda_error_string(err).decode()
-        raise RuntimeError(f"adder-graph kernel launch failed: {msg} (cudaError {err})")
+        raise KernelError(f"adder-graph kernel launch failed: {msg} (cudaError {err})")
     launches.add()
     return y

@@ -65,6 +65,19 @@
 // microsecond at the tensor cores' rate either way: latency and
 // parallelism bound it again, hence the small mma.sync tiles and the
 // overlap of loads with products, not wgmma's 64-row warpgroup tiles.
+//
+// Head dims.  Each kernel is compiled for D = 16, 32, 64, 80, 112 and 128
+// (80: stablelm-3b, 112: kimi-k2; the others the configs' powers of two).
+// Nothing assumes a power of two: every D is a multiple of 16, so the
+// m16n8k16 tiles divide it (D / 16 k-steps, D / 8 output tiles, taken in
+// pairs by ldmatrix.x4); a row is D / 8 (bf16) or D / 4 (f32) 16-byte
+// vectors, which the staging loops spread over all threads whatever
+// their count; every padded row stride (D + 16 bytes) stays a multiple
+// of 16 bytes and maps the 8 rows of a fragment load, or of a quarter
+// warp's 16-byte loads, to distinct banks; a lane's share of the output
+// dims (D / 32 rounded up) masks the dims past D.  At D = 112 the decode
+// kernel's f32 tile takes 131,200 bytes of shared memory and the bf16
+// prefill kernel 138,240, both within a block's 227 KB.
 
 #include <cstdint>
 #include <cooperative_groups.h>
@@ -925,6 +938,10 @@ extern "C" int da4ml_flash_attention(int dtype, int kernel, int splits, int head
       return static_cast<int>(dispatch<32>(dtype, kernel, a));
     case 64:
       return static_cast<int>(dispatch<64>(dtype, kernel, a));
+    case 80:
+      return static_cast<int>(dispatch<80>(dtype, kernel, a));
+    case 112:
+      return static_cast<int>(dispatch<112>(dtype, kernel, a));
     case 128:
       return static_cast<int>(dispatch<128>(dtype, kernel, a));
     default:

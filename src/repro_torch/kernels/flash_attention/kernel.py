@@ -17,9 +17,9 @@ from typing import NamedTuple
 
 import torch
 
-from .._build import LaunchCounter, library, sm_count
+from .._build import KernelError, LaunchCounter, library, sm_count
 
-HEAD_DIMS = (16, 32, 64, 128)  # the head_dims the kernel is compiled for
+HEAD_DIMS = (16, 32, 64, 80, 112, 128)  # the head_dims the kernel is compiled for
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_CODES = {"cuda_core": 0, "decode": 1, "tensor_core": 2}
 DECODE_ROWS = 16  # the decode kernel packs at most this many (query head, query row) pairs
@@ -27,7 +27,7 @@ MAX_SPLITS = 8  # blocks of a decode cluster (the portable cluster size)
 SPLIT_MIN_KEYS = 32  # cached keys per split at least: one warp's worth
 H100_SMS = 132
 
-launches = LaunchCounter()
+launches = LaunchCounter("flash_attention")
 
 _c_int = ctypes.c_int
 _c_ptr = ctypes.c_void_p
@@ -144,6 +144,6 @@ def flash_attention_cuda(
         )
     if err != 0:
         msg = lib.da4ml_cuda_error_string(err).decode()
-        raise RuntimeError(f"flash-attention kernel launch failed: {msg} (cudaError {err})")
+        raise KernelError(f"flash-attention kernel launch failed: {msg} (cudaError {err})")
     launches.add()
     return out

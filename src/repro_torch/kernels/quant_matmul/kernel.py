@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from .._build import LaunchCounter, library
+from .._build import KernelError, LaunchCounter, library
 
 # |x_i8 * w_i8| <= 2^14, so an int32 sum of K products cannot overflow
 # while K * 2^14 < 2^31
@@ -26,8 +26,9 @@ MAX_K = (1 << 31) // (128 * 128) - 1
 
 KERNELS = ("tma", "mma_sync")  # the source's kernels, in the C entry point's numbering
 
-launches = LaunchCounter()
-kernel_launches = {k: LaunchCounter() for k in KERNELS}  # the same launches, by kernel
+launches = LaunchCounter("quant_matmul")
+# the same launches, by kernel
+kernel_launches = {k: LaunchCounter(f"quant_matmul.{k}") for k in KERNELS}
 
 _c_int = ctypes.c_int
 _c_ptr = ctypes.c_void_p
@@ -103,7 +104,7 @@ def quant_matmul_cuda(
         )
     if err != 0:
         msg = lib.da4ml_cuda_error_string(err).decode()
-        raise RuntimeError(f"W8A8 matmul kernel launch failed: {msg} (cudaError {err})")
+        raise KernelError(f"W8A8 matmul kernel launch failed: {msg} (cudaError {err})")
     launches.add()
     kernel_launches[entry].add()
     return out

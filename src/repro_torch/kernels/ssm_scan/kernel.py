@@ -17,13 +17,14 @@ import ctypes
 
 import torch
 
-from .._build import LaunchCounter, library
+from .._build import KernelError, LaunchCounter, library
 
 MAX_STATE = 16  # the state sizes N the kernel is compiled for: 1 .. 16
 KERNELS = ("decode", "prefill")  # the source's kernels, in the C entry point's numbering
 
-launches = LaunchCounter()
-kernel_launches = {k: LaunchCounter() for k in KERNELS}  # the same launches, by kernel
+launches = LaunchCounter("ssm_scan")
+# the same launches, by kernel
+kernel_launches = {k: LaunchCounter(f"ssm_scan.{k}") for k in KERNELS}
 
 _c_int = ctypes.c_int
 _c_ll = ctypes.c_longlong
@@ -113,7 +114,7 @@ def selective_scan_cuda(
         )
     if err != 0:
         msg = lib.da4ml_cuda_error_string(err).decode()
-        raise RuntimeError(f"selective-scan kernel launch failed: {msg} (cudaError {err})")
+        raise KernelError(f"selective-scan kernel launch failed: {msg} (cudaError {err})")
     launches.add()
     kernel_launches[kernel].add()
     return y, h_out

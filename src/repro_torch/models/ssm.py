@@ -22,6 +22,17 @@ import torch.nn.functional as F
 
 from ..kernels.ssm_scan import selective_scan
 
+F32_LEAVES = ("x_proj", "dt_proj", "dt_bias", "a_log", "d")  # read in f32 by mamba_block
+
+
+def f32_leaves(p: dict) -> dict:
+    """The block's parameters with the leaves ``mamba_block`` reads in
+    f32 (``F32_LEAVES``) cast once.  The block casts them the same way on
+    every call, and the cast of an f32 tensor is the tensor itself, so it
+    computes bit for bit the same from either; the serving engine casts
+    once instead of every step."""
+    return {k: v.float() if k in F32_LEAVES else v for k, v in p.items()}
+
 
 def _ssm_params(p):
     a = -torch.exp(p["a_log"].float())  # [d_inner, state]

@@ -330,15 +330,21 @@ def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache: dict
     return logits, {"blocks": cache["blocks"], "pos": pos + 1}
 
 
-def prefill(cfg: ArchConfig, params: dict, batch: dict, max_seq: int):
+def prefill(cfg: ArchConfig, params: dict, batch: dict, max_seq: int, cache: dict | None = None):
     """Prefill: forward over the prompt, building the decode cache on the
-    tokens' device.  Returns (logits of the last position [B, Vp], cache)."""
+    tokens' device.  Returns (logits of the last position [B, Vp], cache).
+    ``cache``, where given (one of ``init_cache(cfg, B, max_seq)``), is
+    zeroed and written in place instead of a new one: the serving engine
+    keeps one static cache for its decode graph."""
     check_supported(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     if s > max_seq:
         raise ValueError(f"prefill length {s} exceeds cache size {max_seq}")
-    cache = init_cache(cfg, b, max_seq, device=tokens.device)
+    if cache is None:
+        cache = init_cache(cfg, b, max_seq, device=tokens.device)
+    else:
+        tree_map(lambda t: t.zero_(), cache)
     x = embed_tokens(params["embed"], tokens)
     positions = torch.arange(s, device=x.device)
     x = _apply_stack(cfg, params["blocks"], x, positions, caches=cache["blocks"], pos=0)

@@ -17,7 +17,10 @@ content digest (``arrays_sha256``) and is the commit record: a crash
 leaves the previous complete artifact or a stray temp file, never a
 manifest pointing at missing or torn arrays.  ``load_design`` maps every
 torn, truncated or mixed-generation shape to :class:`ArtifactCorruptError`
-and can quarantine the directory aside.
+and can quarantine the directory aside.  The fault points of
+:mod:`repro_torch.chaos` (``artifact.save.arrays``,
+``artifact.save.truncate``, ``artifact.save.commit``,
+``artifact.load.read``) provoke each crash window, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..chaos import fault_point, io_fault
 from ..core.dais import DAISProgram, qints_from_array, qints_to_array
 from ..flow.config import CompileConfig
 from ..kernels.adder_graph import compile_tables
@@ -160,8 +164,11 @@ def save_design(design: CompiledDesign, path: str | Path) -> Path:
 
     # ordered commit: arrays first, manifest (the commit record) last
     tmp = path / "design.tmp.npz"
+    fault_point("artifact.save.arrays")
     np.savez_compressed(tmp, **arrays)
+    io_fault("artifact.save.truncate", tmp)  # simulated torn write
     _fsync_replace(tmp, path / "design.npz")
+    fault_point("artifact.save.commit")  # crash between arrays and commit
     tmp_manifest = path / "manifest.tmp.json"
     tmp_manifest.write_text(json.dumps(manifest, indent=2, sort_keys=True))
     _fsync_replace(tmp_manifest, path / "manifest.json")
@@ -214,6 +221,7 @@ def load_design(
         raise ValueError(f"on_corrupt must be 'raise' or 'quarantine', got {on_corrupt!r}")
     t0 = time.perf_counter()
     path = Path(path)
+    fault_point("artifact.load.read")
     try:
         manifest_text = (path / "manifest.json").read_text()
     except FileNotFoundError:

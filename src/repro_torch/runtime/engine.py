@@ -13,15 +13,22 @@ Each registered :class:`CompiledDesign` gets:
     batch out of it with one vectorized copy into a **pinned** host
     buffer of the batch's bucket shape (powers of two up to
     ``max_batch``), zero-padded;
-  * per-bucket device execution: an explicit ``non_blocking``
-    host-to-device copy on the shard's own CUDA stream, ``forward_int``
-    on the design's device (every CMVM through the adder-graph kernel),
-    an explicit device-to-host copy into a pinned output buffer, and a
-    synchronise of that stream.  On ``device="cpu"`` the same steps run
-    without streams or pinning;
+  * per-bucket device execution through a CUDA graph: each shard
+    captures ``forward_int`` (every CMVM through the adder-graph kernel)
+    once per bucket shape, from a static device input buffer into a
+    static output, at ``warmup()`` or at the first batch of that shape
+    (the JAX engine jits it per shape; ``jit_compiles`` counts the
+    captures).  A batch is an explicit ``non_blocking`` host-to-device
+    copy on the shard's own CUDA stream, one replay, a device-to-host
+    copy into a pinned output buffer, and a synchronise of that stream.
+    On ``device="cpu"`` ``forward_int`` runs eagerly, without streams,
+    pinning or graphs;
   * per-request latency accounting (p50/p95/p99, throughput) plus
     per-stage accounting (queue wait / batch-form / pad / dispatch /
-    copy-out) and per-shard counters, merged in ``stats()``.
+    copy-out), per-stage microsecond histograms, a per-request flight
+    recorder and per-shard counters, merged in ``stats()`` and exposed
+    as Prometheus text by ``metrics_text()``; a ``serve.batch`` span
+    (``repro_torch.obs.trace``) around each batch.
 
 Requests are single samples on the integer input grid (``in_shape``);
 ``submit`` returns a ``concurrent.futures.Future`` resolving to the
@@ -37,11 +44,21 @@ Resilience: requests may carry a deadline (per call or
 ``ServeConfig.deadline_ms``) and are shed with
 :class:`DeadlineExceededError` once it expires; consecutive dispatch
 failures trip a per-model :class:`CircuitBreaker` (batches then fail
-fast with :class:`CircuitOpenError`); a supervisor thread revives dead
-dispatchers within ``ServeConfig.restart_budget``, then escalates to
-:class:`ModelUnhealthyError`.  The invariant: every submitted Future
-resolves, with a result or a typed error, and every slab slot returns
-to the free list.
+fast with :class:`CircuitOpenError`, or, with
+``ServeConfig.fallback="interpreter"``, are served bit-exactly by the
+numpy interpreter, as are batches whose device dispatch raised for
+any reason but the device's own: a kernel that fails to build, load,
+launch or capture, or a CUDA error, fails its batch and, until a device
+dispatch succeeds again, keeps the interpreter from serving in its
+place; every fault a dispatch absorbs or raises is a ``dispatch_fault``
+event in the flight view, with its ``repr``); a
+supervisor thread revives dead dispatchers within
+``ServeConfig.restart_budget``, then escalates to
+:class:`ModelUnhealthyError`.  The fault points of
+:mod:`repro_torch.chaos` (``serve.dispatcher``, ``serve.dispatch``,
+``serve.gather``) provoke each of these paths.  The invariant: every
+submitted Future resolves, with a result or a typed error, and every
+slab slot returns to the free list.
 """
 
 from __future__ import annotations
@@ -58,11 +75,30 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..chaos import fault_point
 from ..flow.config import ServeConfig
+from ..kernels._build import KernelError
+from ..kernels.graphs import CapturedGraph, capture
 from ..nn.compiler import CompiledDesign
+from ..nn.interpreter import numpy_forward_fn
+from ..obs import trace
+from ..obs.flight import FlightRecorder
+from ..obs.metrics import Histogram, get_registry, render_prometheus
 from .artifact import load_design
 from .metrics import LatencyRecorder, StageAccumulator
 from .resilience import CircuitBreaker
+
+
+def _device_fault(e: BaseException) -> bool:
+    """Whether a dispatch failed on the card itself (a kernel that did not
+    build, load, launch or capture, or a CUDA error), as opposed to the
+    other faults the interpreter fallback may cover."""
+    accel = getattr(torch, "AcceleratorError", None)
+    if isinstance(e, (KernelError, torch.cuda.OutOfMemoryError)):
+        return True
+    if accel is not None and isinstance(e, accel):
+        return True
+    return isinstance(e, RuntimeError) and "CUDA error" in str(e)
 
 
 class QueueFullError(RuntimeError):
@@ -81,8 +117,9 @@ class DeadlineExceededError(RuntimeError):
 
 
 class CircuitOpenError(RuntimeError):
-    """The model's circuit breaker is open: the request failed fast
-    instead of hitting the broken dispatch path (``n_fast_failed``)."""
+    """The model's circuit breaker is open and no fallback is configured:
+    the request failed fast instead of hitting the broken dispatch path
+    (``n_fast_failed``)."""
 
 
 class ShardCrashedError(RuntimeError):
@@ -98,12 +135,15 @@ class ModelUnhealthyError(RuntimeError):
 
 
 class _Request:
-    __slots__ = ("slot", "t_submit", "future", "deadline")
+    __slots__ = ("slot", "t_submit", "future", "tid", "deadline")
 
-    def __init__(self, slot: int, t_submit: float, future: Future, deadline: float | None):
+    def __init__(
+        self, slot: int, t_submit: float, future: Future, tid: int, deadline: float | None
+    ):
         self.slot = slot
         self.t_submit = t_submit
         self.future = future
+        self.tid = tid  # per-shard trace id, stamped at enqueue
         self.deadline = deadline  # absolute perf_counter seconds, or None
 
 
@@ -116,7 +156,8 @@ def _default_buckets(max_batch: int) -> tuple[int, ...]:
 
 class _Shard(threading.Thread):
     """One dispatch lane of a model: bounded request deque + payload
-    slab + pinned bucket buffers + CUDA stream + dispatcher thread.
+    slab + pinned bucket buffers + CUDA stream and graphs + dispatcher
+    thread.
 
     All shard state (deque, free-slot stack, counters) is guarded by one
     lock; submitters copy their sample into a reserved slab slot while
@@ -138,6 +179,7 @@ class _Shard(threading.Thread):
         self.max_batch = runner.max_batch
         self.max_wait_s = runner.max_wait_s
         self.in_shape = runner.in_shape
+        self._fallback_fn = runner._fallback_fn
         self._closed = runner._closed  # runner-wide: set first in stop()
 
         # payload slab: depth queued + max_batch executing slots can be
@@ -166,16 +208,36 @@ class _Shard(threading.Thread):
             b: torch.empty((b, *design.out_shape), dtype=torch.int32, pin_memory=on_cuda)
             for b in runner.buckets
         }
+        # bucket -> (static device input, the graph of forward_int on it);
+        # the shard's graphs share one memory pool, safe because only
+        # this shard replays them, one at a time.  _device_lock keeps a
+        # capture (which warmup() may make from another thread) and a
+        # replay off the shard's stream and pool at the same time.
+        self._graphs: dict[int, tuple[torch.Tensor, CapturedGraph]] = {}
+        self._graph_pool = torch.cuda.graph_pool_handle() if on_cuda else None
+        self._device_lock = threading.Lock()
+        self.prepared: set[int] = set()  # bucket shapes captured (CPU: run) here
+        self.prepare_s = 0.0  # wall seconds spent preparing them
+        self.n_replays = 0
 
         self.metrics = LatencyRecorder()
         self.stage = StageAccumulator()
+        # observability (single writer: this dispatcher thread): per-stage
+        # µs histograms and the per-request flight recorder; trace ids are
+        # stamped at enqueue under the shard lock (shard index in the high
+        # bits keeps them unique across shards)
+        self.stage_hist = {s: Histogram() for s in StageAccumulator.STAGES}
+        self.flight = FlightRecorder(capacity=2048, slow_k=16)
+        self._tid_seq = itertools.count()
+        self._tid_base = idx << 40
         self.n_batches = 0
         self.n_rejected = 0  # guarded by self._lock (shared with submitters)
         self.n_shed = 0  # guarded by self._lock (submitters + dispatcher)
         self.n_fast_failed = 0  # dispatcher-only writer
+        self.n_fallback_batches = 0  # dispatcher-only writer
         self._occupancy_sum = 0.0
         self.bucket_hits: dict[int, int] = {b: 0 for b in runner.buckets}
-        self._stop = threading.Event()
+        self._stopping = threading.Event()  # not _stop: that is a Thread method
         self._drained = threading.Event()
         # crash state: flipped once by _on_crash, read under the lock by
         # submitters and lock-free by the supervisor
@@ -235,7 +297,9 @@ class _Shard(threading.Thread):
                 self._not_full.wait(0.05)
             slot = self._free.pop()
             self.slab[slot] = x
-            self._pending.append(_Request(slot, t_submit, fut, deadline))
+            self._pending.append(
+                _Request(slot, t_submit, fut, self._tid_base | next(self._tid_seq), deadline)
+            )
             self._not_empty.notify()
         return fut
 
@@ -275,7 +339,9 @@ class _Shard(threading.Thread):
                 for j in range(i, min(i + space, n)):
                     slot = self._free.pop()
                     self.slab[slot] = xs[j]
-                    self._pending.append(_Request(slot, t_submit, futs[j], deadline))
+                    self._pending.append(_Request(
+                        slot, t_submit, futs[j], self._tid_base | next(self._tid_seq), deadline
+                    ))
                 i = min(i + space, n)
                 self._not_empty.notify()
         for j in range(i, n):  # chunk tail cut off by a racing shutdown/crash
@@ -289,10 +355,12 @@ class _Shard(threading.Thread):
         try:
             while True:
                 self.heartbeat = time.perf_counter()
+                fault_point("serve.dispatcher")
                 batch, t_first = self._collect()
                 if batch:
-                    self._execute(batch, t_first)
-                elif self._stop.is_set():
+                    with trace.span("serve.batch", shard=self.idx, n=len(batch)):
+                        self._execute(batch, t_first)
+                elif self._stopping.is_set():
                     break
             self._fail_pending(self._closed_error)
             self._drained.set()
@@ -302,16 +370,16 @@ class _Shard(threading.Thread):
     def _collect(self) -> tuple[list[_Request], float]:
         with self._lock:
             while not self._pending:
-                if self._stop.is_set():
+                if self._stopping.is_set():
                     return [], 0.0
                 self.heartbeat = time.perf_counter()
                 self._not_empty.wait(0.05)
             t_first = time.perf_counter()
-            if len(self._pending) < self.max_batch and not self._stop.is_set():
+            if len(self._pending) < self.max_batch and not self._stopping.is_set():
                 deadline = t_first + self.max_wait_s
                 while len(self._pending) < self.max_batch:
                     rem = deadline - time.perf_counter()
-                    if rem <= 0 or self._stop.is_set():
+                    if rem <= 0 or self._stopping.is_set():
                         break
                     self._not_empty.wait(min(rem, 0.02))
             n = min(len(self._pending), self.max_batch)
@@ -358,35 +426,92 @@ class _Shard(threading.Thread):
                 return b
         return self.runner.buckets[-1]
 
+    def prepare(self, b: int) -> None:
+        """Make bucket shape ``b`` ready on this shard, once.  On the card:
+        capture ``forward_int`` from a static device input into a CUDA
+        graph (``kernels.graphs.capture``, after one warm-up run).  On the
+        CPU: run it once on zeros."""
+        with self._device_lock:
+            if b in self.prepared:
+                return
+            t0 = time.perf_counter()
+            design = self.runner.design
+            x = torch.zeros((b, *self.in_shape), dtype=torch.int32, device=self.device)
+            if self._stream is None:
+                design.forward_int(x)
+            else:
+                graph = capture(lambda: design.forward_int(x), stream=self._stream,
+                                pool=self._graph_pool)
+                self._graphs[b] = (x, graph)
+            self.prepared.add(b)
+            self.prepare_s += time.perf_counter() - t0
+
     def run_bucket(self, b: int) -> np.ndarray:
         """Run the pinned input buffer of bucket ``b`` through the design
-        on its device; returns a fresh host array of outputs."""
-        design = self.runner.design
+        on its device (on the card: the bucket's graph, captured first if
+        need be); returns a fresh host array of outputs."""
         x_host, y_host = self._x_host[b], self._y_host[b]
         if self._stream is None:
-            return design.forward_int(x_host).numpy().copy()
-        with torch.cuda.stream(self._stream):
-            x_dev = x_host.to(self.device, non_blocking=True)
-            y_host.copy_(design.forward_int(x_dev), non_blocking=True)
-        self._stream.synchronize()
+            y = self.runner.design.forward_int(x_host).numpy().copy()
+            self.prepared.add(b)
+            return y
+        if b not in self.prepared:
+            try:
+                self.prepare(b)
+            except Exception as e:
+                raise KernelError(
+                    f"capture of bucket {b} on shard {self.idx} failed: {e!r}"
+                ) from e
+        x_dev, graph = self._graphs[b]
+        with self._device_lock, torch.cuda.stream(self._stream):
+            x_dev.copy_(x_host, non_blocking=True)
+            graph.replay()
+            y_host.copy_(graph.output, non_blocking=True)
+            self._stream.synchronize()
+            self.n_replays += 1
         return y_host.numpy().copy()
 
-    def _dispatch(self, b: int) -> np.ndarray:
-        """Run one padded batch through the breaker-routed dispatch path."""
-        breaker = self.runner.breaker
+    def _fallback(self, b: int) -> np.ndarray:
+        return np.asarray(self._fallback_fn(self._x_host[b].numpy()))
+
+    def _dispatch(self, b: int) -> tuple[np.ndarray, bool]:
+        """Run one padded batch through the breaker-routed dispatch path.
+        Returns (outputs, used_fallback).  The fallback never serves in
+        place of a device that failed (:func:`_device_fault`)."""
+        runner = self.runner
+        breaker = runner.breaker
         route = breaker.route()
         if route == "reject":
+            if self._fallback_fn is not None and runner.device_fault is None:
+                return self._fallback(b), True
+            why = (f"the device failed ({runner.device_fault})"
+                   if runner.device_fault is not None else "no fallback configured")
             raise CircuitOpenError(
-                f"model {self.runner.model_name!r}: circuit breaker open"
+                f"model {runner.model_name!r}: circuit breaker open and {why}"
             )
         probe = route == "probe"
         try:
+            fault_point("serve.dispatch")
             y = self.run_bucket(b)
-        except BaseException:
-            breaker.record(ok=False, probe=probe)  # never leave a probe hung
+        except Exception as e:
+            breaker.record(ok=False, probe=probe)
+            on_device = _device_fault(e)
+            if on_device:
+                runner.device_fault = repr(e)
+            fallback = self._fallback_fn is not None and not on_device
+            self.flight.record_event(
+                "dispatch_fault", ts_us=time.perf_counter() * 1e6, shard=self.idx,
+                error=repr(e), device=on_device, fallback=fallback,
+            )
+            if fallback:
+                return self._fallback(b), True
+            raise
+        except BaseException:  # a thread kill: never leave a probe hung
+            breaker.record(ok=False, probe=probe)
             raise
         breaker.record(ok=True, probe=probe)
-        return y
+        runner.device_fault = None
+        return y, False
 
     def _execute(self, batch: list[_Request], t_first: float) -> None:
         t_formed = time.perf_counter()
@@ -418,6 +543,7 @@ class _Shard(threading.Thread):
         self._executing = claimed  # crash handler fails these if we die here
         try:
             try:
+                fault_point("serve.gather")
                 x[:n] = self.slab[[r.slot for r in claimed]]
                 if n < b:
                     x[n:] = 0
@@ -425,7 +551,9 @@ class _Shard(threading.Thread):
                 self._free_slots(slots)  # slots recycle even on failure
             t_pad = time.perf_counter()
             self.stage.add("pad", t_pad - t_formed)
-            y = self._dispatch(b)
+            y, used_fallback = self._dispatch(b)
+        # a thread kill (ThreadKillFault, a BaseException) passes: run()'s
+        # crash handler resolves self._executing
         except Exception as e:  # resolve futures instead of killing the thread
             self._executing = []
             if isinstance(e, CircuitOpenError):
@@ -436,6 +564,8 @@ class _Shard(threading.Thread):
         self._executing = []
         t_done = time.perf_counter()
         self.stage.add("dispatch", t_done - t_pad)
+        if used_fallback:
+            self.n_fallback_batches += 1
         lats = []
         for i, r in enumerate(claimed):
             r.future.set_result(y[i])
@@ -444,13 +574,51 @@ class _Shard(threading.Thread):
         self.n_batches += 1
         # counted only on success, keeping sum(bucket_hits) == n_batches
         self.bucket_hits[b] += 1
-        self.runner.jit_compiles[b] = 1  # this bucket shape has now run
         self._occupancy_sum += n / b
-        self.stage.add("copy_out", time.perf_counter() - t_done)
+        t_out = time.perf_counter()
+        self.stage.add("copy_out", t_out - t_done)
+        self._observe_batch(claimed, lats, b, n, t_first, t_formed, t_pad, t_done, t_out)
+
+    def _observe_batch(
+        self, claimed, lats, b, n, t_first, t_formed, t_pad, t_done, t_out
+    ) -> None:
+        """Feed the per-stage histograms, the flight recorder and the
+        process-registry gauges after a successful batch.  This thread is
+        the sole writer of all three; the batch-shared stage times are
+        charged to every request's flight record while queue_wait stays
+        per request."""
+        bf_us = (t_formed - t_first) * 1e6
+        pad_us = (t_pad - t_formed) * 1e6
+        disp_us = (t_done - t_pad) * 1e6
+        out_us = (t_out - t_done) * 1e6
+        hists = self.stage_hist
+        hists["batch_form"].observe(bf_us)
+        hists["pad"].observe(pad_us)
+        hists["dispatch"].observe(disp_us)
+        hists["copy_out"].observe(out_us)
+        qh = hists["queue_wait"]
+        fl = self.flight
+        ts_us = t_done * 1e6
+        for r, lat in zip(claimed, lats):
+            qw_us = (t_formed - r.t_submit) * 1e6
+            qh.observe(qw_us)
+            fl.record(
+                r.tid, self.idx, b, n, lat * 1e6,
+                (qw_us, bf_us, pad_us, disp_us, out_us), ts_us=ts_us,
+            )
+        # unlocked reads: both lens are single CPython ops, and a gauge
+        # only needs to be approximately current
+        reg = get_registry()
+        model = self.runner.model_name
+        reg.set_gauge("serve_queue_depth", len(self._pending), model=model, shard=self.idx)
+        reg.set_gauge(
+            "serve_slab_occupancy", 1.0 - len(self._free) / self.slab.shape[0],
+            model=model, shard=self.idx,
+        )
 
     # -- control -------------------------------------------------------
     def initiate_stop(self) -> None:
-        self._stop.set()
+        self._stopping.set()
         with self._lock:
             self._not_empty.notify_all()
             self._not_full.notify_all()
@@ -467,13 +635,18 @@ class _Shard(threading.Thread):
             "n_rejected": n_rejected,
             "n_shed": n_shed,
             "n_fast_failed": self.n_fast_failed,
+            "n_fallback_batches": self.n_fallback_batches,
             "n_requests": self.metrics.n_total,
             "queue_depth": qsize,
             "dead": self.dead,
             "heartbeat_age_s": max(0.0, time.perf_counter() - self.heartbeat),
             "mean_batch_occupancy": self._occupancy_sum / n_batches if n_batches else 0.0,
             "bucket_hits": {int(b): int(c) for b, c in self.bucket_hits.items()},
+            "prepared": sorted(self.prepared),
+            "prepare_ms": self.prepare_s * 1e3,
+            "n_graph_replays": self.n_replays,
             "per_stage": self.stage.snapshot(),
+            "flight": self.flight.snapshot(),
         }
 
 
@@ -493,13 +666,14 @@ class _Supervisor(threading.Thread):
                 sh = r.shards[idx]
                 if sh.ident is None:
                     continue  # not started yet
-                if (sh.dead or not sh.is_alive()) and not sh._stop.is_set():
+                if (sh.dead or not sh.is_alive()) and not sh._stopping.is_set():
                     r._revive(idx, sh)
 
 
 class _ModelRunner:
     """One registered model: its design on the device + N dispatch
-    shards + circuit breaker + (optional) supervisor."""
+    shards + circuit breaker + (optional) interpreter fallback +
+    (optional) supervisor."""
 
     def __init__(self, name: str, design: CompiledDesign, config: ServeConfig):
         self.model_name = name
@@ -513,15 +687,21 @@ class _ModelRunner:
         self.deadline_default_s = (
             config.deadline_ms * 1e-3 if config.deadline_ms is not None else None
         )
+        self._fallback_fn = (
+            numpy_forward_fn(design) if config.fallback == "interpreter" else None
+        )
         self.breaker = CircuitBreaker(
             threshold=config.breaker_threshold,
             cooldown_s=config.breaker_cooldown_ms * 1e-3,
             cooldown_max_s=config.breaker_cooldown_max_ms * 1e-3,
+            on_event=self._breaker_event,
         )
-        # which bucket shapes have run on the device (0/1 per bucket),
-        # set by warmup or by the first batch of that shape; the key
-        # keeps the JAX engine's name, where it counted jit compiles
-        self.jit_compiles: dict[int, int] = {b: 0 for b in self.buckets}
+        # lifecycle events (breaker transitions, crashes, restarts) land
+        # in a runner-level recorder merged into the stats flight view
+        self.flight_events = FlightRecorder(capacity=8, slow_k=0)
+        # repr of the last device fault (_device_fault) of a dispatch, until
+        # a device dispatch succeeds; while set, the fallback serves nothing
+        self.device_fault: str | None = None
         self.n_shards = config.shards
         # the per-model queue_depth budget is divided across shards (ceil)
         self._depth = -(-config.queue_depth // self.n_shards)
@@ -547,12 +727,29 @@ class _ModelRunner:
             self._supervisor.start()
 
     # -- resilience plumbing -------------------------------------------
+    def _record_event(self, kind: str, **fields) -> None:
+        self.flight_events.record_event(kind, ts_us=time.perf_counter() * 1e6, **fields)
+
+    def _breaker_event(self, kind: str, snap: dict) -> None:
+        self._record_event(
+            kind,
+            state=snap["state"],
+            n_trips=snap["n_trips"],
+            n_reopens=snap["n_reopens"],
+            n_recoveries=snap["n_recoveries"],
+            cooldown_s=snap["cooldown_s"],
+        )
+
     def _note_crash(self, shard: _Shard, exc: BaseException) -> None:
         with self._count_lock:
             self.n_crashes += 1
-        if not self.supervise:
+        self._record_event("shard_crash", shard=shard.idx, error=repr(exc))
+        if not self.supervise and self.healthy:
             # nobody will revive this lane: fail the model loudly
             self.healthy = False
+            self._record_event(
+                "model_unhealthy", shard=shard.idx, reason="crash with supervision disabled"
+            )
 
     def _revive(self, idx: int, dead_shard: _Shard) -> None:
         """Swap a fresh dispatcher in for a dead one (supervisor thread),
@@ -565,7 +762,12 @@ class _ModelRunner:
                 # never leave futures hanging
                 dead_shard._on_crash(RuntimeError("dispatcher thread died"))
             if self.restarts_used[idx] >= self.restart_budget:
-                self.healthy = False
+                if self.healthy:
+                    self.healthy = False
+                    self._record_event(
+                        "model_unhealthy", shard=idx, reason="restart budget exhausted",
+                        restarts=self.restarts_used[idx],
+                    )
                 return
             fresh = _Shard(self, idx, self._depth)
             self.restarts_used[idx] += 1
@@ -573,6 +775,7 @@ class _ModelRunner:
             self._retired.append(dead_shard)
             self.shards[idx] = fresh
             fresh.start()
+            self._record_event("shard_restart", shard=idx, restart_n=self.restarts_used[idx])
 
     def count_client_timeout(self) -> None:
         with self._count_lock:
@@ -633,14 +836,17 @@ class _ModelRunner:
 
     # -- control -------------------------------------------------------
     def warmup(self) -> float:
-        """Run every bucket shape once on the device (on the caller's
-        thread, with its own buffers); returns wall seconds.  A bucket is
-        flagged only after its run returned."""
+        """Prepare every bucket shape on every shard (on the card: capture
+        its graph), on the caller's thread; returns wall seconds.  A
+        bucket counts as prepared only once its capture returned."""
         t0 = time.perf_counter()
-        for b in self.buckets:
-            x = torch.zeros((b, *self.in_shape), dtype=torch.int32, device=self.design.device)
-            self.design.forward_int(x).cpu()  # .cpu() waits for the device
-            self.jit_compiles[b] = 1
+        with self._restart_lock:
+            shards = list(self.shards)
+        for sh in shards:
+            for b in self.buckets:
+                sh.prepare(b)
+        if self.design.device.type == "cuda":
+            torch.cuda.synchronize(self.design.device)
         return time.perf_counter() - t0
 
     def stop(self, timeout: float = 5.0) -> None:
@@ -675,17 +881,31 @@ class _ModelRunner:
             shard_snaps.append(snap)
         s = LatencyRecorder.merged_snapshot([sh.metrics for sh in all_shards])
         bucket_hits = {int(b): 0 for b in self.buckets}
-        n_batches = n_rejected = n_shed = n_fast_failed = qdepth = 0
-        occupancy = 0.0
+        # per bucket shape, the shards that captured its graph (CPU: ran
+        # it); the key keeps the JAX engine's name, where it counted jit
+        # compiles
+        jit_compiles = {int(b): 0 for b in self.buckets}
+        n_batches = n_rejected = n_shed = n_fast_failed = n_fallback = qdepth = 0
+        n_replays = 0
+        prepare_ms = occupancy = 0.0
         for sh, snap in zip(all_shards, shard_snaps):
             n_batches += snap["n_batches"]
             n_rejected += snap["n_rejected"]
             n_shed += snap["n_shed"]
             n_fast_failed += snap["n_fast_failed"]
+            n_fallback += snap["n_fallback_batches"]
+            n_replays += snap["n_graph_replays"]
+            prepare_ms += snap["prepare_ms"]
             qdepth += snap["queue_depth"]
             occupancy += sh._occupancy_sum
             for b, c in snap["bucket_hits"].items():
                 bucket_hits[b] += c
+            for b in snap["prepared"]:
+                jit_compiles[b] += 1
+        graph_launches = {}  # bucket -> kernel launches per replay, by kernel
+        for sh in all_shards:
+            for b, (_, graph) in list(sh._graphs.items()):
+                graph_launches.setdefault(int(b), graph.launches_by_kernel())
         with self._count_lock:
             n_client_timeouts = self.n_client_timeouts
             n_crashes = self.n_crashes
@@ -697,17 +917,21 @@ class _ModelRunner:
             n_rejected=n_rejected,
             n_shed=n_shed,
             n_fast_failed=n_fast_failed,
-            # no interpreter fallback is ported: always 0, kept so stats
-            # read the same as the JAX engine's
-            n_fallback_batches=0,
+            n_fallback_batches=n_fallback,
             n_client_timeouts=n_client_timeouts,
             queue_depth=qdepth,
             mean_batch_occupancy=occupancy / n_batches if n_batches else 0.0,
             buckets=list(self.buckets),
             bucket_hits=bucket_hits,
-            jit_compiles={int(b): int(c) for b, c in self.jit_compiles.items()},
-            n_jit_compiles=int(sum(self.jit_compiles.values())),
+            jit_compiles=jit_compiles,
+            n_jit_compiles=sum(jit_compiles.values()),
+            jit_compile_ms=prepare_ms,
+            n_graph_replays=n_replays,
+            graph_launches_per_replay=dict(sorted(graph_launches.items())),
             per_stage=StageAccumulator.merged_snapshot([sh.stage for sh in all_shards]),
+            # cross-shard flight view: the slowest-K request records plus
+            # the time-ordered lifecycle events of the runner's recorder
+            flight=FlightRecorder.merged([sh.flight for sh in all_shards] + [self.flight_events]),
             breaker=self.breaker.snapshot(),
             supervision={
                 "supervise": self.supervise,
@@ -728,8 +952,12 @@ class ServeEngine:
 
     ``config`` is a :class:`repro_torch.flow.ServeConfig` (max_batch,
     max_wait_us, queue_depth, backpressure, buckets, shards, deadline_ms,
-    breaker_*, supervise, restart_budget).  ``fallback="interpreter"``
-    is refused: the numpy interpreter is not ported yet.  ``device``
+    fallback, breaker_*, supervise, restart_budget).  With
+    ``fallback="interpreter"`` each registered design gets its numpy
+    interpreter (``repro_torch.nn.interpreter``), which serves a batch
+    while the breaker is open or when its device dispatch raised, unless
+    the card itself failed; with the default ``"none"`` such a batch
+    fails.  ``device``
     defaults to the CUDA card and raises without one unless
     ``device="cpu"``; every registered design must live there.
 
@@ -744,11 +972,6 @@ class ServeEngine:
         self.config = config if config is not None else ServeConfig()
         if not isinstance(self.config, ServeConfig):
             raise TypeError(f"config must be a ServeConfig, got {type(self.config).__name__}")
-        if self.config.fallback != "none":
-            raise ValueError(
-                f"ServeConfig.fallback={self.config.fallback!r}: the interpreter "
-                "fallback is not yet ported"
-            )
         self._runners: dict[str, _ModelRunner] = {}
         self._lock = threading.Lock()
 
@@ -757,7 +980,9 @@ class ServeEngine:
         self, name: str, design: CompiledDesign | str | Path, warmup: bool = False
     ) -> CompiledDesign:
         """Register a design (or load one from an artifact path onto the
-        engine's device)."""
+        engine's device).  ``warmup=True`` prepares every bucket shape on
+        every shard first (on the card: captures its graph); with the
+        interpreter fallback configured, the card always does so here."""
         if not isinstance(design, CompiledDesign):
             design = load_design(design, device=self.device)
         if design.device != self.device:
@@ -771,7 +996,10 @@ class ServeEngine:
                 raise ValueError(f"model {name!r} already registered")
             self._runners[name] = runner
         try:
-            if warmup:
+            # with a fallback, every graph is captured here on the card, so
+            # a kernel that cannot build or capture fails the registration
+            # instead of leaving the interpreter to serve
+            if warmup or (runner._fallback_fn is not None and design.device.type == "cuda"):
                 runner.warmup()
             runner.start()
         except BaseException:  # failed warmup/start must not leave a dead entry
@@ -874,6 +1102,78 @@ class ServeEngine:
         with self._lock:
             runners = list(self._runners.items())
         return {n: r.stats() for n, r in runners}
+
+    def metrics_text(self) -> str:
+        """Prometheus text exposition (format 0.0.4) over every model, as
+        the JAX engine gives it: request/batch/reject counters, per-shard
+        queue-depth gauges, per-bucket hit counters, per-stage wall totals
+        and µs histograms, latency-percentile gauges, and the resilience
+        families (shed, fast-fail, fallback and client-timeout counters,
+        breaker state and trips, restarts, health).  Derived from the live
+        runners, so it never disagrees with ``stats()``."""
+        with self._lock:
+            runners = list(self._runners.items())
+        req, batches, rejected, qd, bucket, jit = [], [], [], [], [], []
+        stage_tot, stage_hist, lat = [], [], []
+        shed, fastf, fallb, ctime = [], [], [], []
+        brk_state, brk_trips, restarts, healthy = [], [], [], []
+        brk_code = {"closed": 0, "half_open": 1, "open": 2}
+        for name, r in runners:
+            s = r.stats()
+            m = {"model": name}
+            req.append((m, s["n_requests"]))
+            batches.append((m, s["n_batches"]))
+            rejected.append((m, s["n_rejected"]))
+            jit.append((m, s["n_jit_compiles"]))
+            shed.append((m, s["n_shed"]))
+            fastf.append((m, s["n_fast_failed"]))
+            fallb.append((m, s["n_fallback_batches"]))
+            ctime.append((m, s["n_client_timeouts"]))
+            brk_state.append((m, brk_code.get(s["breaker"]["state"], -1)))
+            brk_trips.append((m, s["breaker"]["n_trips"]))
+            restarts.append((m, s["supervision"]["n_restarts"]))
+            healthy.append((m, int(s["supervision"]["healthy"])))
+            for snap in s["shards"]:
+                qd.append(({"model": name, "shard": snap["shard"]}, snap["queue_depth"]))
+            for b, c in s["bucket_hits"].items():
+                bucket.append(({"model": name, "bucket": b}, c))
+            for st in StageAccumulator.STAGES:
+                labels = {"model": name, "stage": st}
+                stage_tot.append((labels, s["per_stage"][st]["total_ms"] / 1e3))
+                stage_hist.append((labels, Histogram.merged(sh.stage_hist[st] for sh in r.shards)))
+            if s["n_latency_samples"]:
+                for q in ("p50", "p99"):
+                    lat.append(({"model": name, "quantile": q}, s[f"{q}_ms"]))
+        families = [
+            ("serve_requests_total", "counter", "requests completed", req),
+            ("serve_batches_total", "counter", "batches dispatched", batches),
+            ("serve_rejected_total", "counter", "requests rejected by backpressure", rejected),
+            ("serve_shed_total", "counter", "requests shed on an expired deadline", shed),
+            ("serve_fast_failed_total", "counter",
+             "requests failed fast by an open circuit breaker", fastf),
+            ("serve_fallback_batches_total", "counter",
+             "batches served by the interpreter fallback", fallb),
+            ("serve_client_timeouts_total", "counter",
+             "infer() client-side result timeouts", ctime),
+            ("serve_breaker_state", "gauge",
+             "circuit breaker state (0=closed 1=half_open 2=open)", brk_state),
+            ("serve_breaker_trips_total", "counter",
+             "circuit breaker closed->open transitions", brk_trips),
+            ("serve_restarts_total", "counter",
+             "dispatcher threads restarted by supervision", restarts),
+            ("serve_healthy", "gauge",
+             "1 while the model serves, 0 once escalated unhealthy", healthy),
+            ("serve_queue_depth", "gauge", "queued requests per shard", qd),
+            ("serve_bucket_hits_total", "counter", "batches dispatched per bucket shape", bucket),
+            ("serve_jit_compiled_buckets", "gauge",
+             "bucket shapes captured as CUDA graphs (CPU: run), summed over shards", jit),
+            ("serve_stage_seconds_total", "counter",
+             "wall seconds charged per dispatch stage", stage_tot),
+            ("serve_stage_us", "histogram",
+             "per-stage wall microseconds per batch (queue_wait: per request)", stage_hist),
+            ("serve_latency_ms", "gauge", "end-to-end latency percentiles", lat),
+        ]
+        return render_prometheus(families)
 
     # -- lifecycle -----------------------------------------------------
     def shutdown(self, timeout: float = 5.0) -> None:

@@ -9,9 +9,12 @@ failing path off instead of letting it take every batch down:
     half_open ──probe ok──> closed              (cooldown resets)
     half_open ──probe fails──> open             (cooldown doubles, capped)
 
-While open, the dispatcher fails batches fast with ``CircuitOpenError``.
-The breaker is touched once per batch and its lock protects only a few
-scalar fields.
+While open, the dispatcher either fails batches fast with
+``CircuitOpenError`` or, with ``ServeConfig.fallback="interpreter"``,
+serves them through the bit-exact numpy interpreter.  The breaker is
+touched once per batch and its lock protects only a few scalar fields.
+Transition events go to an optional ``on_event`` callback outside the
+lock (the serve engine feeds them to its flight recorder).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ class CircuitBreaker:
         cooldown_s: float = 0.25,
         cooldown_max_s: float = 8.0,
         clock: Callable[[], float] = time.monotonic,
+        on_event: Callable[[str, dict], None] | None = None,
     ) -> None:
         if threshold < 1:
             raise ValueError("breaker threshold must be >= 1")
@@ -41,6 +45,7 @@ class CircuitBreaker:
         self.cooldown_base_s = float(cooldown_s)
         self.cooldown_max_s = float(cooldown_max_s)
         self._clock = clock
+        self._on_event = on_event
         self._lock = threading.Lock()
         self._state = "closed"
         self._failures = 0  # consecutive, while closed
@@ -74,6 +79,7 @@ class CircuitBreaker:
     def record(self, ok: bool, probe: bool = False) -> None:
         """Record one dispatch outcome (``probe=True`` iff ``route()``
         said "probe" for this batch)."""
+        event: tuple[str, dict] | None = None
         with self._lock:
             if probe:
                 self._probing = False
@@ -83,6 +89,7 @@ class CircuitBreaker:
                         self._failures = 0
                         self._cooldown_s = self.cooldown_base_s
                         self.n_recoveries += 1
+                        event = ("breaker_closed", self._snapshot_locked())
                     else:
                         self._cooldown_s = min(
                             self._cooldown_s * 2.0, self.cooldown_max_s
@@ -90,6 +97,7 @@ class CircuitBreaker:
                         self._state = "open"
                         self._open_until = self._clock() + self._cooldown_s
                         self.n_reopens += 1
+                        event = ("breaker_reopened", self._snapshot_locked())
             elif self._state == "closed":
                 if ok:
                     self._failures = 0
@@ -99,8 +107,11 @@ class CircuitBreaker:
                         self._state = "open"
                         self._open_until = self._clock() + self._cooldown_s
                         self.n_trips += 1
+                        event = ("breaker_open", self._snapshot_locked())
             # outcomes of batches routed before a trip land while open:
             # they carry no new information, drop them
+        if event is not None and self._on_event is not None:
+            self._on_event(*event)
 
     # -- introspection --------------------------------------------------
     def _snapshot_locked(self) -> dict:

@@ -6,9 +6,19 @@ batch is padded to ``batch_size`` with done requests (appended to the
 caller's list), one token is taken after prefill, then up to
 ``budget - 1`` decode steps run, a request stops when the token before
 was EOS or it has its ``max_new_tokens``, and the loop ends when no
-request is alive.  The model runs eagerly (the JAX engine jits prefill
-and decode); the decode cache (K/V preallocated to ``max_seq``, or the
-SSM's conv window and state) lives on the device.
+request is alive.
+
+The JAX engine jits prefill and decode.  On the card this engine
+captures ``decode_step`` once, at construction, as a CUDA graph over
+static state: the decode cache (K/V preallocated to ``max_seq``, or the
+SSM's conv window and state), a token buffer and the cache position,
+which the captured body writes back.  A decode step is then a token copy
+and one replay.  Prefill runs eagerly, once per batch, into the static
+cache.  The pick (argmax, or a categorical draw from the engine's
+generator) stays outside the graph; its ``tolist`` syncs the host each
+step, as the JAX engine's ``np.asarray(tok)`` does.  On the CPU both run
+eagerly and each batch gets a fresh cache.  The SSM blocks' f32 leaves
+are cast once, when the parameters move to the device.
 """
 
 from __future__ import annotations
@@ -19,8 +29,10 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..configs.base import ArchConfig
-from ..models.transformer import check_supported, decode_step, prefill, tree_map
+from ..configs.base import SSM, ArchConfig
+from ..kernels.graphs import CapturedGraph, capture
+from ..models.ssm import f32_leaves
+from ..models.transformer import check_supported, decode_step, init_cache, prefill, tree_map
 
 
 @dataclass
@@ -36,7 +48,12 @@ class Engine:
     card by default (``device=None``; raises without one) and on the CPU
     with ``device="cpu"``.  ``params`` are moved to the device.  Sampling
     is greedy, or categorical at ``temperature`` from ``generator`` (a
-    ``torch.Generator`` on the device; by default one seeded with 0)."""
+    ``torch.Generator`` on the device; by default one seeded with 0).
+
+    On the card ``decode_graph`` is the captured decode step (its
+    ``launches_by_kernel()`` are the kernel launches of one replay), over
+    ``static_cache``, ``static_tokens`` and the cache's ``pos``; on the
+    CPU all three are None."""
 
     def __init__(
         self,
@@ -56,6 +73,9 @@ class Engine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = tree_map(lambda t: t.to(self.device), params)
+        for block in self.params["blocks"]:
+            if SSM in block:
+                block[SSM] = f32_leaves(block[SSM])
         self.batch_size = batch_size
         self.max_seq = max_seq
         self.eos_id = eos_id
@@ -64,6 +84,28 @@ class Engine:
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
         self.generator = generator
+        self.decode_graph: CapturedGraph | None = None
+        self.static_cache: dict | None = None
+        self.static_tokens: torch.Tensor | None = None
+        if self.device.type == "cuda":
+            self._capture_decode()
+
+    @torch.inference_mode()
+    def _capture_decode(self) -> None:
+        """Capture one decode step over the static cache, token buffer and
+        position.  The warm-up and the capture leave the cache dirty;
+        every prefill zeroes it first."""
+        cache = init_cache(self.cfg, self.batch_size, self.max_seq, device=self.device)
+        tokens = torch.zeros((self.batch_size, 1), dtype=torch.int64, device=self.device)
+        self.static_cache, self.static_tokens = cache, tokens
+
+        def step() -> torch.Tensor:
+            logits, stepped = decode_step(self.cfg, self.params, tokens, cache)
+            cache["pos"].copy_(stepped["pos"])  # decode_step returns pos + 1 anew
+            return logits
+
+        with torch.cuda.device(self.device):
+            self.decode_graph = capture(step)
 
     def _pick(self, logits: torch.Tensor) -> torch.Tensor:
         if self.sample == "greedy":
@@ -80,14 +122,21 @@ class Engine:
             requests.append(Request(requests[0].prompt, 0, done=True))
         prompts = np.stack([np.asarray(r.prompt, np.int64) for r in requests])
         tokens = torch.from_numpy(prompts).to(self.device)
-        logits, cache = prefill(self.cfg, self.params, {"tokens": tokens}, self.max_seq)
+        graph = self.decode_graph
+        logits, cache = prefill(self.cfg, self.params, {"tokens": tokens}, self.max_seq,
+                                cache=None if graph is None else self.static_cache)
         tok = self._pick(logits)
         budget = max(r.max_new_tokens for r in requests)
         for r, t in zip(requests, tok.tolist()):
             if not r.done:
                 r.out_tokens.append(int(t))
         for _ in range(budget - 1):
-            logits, cache = decode_step(self.cfg, self.params, tok[:, None], cache)
+            if graph is None:
+                logits, cache = decode_step(self.cfg, self.params, tok[:, None], cache)
+            else:
+                self.static_tokens.copy_(tok[:, None])
+                graph.replay()
+                logits = graph.output
             tok = self._pick(logits)
             alive = False
             for r, t in zip(requests, tok.tolist()):

@@ -50,6 +50,9 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
     assert {"repro_torch.models.ssm", "repro_torch.kernels.ssm_scan.kernel",
             "repro_torch.kernels.ssm_scan.ops", "repro_torch.kernels.quant_matmul.kernel",
             "repro_torch.kernels.quant_matmul.ops"} <= set(mods)
+    assert {"repro_torch.obs.trace", "repro_torch.obs.metrics", "repro_torch.obs.flight",
+            "repro_torch.obs.solvelog", "repro_torch.chaos.plan", "repro_torch.nn.interpreter",
+            "repro_torch.kernels.graphs"} <= set(mods)
     res = _run(
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

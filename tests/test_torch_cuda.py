@@ -7,12 +7,19 @@ kernel (decode at GQA group sizes 1, 3, 4 and 8, tensor-core and
 CUDA-core prefill) against its plain PyTorch version (atol 2e-5 in
 float32, 2e-2 in bfloat16: the decode kernel keeps ``p`` in f32 where
 the plain version casts it to the working dtype, and the outputs round
-to bf16); the hand-written selective-scan kernels (decode at every N from 1
+to bf16), at head_dim 80 and 112 as at the powers of two, and decode at
+granite-20b's 48:1 group; the hand-written selective-scan kernels (decode at every N from 1
 to 16, prefill) against their plain version (atol 1e-5, the JAX kernel
 tests' own) and the W8A8 matmul kernels (TMA/wgmma and mma.sync)
 against their plain version (exact); and the reduced smollm-135m
 and falcon-mamba LMs against their committed JAX golden tokens (exact)
-and logits (atol 1e-4 in float32).
+and logits (atol 1e-4 in float32).  The serving paths run through CUDA
+graphs: the LM engine's replayed decode step gives exactly the tokens of
+an eager loop over ``prefill``/``decode_step``, the DA engine's graphs
+(two shards) give the golden outputs bit for bit with one capture per
+shard and bucket used, and with ``fallback="interpreter"`` and every
+dispatch failing the numpy interpreter serves the golden outputs (every
+bucket captured at registration, so a capture that fails fails there).
 
 Every test here needs a card and skips without one.  This file imports
 neither ``jax`` nor ``repro``, so it runs where only PyTorch is
@@ -21,7 +28,9 @@ installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 import json
+import time
 from pathlib import Path
 
 import numpy as np
@@ -29,6 +38,7 @@ import pytest
 import torch
 
 from repro_torch import configs
+from repro_torch.chaos import FaultPlan, FaultRule, active
 from repro_torch.core import DAISProgram, QInterval, Term
 from repro_torch.flow import ServeConfig
 from repro_torch.kernels.adder_graph import adder_graph_apply, compile_tables
@@ -43,9 +53,11 @@ from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
 from repro_torch.kernels.ssm_scan import kernel as ss_kernel
 from repro_torch.kernels.ssm_scan import selective_scan
 from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
-from repro_torch.models import decode_step, params_from_numpy, prefill, unflatten
+from repro_torch.models import decode_step, init_params, params_from_numpy, prefill, unflatten
 from repro_torch.nn.compiler import count_cmvm_steps
+from repro_torch.kernels._build import KernelError
 from repro_torch.runtime import ServeEngine, load_design
+from repro_torch.runtime import engine as serve_engine
 from repro_torch.serve import Engine, Request
 
 pytestmark = pytest.mark.cuda
@@ -187,6 +199,77 @@ def test_engine_serves_golden(card):
         s = eng.stats("mixer")
     np.testing.assert_array_equal(got, y)
     assert s["device"] == str(card) and s["n_batches"] > 0 and s["breaker"]["n_trips"] == 0
+    # warmup captured every bucket on both shards; every batch replayed one
+    assert s["jit_compiles"] == {b: 2 for b in s["buckets"]}
+    assert s["n_graph_replays"] == s["n_batches"] and s["n_fallback_batches"] == 0
+
+
+@pytest.mark.parametrize("name", ["mixer_full", "svhn_cnn"])
+def test_engine_graphs_are_bit_exact_and_captured_per_bucket_used(card, name):
+    """Two shards, no warm-up: each shard captures a bucket's graph at its
+    first batch of that shape, and only then; one replay per batch, with
+    one adder-graph launch per CMVM step counted per replay."""
+    with np.load(ASSETS / name / "golden.npz") as g:
+        x, y = g["x"][:300].astype(np.int32), g["y"][:300]
+    design = load_design(ASSETS / name)
+    n_steps = count_cmvm_steps(design.step_specs)
+    before = ag_kernel.launches.value
+    with ServeEngine(ServeConfig(max_batch=32, shards=2)) as eng:
+        eng.register("m", design)
+        futs = eng.submit_batch("m", x) + [eng.submit("m", xi) for xi in x[:7]]
+        got = np.stack([f.result(120) for f in futs])
+        s = eng.stats("m")
+    launched = ag_kernel.launches.value - before
+    np.testing.assert_array_equal(got, np.concatenate([y, y[:7]]))
+    used = {b: sum(sh["bucket_hits"][b] > 0 for sh in s["shards"]) for b in s["buckets"]}
+    assert s["jit_compiles"] == used and s["n_jit_compiles"] > 0
+    assert s["n_graph_replays"] == s["n_batches"]
+    assert all(per == {"adder_graph": n_steps}
+               for per in s["graph_launches_per_replay"].values())
+    # one eager warm-up per capture, one replay per batch
+    assert launched == (s["n_jit_compiles"] + s["n_batches"]) * n_steps
+
+
+def test_interpreter_fallback_serves_golden_while_the_breaker_is_open(card):
+    """Every device dispatch fails: the breaker opens and the numpy
+    interpreter serves every batch, bit for bit.  Then, with the faults
+    gone, the probe after the cooldown goes back to the graphs."""
+    with np.load(ASSETS / "mixer_full" / "golden.npz") as g:
+        x, y = g["x"][:96].astype(np.int32), g["y"][:96]
+    cfg = ServeConfig(max_batch=16, shards=2, fallback="interpreter", breaker_threshold=2,
+                      breaker_cooldown_ms=100.0)
+    with ServeEngine(cfg) as eng:
+        eng.register("m", ASSETS / "mixer_full", warmup=True)
+        with active(FaultPlan([FaultRule("serve.dispatch", rate=1.0)], seed=3)):
+            got = np.stack([f.result(60) for f in eng.submit_batch("m", x)])
+            s = eng.stats("m")
+        np.testing.assert_array_equal(got, y)
+        assert s["breaker"]["state"] == "open" and s["n_fallback_batches"] == s["n_batches"]
+        replays = s["n_graph_replays"]
+        time.sleep(0.25)  # past the cooldown
+        np.testing.assert_array_equal(
+            np.stack([eng.submit("m", xi).result(60) for xi in x[:4]]), y[:4])
+        s = eng.stats("m")
+        assert s["breaker"]["state"] == "closed" and s["n_graph_replays"] > replays
+
+
+def test_fallback_captures_every_bucket_at_register(card, monkeypatch):
+    """With the fallback configured, registration on the card captures
+    every bucket on every shard, so a kernel that cannot be captured fails
+    the registration instead of leaving the interpreter to serve."""
+    cfg = ServeConfig(max_batch=16, shards=2, fallback="interpreter")
+    with ServeEngine(cfg) as eng:
+        eng.register("m", ASSETS / "mixer_full")
+        s = eng.stats("m")
+        assert s["jit_compiles"] == {b: 2 for b in s["buckets"]}
+
+        def broken_capture(*args, **kwargs):
+            raise KernelError("adder-graph kernel launch failed: invalid argument")
+
+        monkeypatch.setattr(serve_engine, "capture", broken_capture)
+        with pytest.raises(KernelError):
+            eng.register("n", ASSETS / "mixer_full")
+        assert eng.models() == ["m"]
 
 
 FA_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -207,6 +290,10 @@ def _qkv(card, dtype, b, hq, hkv, sq, sk, d, seed=0):
     (1, 2, 2, 256, 256, 128),
     (2, 9, 3, 128, 128, 64),  # smollm-135m's 9:3
     (1, 4, 2, 37, 53, 16),  # ragged
+    (8, 32, 32, 128, 128, 80),  # stablelm-3b's prefill, head_dim 80
+    (2, 4, 1, 77, 130, 80),  # ragged, head_dim 80
+    (1, 8, 2, 128, 128, 112),  # head_dim 112
+    (2, 6, 3, 37, 300, 112),  # ragged, head_dim 112
 ])
 def test_flash_kernel_matches_plain_version(card, dtype, causal, b, hq, hkv, sq, sk, d):
     q, k, v = _qkv(card, dtype, b, hq, hkv, sq, sk, d)
@@ -283,10 +370,44 @@ def test_flash_kernel_unaligned_views(card, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=FA_ATOL[dtype], rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [80, 112])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("pos", [0, 1, 127, 511])
+def test_flash_decode_at_head_dims_80_and_112(card, dtype, d, group, pos):
+    """The decode kernel at head_dim 80 and 112 (rows of 10/14 bf16 or
+    20/28 f32 vectors), against a cache whose slots past ``pos`` hold
+    garbage."""
+    q, k, v = _qkv(card, dtype, 4, 8 * group, 8, 1, 512, d, seed=d * 1000 + pos)
+    k[:, :, pos + 1:] = 1e4
+    v[:, :, pos + 1:] = -1e4
+    assert fa_kernel.flash_plan(4, 8 * group, 8, 1, 512, dtype).kernel == "decode"
+    got = flash_attention(q, k, v, causal=True, offset=torch.tensor(pos, dtype=torch.int32,
+                                                                    device=card))
+    want = attention_ref(q, k[:, :, : pos + 1], v[:, :, : pos + 1], causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=FA_ATOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos", [0, 160, 511])
+def test_flash_decode_at_granite_48_to_1(card, dtype, pos):
+    """granite-20b's decode: 48 query heads on one KV head, Sq = 1, so 48
+    packed rows, past the decode kernel's 16: the prefill kernels take it."""
+    q, k, v = _qkv(card, dtype, 8, 48, 1, 1, 512, 128, seed=pos)
+    k[:, :, pos + 1:] = 1e4
+    v[:, :, pos + 1:] = -1e4
+    plan = fa_kernel.flash_plan(8, 48, 1, 1, 512, dtype)
+    assert plan.kernel == ("tensor_core" if dtype == torch.bfloat16 else "cuda_core")
+    got = flash_attention(q, k, v, causal=True, offset=torch.tensor(pos, dtype=torch.int32,
+                                                                    device=card))
+    want = attention_ref(q, k[:, :, : pos + 1], v[:, :, : pos + 1], causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=FA_ATOL[dtype], rtol=0)
+
+
 def test_flash_wrapper_rejects_what_it_does_not_take(card):
     q, k, v = _qkv(card, torch.float32, 1, 4, 2, 8, 8, 64)
     with pytest.raises(ValueError, match="head_dim"):
-        fa_kernel.flash_attention_cuda(*_qkv(card, torch.float32, 1, 4, 2, 8, 8, 80))
+        fa_kernel.flash_attention_cuda(*_qkv(card, torch.float32, 1, 4, 2, 8, 8, 96))
     with pytest.raises(TypeError, match="bfloat16"):
         fa_kernel.flash_attention_cuda(q, k.bfloat16(), v)
     with pytest.raises(TypeError, match="bfloat16"):
@@ -315,9 +436,11 @@ def test_lm_asset_reproduces_jax_golden(card, asset, counter):
     with np.load(asset / "golden.npz") as g:
         golden = dict(g)
     reqs = [Request(p, int(n)) for p, n in zip(golden["prompts"], golden["max_new_tokens"])]
-    before = counter.launches.value
-    Engine(cfg, params, manifest["batch_size"], manifest["max_seq"],
-           eos_id=manifest["eos_id"]).generate(reqs)
+    eng = Engine(cfg, params, manifest["batch_size"], manifest["max_seq"],
+                 eos_id=manifest["eos_id"])
+    assert eng.decode_graph.launches_by_kernel()[counter.launches.name] == cfg.n_layers
+    before = counter.launches.value  # the capture's warm-up step is done
+    eng.generate(reqs)
     assert counter.launches.value - before == cfg.n_layers * (1 + manifest["decode_steps"])
     for r, want in zip(reqs, golden["tokens"]):
         assert r.out_tokens == [int(t) for t in want if t >= 0]
@@ -326,6 +449,47 @@ def test_lm_asset_reproduces_jax_golden(card, asset, counter):
     np.testing.assert_allclose(logits.cpu().numpy(), golden["prefill_logits"], atol=1e-4, rtol=0)
     logits, _ = decode_step(cfg, params, logits.argmax(-1)[:, None], cache)
     np.testing.assert_allclose(logits.cpu().numpy(), golden["decode_logits"], atol=1e-4, rtol=0)
+
+
+def _eager_tokens(cfg, params, prompts, max_seq, n_new):
+    """Greedy tokens of an eager loop over prefill and decode_step."""
+    with torch.inference_mode():
+        logits, cache = prefill(cfg, params, {"tokens": prompts}, max_seq)
+        tok = logits.argmax(-1)
+        out = [tok]
+        for _ in range(n_new - 1):
+            logits, cache = decode_step(cfg, params, tok[:, None], cache)
+            tok = logits.argmax(-1)
+            out.append(tok)
+    return torch.stack(out, dim=1).tolist()
+
+
+@pytest.mark.parametrize("name,dtype", [("smollm-135m", "bfloat16"), ("smollm-135m", "float32"),
+                                        ("falcon-mamba-7b", "bfloat16"),
+                                        ("stablelm-3b", "bfloat16")])
+def test_graph_replayed_tokens_equal_an_eager_loop(card, name, dtype):
+    """The engine's decode graph against an eager loop over the same
+    prefill/decode_step on the card: the same greedy tokens exactly, over
+    two batches through one engine (the static cache is reset by each
+    prefill), with the kernel's launches counted per replay."""
+    kw = {"n_heads": 9, "n_kv_heads": 3} if name == "smollm-135m" else {}
+    if name == "stablelm-3b":
+        kw = {"head_dim": 80}
+    cfg = dataclasses.replace(configs.get_smoke(name, n_layers=3, **kw), dtype=dtype)
+    params = init_params(cfg, torch.Generator(card).manual_seed(0), device=card)
+    counter = ss_kernel if cfg.family == "ssm" else fa_kernel
+    eng = Engine(cfg, params, 4, 48, eos_id=-1)
+    assert eng.decode_graph.launches_by_kernel()[counter.launches.name] == cfg.n_layers
+    rng = np.random.default_rng(0)
+    for prompt_len in (11, 20):
+        prompts = rng.integers(2, cfg.vocab_size, size=(4, prompt_len)).astype(np.int32)
+        reqs = [Request(p, 9) for p in prompts]
+        before = counter.launches.value
+        eng.generate(reqs)
+        assert counter.launches.value - before == cfg.n_layers * 9
+        want = _eager_tokens(cfg, eng.params, torch.from_numpy(prompts.astype(np.int64)).to(card),
+                             48, 9)
+        assert [r.out_tokens for r in reqs] == want
 
 
 # ----------------------------------------------------------------------

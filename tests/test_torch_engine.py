@@ -1,8 +1,9 @@
 """The port's serving engine on ``device="cpu"``, mirroring
 tests/test_runtime_engine.py: served results are bit-identical to the
 JAX ``forward_int`` with one and two shards, shutdown never leaves a
-future hanging, backpressure rejects loudly, and ``stats()`` has the
-JAX engine's shape.  Tolerance: exact equality (integer outputs)."""
+future hanging, backpressure rejects loudly, ``stats()`` has the JAX
+engine's shape, and the interpreter fallback is refused only for a
+design it cannot run.  Tolerance: exact equality (integer outputs)."""
 
 import threading
 import time
@@ -85,9 +86,18 @@ def test_multi_model_registry_and_artifact_path(designs):
         eng.submit("a", xs[0])
 
 
-def test_interpreter_fallback_is_refused():
-    with pytest.raises(ValueError, match="not yet ported"):
-        ServeEngine(ServeConfig(fallback="interpreter"), device="cpu")
+def test_interpreter_fallback_is_refused(designs):
+    """``fallback="interpreter"`` is accepted, and refused at ``register``
+    for a design the interpreter cannot run (one without step specs), as
+    the JAX engine refuses it; the engine keeps no entry for it."""
+    design = load_design(designs["a"][1], device="cpu")
+    design.step_specs = []
+    with ServeEngine(ServeConfig(fallback="interpreter"), device="cpu") as eng:
+        with pytest.raises(ValueError, match="no step_specs"):
+            eng.register("a", design)
+        assert eng.models() == []
+        eng.register("b", designs["b"][2])
+        assert eng.models() == ["b"]
 
 
 def test_shutdown_never_leaves_hanging_futures(designs):
