@@ -4,7 +4,7 @@
     python3 chip_smoke.py            (from the repository root)
 
 Builds every CUDA kernel of the port from the sources in the checkout,
-then runs thirteen phases, each of which must pass:
+then runs fourteen phases, each of which must pass:
 
 1. probe    the card (``nvidia-smi`` name and power limit), CUDA and nvcc
             versions, ptxas resource usage of each kernel, and that
@@ -135,7 +135,20 @@ then runs thirteen phases, each of which must pass:
             50304, bf16) with random weights (seed 0, drawn on the card),
             served and checked as phase 8 serves smollm-135m (32 x 64 flash
             launches); the kernel timed at its prefill and decode inputs,
-            and at kimi-k2's head_dim 112 and granite-20b's 48:1 decode.
+            and at kimi-k2's head_dim 112 and granite-20b's 48:1 decode;
+14. compile the port compiles the committed weights (``params.npz``) of
+            the 64-particle Mixer and the SVHN CNN itself, on the host
+            (``compile_model`` with the committed manifest's config,
+            ``jobs=None``): each saved artifact equals the committed one
+            (``arrays_sha256``, resources, reports without wall times) and
+            passes ``load_design(verify="strict")``; its ``forward_int`` on
+            the card reproduces the JAX golden outputs bit for bit, one
+            launch per CMVM step, and the float64 ``apply_model`` on the card
+            equals its ``forward`` exactly; then the port-compiled Mixer
+            serves a burst of 4096 through ``ServeEngine(ServeConfig(
+            max_batch=256, shards=2))``, counted as phase 4 counts, every
+            output golden and no fallback.  Prints the compile and verify
+            times, the number of solves and the solve pool's fallback.
 
 The line before the last is the ``kernels`` JSON object, with each
 source's kernels under ``entry_points``; the last line is ``{"ok": true,
@@ -1513,6 +1526,141 @@ def serve_fallback(torch, np, mixer_path, x_gold, y_gold, n_steps: int) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# ----------------------------------------------------------------------
+# 14. compile in the port, serve on the card
+# ----------------------------------------------------------------------
+COMPILED_NETWORKS = {
+    "mixer_full": lambda models: models.mlp_mixer_jet(full_size=True),
+    "svhn_cnn": lambda models: models.svhn_cnn(),
+}
+
+
+def first_difference(np, got, want) -> str:
+    """Where two arrays first differ, for a failure message."""
+    if got.shape != want.shape:
+        return f"shapes {got.shape} != {want.shape}"
+    diff = np.argwhere(got != want)
+    if not len(diff):
+        return "no element differs"
+    idx = tuple(int(i) for i in diff[0])
+    return f"{len(diff)} elements differ, first at {idx}: {got[idx]!r} != {want[idx]!r}"
+
+
+def compile_in_port(torch, np, dev, golden: dict, info: dict) -> dict:
+    """The committed weights (``params.npz``) compiled by the port itself
+    with each committed manifest's ``compile_config`` (``jobs=None``: it
+    does not enter the digest): the saved artifact must equal the committed
+    one (``arrays_sha256``, resources, reports without wall times) and pass
+    ``load_design(verify="strict")``; ``forward_int`` on the card through
+    the adder-graph kernel must give the golden outputs exactly, one launch
+    per CMVM step, and the float64 ``apply_model`` on the card the design's
+    ``forward`` exactly.  Then the port-compiled Mixer is served: one
+    ``submit_batch`` burst of 4096 through ``ServeEngine(ServeConfig(
+    max_batch=256, shards=2))``, counts zeroed just before the engine
+    starts and read just after it stops; every output golden, no fallback."""
+    import tempfile
+
+    from repro_torch.flow import CompileConfig, ServeConfig
+    from repro_torch.kernels.adder_graph import kernel as ag_kernel
+    from repro_torch.nn import apply_model, compile_model, models, params_from_numpy
+    from repro_torch.nn.compiler import count_cmvm_steps
+    from repro_torch.runtime import ServeEngine, load_design, save_design
+
+    def without_times(reports):
+        return [{k: v for k, v in r.items() if k != "solver_time_s"} for r in reports]
+
+    out, designs = {}, {}
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        for name, build in COMPILED_NETWORKS.items():
+            model, in_shape, in_quant = build(models)
+            committed = json.loads((ASSETS / name / "manifest.json").read_text())
+            with np.load(ASSETS / name / "params.npz") as z:
+                params = params_from_numpy(z, device=dev, model=model)
+            cfg = CompileConfig.from_dict({**committed["compile_config"], "jobs": None})
+            t0 = time.perf_counter()
+            design = compile_model(model, params, in_shape, in_quant, config=cfg, device=dev)
+            compile_s = time.perf_counter() - t0
+            st = design.solver_stats
+            manifest = json.loads((save_design(design, Path(tmp) / name) / "manifest.json")
+                                  .read_text())
+            for key in ("arrays_sha256", "resources", "compile_config_digest"):
+                check(manifest[key] == committed[key],
+                      f"{name}: the port's compile gives {key} {manifest[key]}, the committed "
+                      f"artifact {committed[key]}")
+            check(without_times(manifest["reports"]) == without_times(committed["reports"]),
+                  f"{name}: the port's layer reports differ from the committed ones")
+            t0 = time.perf_counter()
+            loaded = load_design(Path(tmp) / name, device=dev, verify="strict")
+            strict_s = time.perf_counter() - t0
+            check(loaded.solver_stats["verify"]["ok"], f"{name}: verify='strict' found errors")
+            check(design.device == dev, f"{name}: the compiled design is on {design.device}")
+
+            x_gold, y_gold = golden[name]
+            xg = torch.from_numpy(x_gold).to(dev)
+            n_cmvm = count_cmvm_steps(design.step_specs)
+            before = ag_kernel.launches.value
+            y = design.forward_int(xg).cpu().numpy()
+            launched = ag_kernel.launches.value - before
+            check(np.array_equal(y, y_gold), f"{name}: the port-compiled design's forward_int "
+                  "on the card != JAX golden: " + first_difference(np, y, y_gold))
+            check(launched == n_cmvm, f"{name}: {launched} launches for {n_cmvm} CMVM steps")
+            # the float front end in float64 on the card, on the grid values
+            x64 = xg.to(torch.float64) * in_quant.step
+            y_float = apply_model(params, model, x64, in_quant=in_quant).cpu().numpy()
+            y_fwd = design.forward(x64).cpu().numpy().astype(np.float64)
+            check(np.array_equal(y_float, y_fwd),
+                  f"{name}: float64 apply_model on the card != forward: "
+                  + first_difference(np, y_float, y_fwd))
+            out[name] = {
+                "compile_s": compile_s, "solve_phase_s": st["solve_phase_s"],
+                "verify_wall_s": st["verify"]["wall_s"], "verify_tier": st["verify"]["tier"],
+                "strict_load_s": strict_s, "n_solves": st["n_solves"],
+                "n_pool_solves": st["n_pool_solves"], "pool_fallback": st["pool_fallback"],
+                "total_adders": manifest["resources"]["total_adders"],
+                "arrays_sha256": manifest["arrays_sha256"][:12],
+                "forward_int_launches": launched,
+            }
+            log(f"{name}: compiled in the port in {compile_s:.2f} s (solve phase "
+                f"{st['solve_phase_s']:.2f} s, {st['n_solves']} solves, pool "
+                f"{st['n_pool_solves']} solves, pool_fallback {st['pool_fallback']}; verify "
+                f"'{st['verify']['tier']}' {st['verify']['wall_s']:.2f} s); arrays_sha256 "
+                f"{manifest['arrays_sha256'][:12]} = committed; strict load {strict_s:.2f} s; "
+                f"{len(y)} golden outputs bit-exact on the card in {launched} launches; "
+                f"float64 apply_model == forward on the card [{info['nvidia_smi']}]")
+            designs[name] = design
+            del params, loaded
+
+    x_gold, y_gold = golden["mixer_full"]
+    n_steps = count_cmvm_steps(designs["mixer_full"].step_specs)
+    reps = 4
+    reset_counts()
+    with ServeEngine(ServeConfig(max_batch=256, shards=2), device=dev) as eng:
+        eng.register("mixer", designs["mixer_full"])
+        t0 = time.perf_counter()
+        futs = eng.submit_batch("mixer", np.concatenate([x_gold] * reps))
+        got = np.stack([f.result(120) for f in futs])
+        t_done = time.perf_counter()
+        stats = eng.stats("mixer")
+    counts = read_counts()
+    check(np.array_equal(got, np.concatenate([y_gold] * reps)),
+          "the port-compiled Mixer's served outputs != JAX golden")
+    check(stats["n_fallback_batches"] == 0, "compile phase: fallback batches")
+    check(stats["n_graph_replays"] == stats["n_batches"],
+          f"compile phase: {stats['n_graph_replays']} replays for {stats['n_batches']} batches")
+    want = (stats["n_jit_compiles"] + stats["n_batches"]) * n_steps
+    check(counts["adder_graph"] == want,
+          f"compile phase: {counts['adder_graph']} adder-graph launches, want {want}")
+    check_only(counts, "adder_graph", "the port-compiled Mixer's serve")
+    out["serve"] = {"requests": len(futs), "req_per_s": len(futs) / (t_done - t0),
+                    "n_batches": stats["n_batches"], "n_jit_compiles": stats["n_jit_compiles"],
+                    "adder_graph_launches": counts["adder_graph"]}
+    log(f"serve: the port-compiled Mixer, {len(futs)} requests all golden, "
+        f"{out['serve']['req_per_s']:.0f} req/s, {stats['n_batches']} batches, "
+        f"{counts['adder_graph']} adder-graph launches = ({stats['n_jit_compiles']} captures + "
+        f"{stats['n_batches']} replays) x {n_steps}")
+    return out
+
+
 def head_dim_inputs(torch, dev) -> dict:
     """Flash inputs of the main path's shapes at the head dims no served
     model of this script reaches: kimi-k2's (64:8 heads, head_dim 112),
@@ -1794,6 +1942,11 @@ def main() -> int:
     log("serve summary: " + json.dumps({k: v for k, v in sl.items() if k != "inputs"}))
     log("fallback summary: " + json.dumps(fb))
     del sl, ft
+
+    log("== 14. compile in the port, serve on the card")
+    cp = compile_in_port(torch, np, dev, golden, info)
+    kernels["kernels"][0]["launches_compiled_in_port"] = cp["serve"]["adder_graph_launches"]
+    log("compile summary: " + json.dumps(cp))
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(info["nvidia_smi"])

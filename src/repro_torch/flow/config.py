@@ -132,7 +132,7 @@ def _default_compile_solver() -> SolverConfig:
 
 @dataclass(frozen=True)
 class CompileConfig(_ConfigBase):
-    """Options of one model compile (the JAX package's ``compile_model``).
+    """Options of one model compile (``repro_torch.nn.compile_model``).
 
     strategy             "da" (CMVM solver) or "latency" (per-output CSD
                          trees, the hls4ml latency-strategy baseline).
@@ -150,8 +150,7 @@ class CompileConfig(_ConfigBase):
     solver               nested :class:`SolverConfig` (default dc=2).
     verify               static-verification tier run on every compiled
                          design ("off", "cheap", "strict"; default
-                         "cheap" — the JAX package's static
-                         verifier, not yet ported).  Error-severity
+                         "cheap" — see repro_torch.analysis).  Error-severity
                          findings fail the compile loudly.  Never changes
                          the produced bits, so it is excluded from the
                          config digest (like ``jobs``).

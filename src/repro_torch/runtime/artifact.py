@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..analysis.verify import TIERS, DesignVerificationError, verify_design
 from ..chaos import fault_point, io_fault
 from ..core.dais import DAISProgram, qints_from_array, qints_to_array
 from ..flow.config import CompileConfig
@@ -209,14 +210,16 @@ def load_design(
     (default: the CUDA card; raises without one unless ``device="cpu"``).
 
     No solver runs: the tables are recompiled from the packed programs.
-    ``verify`` accepts only "off" (the static verifier is not ported).
-    Damage raises :class:`ArtifactCorruptError`; a wrong format or
+    ``verify`` ("off" default / "cheap" / "strict") runs the static
+    verifier (:mod:`repro_torch.analysis`) on the rebuilt design and
+    records it in ``solver_stats["verify"]``; error-severity findings
+    raise ``DesignVerificationError``.  Damage raises :class:`ArtifactCorruptError`; a wrong format or
     version stays a plain ``ValueError``.  ``on_corrupt="quarantine"``
     first renames the damaged directory to ``<name>.quarantined``.
     """
     dev = resolve_device(device)
-    if verify != "off":
-        raise ValueError(f"verify={verify!r}: the static verifier is not yet ported (use 'off')")
+    if verify not in TIERS:
+        raise ValueError(f"unknown verify tier {verify!r} (expected one of {TIERS})")
     if on_corrupt not in ("raise", "quarantine"):
         raise ValueError(f"on_corrupt must be 'raise' or 'quarantine', got {on_corrupt!r}")
     t0 = time.perf_counter()
@@ -268,6 +271,17 @@ def load_design(
             on_corrupt,
         ) from e
     design.solver_stats["load_s"] = time.perf_counter() - t0
+    if verify != "off":
+        vrep = verify_design(design, tier=verify)
+        design.solver_stats["verify"] = {
+            "tier": verify,
+            "ok": vrep.ok,
+            "n_errors": len(vrep.errors),
+            "n_warnings": len(vrep.warnings),
+            "pass_wall_s": {k: v for k, v in vrep.pass_wall_s.items() if isinstance(v, float)},
+        }
+        if not vrep.ok:
+            raise DesignVerificationError(vrep, context=f"artifact {path}")
     return design
 
 

@@ -21,6 +21,9 @@ from repro_torch.kernels.quant_matmul import quant_matmul
 from repro_torch.kernels.ssm_scan import kernel as ss_kernel
 from repro_torch.kernels.ssm_scan import selective_scan
 from repro_torch.models import init_cache, init_params
+from repro_torch.nn import compile_model, params_from_numpy
+from repro_torch.nn import init_params as nn_init_params
+from repro_torch.nn import models as nn_models
 from repro_torch.runtime import ServeEngine, design_from_arrays, load_design
 from repro_torch.serve import Engine
 
@@ -53,6 +56,14 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
     assert {"repro_torch.obs.trace", "repro_torch.obs.metrics", "repro_torch.obs.flight",
             "repro_torch.obs.solvelog", "repro_torch.chaos.plan", "repro_torch.nn.interpreter",
             "repro_torch.kernels.graphs"} <= set(mods)
+    # the compile path: the solver, emission, the verifier and the NN front end
+    assert {f"repro_torch.core.{m}" for m in (
+        "cache", "cost", "csd", "cse", "graph_decompose", "pipelining", "rtlsim", "solver",
+        "verilog")} <= set(mods)
+    assert {f"repro_torch.analysis.{m}" for m in (
+        "artifact", "diagnostics", "program", "steps", "verify")} <= set(mods)
+    assert {"repro_torch.nn.layers", "repro_torch.nn.models", "repro_torch.nn.compiler",
+            "repro_torch.nn.quant"} <= set(mods)
     res = _run(
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -103,6 +114,14 @@ def test_no_card_means_raise_not_cpu(no_card):
         ServeEngine()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         design_from_arrays({}, {})
+    jet, jet_shape, jet_quant = nn_models.jet_tagger()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        nn_init_params(jet, jet_shape, torch.Generator().manual_seed(0))
+    jet_params, _ = nn_init_params(jet, jet_shape, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compile_model(jet, jet_params, jet_shape, jet_quant)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_numpy([{}])
     cfg = configs.get_smoke("smollm-135m")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_params(cfg, torch.Generator().manual_seed(0))

@@ -431,6 +431,11 @@ def test_client_timeout_counted_and_work_shed(design):
             with pytest.raises(FutureTimeoutError):
                 eng.infer("m", xs[1], timeout=0.05)
             assert blocker.result(10).shape == (6,)
+            # the abandoned request is shed when the dispatcher forms its
+            # next batch, after the blocker's future is already set
+            t_end = time.perf_counter() + 5.0
+            while eng.stats("m")["n_shed"] < 1 and time.perf_counter() < t_end:
+                time.sleep(0.005)
             s = eng.stats("m")
             assert s["n_client_timeouts"] == 1 and s["n_shed"] == 1
         finally:

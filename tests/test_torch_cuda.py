@@ -19,7 +19,10 @@ an eager loop over ``prefill``/``decode_step``, the DA engine's graphs
 (two shards) give the golden outputs bit for bit with one capture per
 shard and bucket used, and with ``fallback="interpreter"`` and every
 dispatch failing the numpy interpreter serves the golden outputs (every
-bucket captured at registration, so a capture that fails fails there).
+bucket captured at registration, so a capture that fails fails there);
+and a design the port compiled itself (jet_tagger, weights drawn on the
+card) runs each CMVM step through the kernel as ``DAISProgram.evaluate``
+computes it (exact).
 
 Every test here needs a card and skips without one.  This file imports
 neither ``jax`` nor ``repro``, so it runs where only PyTorch is
@@ -40,7 +43,7 @@ import torch
 from repro_torch import configs
 from repro_torch.chaos import FaultPlan, FaultRule, active
 from repro_torch.core import DAISProgram, QInterval, Term
-from repro_torch.flow import ServeConfig
+from repro_torch.flow import CompileConfig, ServeConfig
 from repro_torch.kernels.adder_graph import adder_graph_apply, compile_tables
 from repro_torch.kernels.adder_graph import kernel as ag_kernel
 from repro_torch.kernels.adder_graph.ref import adder_graph_ref
@@ -54,6 +57,10 @@ from repro_torch.kernels.ssm_scan import kernel as ss_kernel
 from repro_torch.kernels.ssm_scan import selective_scan
 from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
 from repro_torch.models import decode_step, init_params, params_from_numpy, prefill, unflatten
+from repro_torch.nn import compile_model, numpy_forward_fn
+from repro_torch.nn import compiler as nn_compiler
+from repro_torch.nn import init_params as nn_init_params
+from repro_torch.nn import models as nn_models
 from repro_torch.nn.compiler import count_cmvm_steps
 from repro_torch.kernels._build import KernelError
 from repro_torch.runtime import ServeEngine, load_design
@@ -188,6 +195,35 @@ def test_designs_reproduce_golden(card, name):
     got = design.forward_int(torch.from_numpy(x).to(card)).cpu().numpy()
     assert ag_kernel.launches.value - before == count_cmvm_steps(design.step_specs)
     np.testing.assert_array_equal(got, y)
+
+
+def test_port_compiled_design_on_the_card(card, monkeypatch):
+    """jet_tagger compiled by the port from its own random weights (drawn
+    on the card): every CMVM step's kernel output equals
+    ``DAISProgram.evaluate`` of its program (int64, reduced mod 2^32), and
+    the whole ``forward_int`` the numpy interpreter's."""
+    model, in_shape, in_quant = nn_models.jet_tagger()
+    params, _ = nn_init_params(model, in_shape, torch.Generator(card).manual_seed(0), card)
+    design = compile_model(model, params, in_shape, in_quant, config=CompileConfig(jobs=2),
+                           device=card)
+    assert design.device == card and design.solver_stats["verify"]["ok"]
+    calls = []
+
+    def recording(tables, v):
+        y = adder_graph_apply(tables, v)
+        calls.append((design.tables.index(tables), v.cpu().numpy(), y.cpu().numpy()))
+        return y
+
+    monkeypatch.setattr(nn_compiler, "adder_graph_apply", recording)
+    q = in_quant.qint
+    x = np.random.default_rng(0).integers(q.lo, q.hi + 1, size=(1000, *in_shape)).astype(np.int32)
+    before = ag_kernel.launches.value
+    got = design.forward_int(torch.from_numpy(x).to(card)).cpu().numpy()
+    assert ag_kernel.launches.value - before == count_cmvm_steps(design.step_specs) == len(calls)
+    for i, v, y in calls:
+        want = DAISProgram.from_arrays(design.programs[i]).evaluate(v.astype(np.int64))
+        np.testing.assert_array_equal(y, want.astype(np.uint32).view(np.int32))
+    np.testing.assert_array_equal(got, numpy_forward_fn(design)(x))
 
 
 def test_engine_serves_golden(card):

@@ -8,7 +8,10 @@ and saves each as a ``da4ml-design`` artifact under
     mixer_full   mlp_mixer_jet(full_size=True): 64 particles x 16 features
     svhn_cnn     svhn_cnn(): conv / maxpool / avgpool
 
-Beside each artifact, ``golden.npz`` holds ``x``, 1024 inputs drawn with
+Beside each artifact, ``params.npz`` holds those float32 weights (keys
+are ``"/"``-joined tree paths, ``"0/w"``, ``"4/body/0/b"``), from which
+the port compiles the same design itself, and ``golden.npz`` holds
+``x``, 1024 inputs drawn with
 ``np.random.default_rng(0)`` over the full input grid (stored in the
 smallest integer type that holds the grid), and ``y``, the JAX
 ``forward_int`` of ``x`` as int32, checked equal to the numpy
@@ -30,7 +33,12 @@ greedy pick.
 
 Run from the repository root:
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/make_torch_assets.py
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/make_torch_assets.py [NAME ...]
+
+``--params-only mixer_full svhn_cnn`` writes only ``params.npz``, after
+checking that compiling those weights with the committed manifest's
+``compile_config`` reproduces its ``arrays_sha256``; the committed
+design, golden and manifest stay untouched.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from __future__ import annotations
 import json
 import shutil
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -86,9 +95,30 @@ def make(name: str) -> None:
     if out.exists():
         shutil.rmtree(out)
     save_design(design, out)
+    np.savez(out / "params.npz", **_flatten(jax.tree.map(np.asarray, params)))
     np.savez_compressed(out / "golden.npz", x=x, y=y)
     size = sum(f.stat().st_size for f in out.iterdir())
     print(f"{name}: wrote {out} ({size} bytes)")
+
+
+def make_params(name: str) -> None:
+    """Write ``params.npz`` beside a committed artifact, once the weights
+    are shown to compile to that artifact's arrays."""
+    model, in_shape, in_quant = NETWORKS[name]()
+    params, _ = init_params(jax.random.PRNGKey(0), model, in_shape)
+    out = ASSETS / name
+    manifest = json.loads((out / "manifest.json").read_text())
+    cfg = CompileConfig.from_dict(manifest["compile_config"])
+    design = compile_model(model, params, in_shape, in_quant, config=cfg)
+    tmp = Path(tempfile.mkdtemp())
+    try:
+        got = json.loads((save_design(design, tmp / name) / "manifest.json").read_text())
+    finally:
+        shutil.rmtree(tmp)
+    if got["arrays_sha256"] != manifest["arrays_sha256"]:
+        raise SystemExit(f"{name}: the weights do not compile to the committed design")
+    np.savez(out / "params.npz", **_flatten(jax.tree.map(np.asarray, params)))
+    print(f"{name}: wrote {out / 'params.npz'} ({(out / 'params.npz').stat().st_size} bytes)")
 
 
 def _flatten(tree, prefix=""):
@@ -164,5 +194,10 @@ def make_lm_smoke(name: str) -> None:
 
 
 if __name__ == "__main__":
-    for name in sys.argv[1:] or [*NETWORKS, *LMS]:
-        (make_lm_smoke if name in LMS else make)(name)
+    args = sys.argv[1:]
+    if args[:1] == ["--params-only"]:
+        for name in args[1:] or NETWORKS:
+            make_params(name)
+    else:
+        for name in args or [*NETWORKS, *LMS]:
+            (make_lm_smoke if name in LMS else make)(name)
