@@ -4,7 +4,7 @@
     python3 chip_smoke.py            (from the repository root)
 
 Builds every CUDA kernel of the port from the sources in the checkout,
-then runs fourteen phases, each of which must pass:
+then runs seventeen phases, each of which must pass:
 
 1. probe    the card (``nvidia-smi`` name and power limit), CUDA and nvcc
             versions, ptxas resource usage of each kernel, and that
@@ -48,9 +48,10 @@ then runs fourteen phases, each of which must pass:
             (stablelm-3b's prefill at 80), ragged Sq and Sk, and decode
             (Sq=1) against a 512-slot cache at offsets 0, 1, 127, 128 and
             511 read from the card, at GQA group sizes 1, 3, 4 and 8
-            (head_dim 64) and 1, 4 and 8 (head_dim 80 and 112), and at
+            (head_dim 64) and 1, 4 and 8 (head_dim 80 and 112), at
             granite-20b's 48:1 (head_dim 128: 48 rows, the prefill
-            kernels); max abs error per dtype against atol 2e-5 (f32) and
+            kernels) and at qwen3-moe-30b-a3b's 32:4 (head_dim 128, group
+            8); max abs error per dtype against atol 2e-5 (f32) and
             2e-2 (bf16), and how many cases each of the source's kernels
             (decode, tensor-core, CUDA-core) took;
 7. lm       the reduced smollm-135m from the committed JAX weights
@@ -135,7 +136,8 @@ then runs fourteen phases, each of which must pass:
             50304, bf16) with random weights (seed 0, drawn on the card),
             served and checked as phase 8 serves smollm-135m (32 x 64 flash
             launches); the kernel timed at its prefill and decode inputs,
-            and at kimi-k2's head_dim 112 and granite-20b's 48:1 decode;
+            at kimi-k2's head_dim 112 and qwen3-moe's 32:4 at head_dim
+            128 (prefill and decode), and granite-20b's 48:1 decode;
 14. compile the port compiles the committed weights (``params.npz``) of
             the 64-particle Mixer and the SVHN CNN itself, on the host
             (``compile_model`` with the committed manifest's config,
@@ -148,7 +150,39 @@ then runs fourteen phases, each of which must pass:
             serves a burst of 4096 through ``ServeEngine(ServeConfig(
             max_batch=256, shards=2))``, counted as phase 4 counts, every
             output golden and no fallback.  Prints the compile and verify
-            times, the number of solves and the solve pool's fallback.
+            times, the number of solves and the solve pool's fallback;
+15. flow    the README quickstart through the port's facade:
+            ``Flow.load`` the committed Mixer, ``Flow.serve(ServeConfig(
+            max_batch=256, shards=2))``, ``register`` it as v1, submit a
+            burst of 4096 and, while it is in flight, register phase 14's
+            port-compiled Mixer as v2 (every bucket captured while v1
+            replays): every future golden, v1 drained with its graphs
+            released, v2 serving, launches counted as phase 4 counts for
+            both versions; two jet_tagger designs compiled on the card by
+            ``Flow.compile`` from two seeds, rolled v1 -> v2 (v1 kept) ->
+            ``activate(1)`` -> ``unregister``, every output its own
+            version's ``forward_int`` and the two versions different; five
+            register/drain cycles of the Mixer, device memory read after
+            each (allocated must stay at the first cycle's level within
+            1 MiB); the legacy spelling ``ServeEngine(max_batch=256)``
+            warns and equals the config spelling;
+16. cosim   ``cosim_grid(jit="require")`` with the device leg on the card:
+            all 34 programs of ``default_grid()`` RTL == interpreter ==
+            the adder-graph kernel, latency as pipelined, one kernel launch
+            per program's table, and every case's report equal to a CPU
+            run of the same grid;
+17. serve   the MoE main path at full width: qwen3-moe-30b-a3b (48 layers,
+            d_model 2048, 32:4 heads, head_dim 128, 128 experts top-8,
+            d_ff 768, vocab 151936, qk_norm, bf16, 30,532,646,912
+            parameters, not cut) with random weights (seed 0, drawn on the
+            card, after the earlier phases' weights are freed), served as
+            phase 8 serves smollm-135m (48 x 64 flash launches, the decode
+            graph's tokens equal to an eager loop's) and held to the plain
+            path by the MoE rule (end to end as phase 8, or, where two
+            correct plain versions fail that too, layer by layer with the
+            routing flips explained; see "MoE rule" below); the peak device
+            memory, the decode step against its bytes bound, and the kernel
+            timed at its prefill and decode inputs.
 
 The line before the last is the ``kernels`` JSON object, with each
 source's kernels under ``entry_points``; the last line is ``{"ok": true,
@@ -633,6 +667,7 @@ DECODE_OFFSETS = (0, 1, 127, 128, 511)
 # (head_dim, GQA group sizes: query heads per KV head) of the decode cases
 DECODE_GROUPS = ((64, (1, 3, 4, 8)), (80, (1, 4, 8)), (112, (1, 4, 8)))
 GRANITE_DECODE = (8, 48, 1, 128)  # granite-20b's decode: B, Hq, Hkv, head_dim (48 rows)
+QWEN3_MOE_DECODE = (8, 32, 4, 128)  # qwen3-moe-30b-a3b's decode: GQA group 8 at head_dim 128
 DECODE_MAX_SEQ = 512
 
 
@@ -666,6 +701,9 @@ def flash_cases(torch, dev) -> dict:
                    for d, groups in DECODE_GROUPS for group in groups]
         b, hq, hkv, d = GRANITE_DECODE
         decodes.append((b, hq, hkv, d, f"decode head_dim {d} group {hq // hkv} (granite-20b)"))
+        b, hq, hkv, d = QWEN3_MOE_DECODE
+        decodes.append((b, hq, hkv, d,
+                        f"decode head_dim {d} group {hq // hkv} (qwen3-moe-30b-a3b)"))
         for b, hq, hkv, d, what in decodes:
             for pos in DECODE_OFFSETS:
                 k = rand(b, hkv, DECODE_MAX_SEQ, d, dtype=dtype)
@@ -761,6 +799,17 @@ def plain_selective_scan_f64(dt, bmat, cmat, x, a, h0, h_out=None):
     return (y, h) if h_out is None else (y, h_out.copy_(h))
 
 
+def plain_attention_f32(q, k, v, causal=True, offset=None):
+    """The plain attention with every operand in f32 (``p`` is not rounded
+    to bf16 before PV, as the decode kernel keeps it), rounded to q's
+    dtype: another correct plain version, to measure how far two correct
+    versions drift apart."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    return attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                         offset=offset).to(q.dtype)
+
+
 def lm_paths() -> dict:
     """Per served architecture: its kernel (launch counter and profiler
     name), the model module's name for the op that reaches the kernel, the
@@ -775,7 +824,7 @@ def lm_paths() -> dict:
         "kernel": "flash_attention", "profile_key": "namespace)::flash_",
         "module": attention, "attr": "flash_attention", "plain": attention_ref,
         "f32_atol": None,  # held by LM_BF16_ATOL in bf16
-        "plain_f64": None,
+        "plain_alt": None,
         "capture": {"prefill": 0, "decode": DECODE_TIMING_OFFSET - PROMPT_LEN + 1},
     }
     return {
@@ -783,6 +832,11 @@ def lm_paths() -> dict:
         "smollm-135m": {**dense, "init_on_card": False},
         # 5.6 GB of bf16 weights (head_dim 80)
         "stablelm-3b": {**dense, "init_on_card": True},
+        # 61 GB of bf16 weights (128 experts, head_dim 128, GQA 32:4): held by
+        # the MoE rule (phase 17), beside attention kept in f32, another
+        # correct plain version that rounds to bf16 at other places
+        "qwen3-moe-30b-a3b": {**dense, "init_on_card": True, "plain_alt": plain_attention_f32,
+                              "moe": True},
         "falcon-mamba-7b": {
             "kernel": "ssm_scan", "profile_key": "namespace)::ssm_",
             "module": ssm, "attr": "selective_scan", "plain": selective_scan_ref,
@@ -794,7 +848,7 @@ def lm_paths() -> dict:
             # agree within about 1e-3, so the paths are held there, at 1e-2;
             # the bf16 agreement is measured and printed.
             "f32_atol": 1e-2,
-            "plain_f64": plain_selective_scan_f64,
+            "plain_alt": plain_selective_scan_f64,
             "capture": {"prefill": 0, "decode": 1},
         },
     }
@@ -900,6 +954,200 @@ def agreement(torch, kernel_logits, kernel_tokens, plain_logits, atol) -> dict:
             "n_flips": n_flip, "n_far_flips": n_far, "n_close_picks": n_close}
 
 
+# ----------------------------------------------------------------------
+# 17. the MoE path against the plain path
+# ----------------------------------------------------------------------
+# MoE rule.  The kernel path is held to the plain path, both teacher-forced
+# on the served tokens, by phase 8's end-to-end rule (LM_BF16_ATOL on the
+# bf16 logits, far argmax flips none).  The router's logits are rounded to
+# bf16 before the f32 softmax, so ties and near-ties among the 128 experts
+# are common: a bf16 difference in one attention output can move a token
+# to another expert (and, at prefill, another token past its expert's
+# capacity), and 48 random layers carry that on.  Where the end-to-end
+# rule fails, the failure counts as the model's amplification, not the
+# kernel's, only if two correct plain versions (the plain attention with p
+# rounded to bf16, and all in f32) fail it as well; the path is then held
+# layer by layer: every layer run on the plain path's own input (and
+# cache), once with the kernel and once with the plain attention, must
+# agree within LAYER_ULPS bf16 steps at each token's largest element on
+# every token routed and kept alike by the two.  A token routed otherwise
+# (its ordered top-k differs: another expert, or the same ones in another
+# order) must have two of its top k+1 plain router logits no further apart
+# than twice the largest change of its router logits between the two (two
+# experts swap only if each moved by half their gap), and a token kept
+# otherwise (its routing alike) is allowed only in a call with such a
+# flip: the capacity ranks follow the slot-major order of every pick, so
+# one token's flip moves the ranks of later picks.  Routing flips of the
+# end-to-end paths are counted by layer, with their margins.
+LAYER_ULPS = 8  # at |x| in [4, 8): 0.25, phase 8's LM_BF16_ATOL
+
+
+def record_routing(torch, calls: list):
+    """Wrap the MoE block of the port's transformer so that each call
+    appends (each token's top-k expert ids in order [T, k]; its kept ones,
+    the dropped as -1, sorted [T, k]; its k-th minus (k+1)-th router logit
+    [T]; the smallest gap between consecutive ones of its top k+1 [T]; the
+    router logits [T, E] in f32) to ``calls``.  Returns the restore
+    function."""
+    from repro_torch.models import moe, transformer
+
+    orig = transformer.moe_block
+
+    def recording(cfg, p, x):
+        xt = x.reshape(-1, x.shape[-1])
+        logits = (xt @ p["router"].to(x.dtype)).float()
+        _, _, idx = moe.router_topk(cfg, p["router"], xt)
+        _, keep, _ = moe.dispatch_slots(cfg, idx)
+        k = cfg.experts_per_token
+        kept = torch.where(keep.view(k, -1).t(), idx, -1)
+        top = torch.sort(logits, dim=-1, descending=True, stable=True).values[:, :k + 1]
+        gaps = top[:, :-1] - top[:, 1:]
+        calls.append((idx, kept.sort(-1).values, gaps[:, -1], gaps.amin(-1), logits))
+        return orig(cfg, p, x)
+
+    transformer.moe_block = recording
+    return lambda: setattr(transformer, "moe_block", orig)
+
+
+def bf16_step(torch, mag):
+    """One bf16 step (8 significant bits) at magnitudes ``mag``."""
+    return torch.exp2(torch.floor(torch.log2(mag.clamp_min(2.0 ** -120))) - 7)
+
+
+def routing_flips(torch, a: list, b: list, n_layers: int) -> dict:
+    """Tokens routed to another expert set between two runs (calls in the
+    same order, ``n_layers`` MoE layers a step), in total and by layer,
+    the first call that differs, the margins of the flips in the second
+    run (exact ties, and under one bf16 step), and the tokens routed alike
+    but kept otherwise."""
+    flips, ties, close, drops, by_layer, first = 0, 0, 0, 0, [0] * n_layers, None
+    for i, ((ia, ka, _, _, _), (ib, kb, mb, _, lb)) in enumerate(zip(a, b)):
+        diff = (ia.sort(-1).values != ib.sort(-1).values).any(-1)
+        drops += int((~diff & (ka != kb).any(-1)).sum())
+        n = int(diff.sum())
+        if not n:
+            continue
+        flips += n
+        ties += int((diff & (mb == 0)).sum())
+        close += int((diff & (mb < bf16_step(torch, lb.abs().amax(-1)))).sum())
+        by_layer[i % n_layers] += n
+        first = i if first is None else first
+    return {"calls": len(a), "token_calls": sum(int(x[0].shape[0]) for x in a),
+            "flips": flips, "flips_at_exact_ties": ties, "flips_under_one_bf16_step": close,
+            "kept_otherwise": drops, "first_flip_call": first, "flips_by_layer": by_layer}
+
+
+def moe_layerwise(torch, cfg, params, prompts, dev, tokens, path) -> dict:
+    """The plain path teacher-forced on ``tokens``, each layer run twice on
+    its own input: with the kernel op, then with the plain op (whose output
+    goes on).  Summed over the layer calls: the tokens, the routing flips
+    between the two (ordered top-k; of them, another expert set) and those
+    not explained by their router-logit change, the tokens kept otherwise
+    and those in a call without an explained flip, and the largest
+    |kernel - plain| over the tokens routed and kept alike, in tolerances
+    of LAYER_ULPS bf16 steps at each token's largest element (over 1
+    fails)."""
+    from repro_torch.models import transformer
+
+    module, attr = path["module"], path["attr"]
+    kernel_op, orig_block = getattr(module, attr), transformer._apply_block
+    stats = []
+    routes: list = []
+
+    def checking(cfg_, bp, mixer, ffn, x, positions, cache, pos):
+        routes.clear()
+        setattr(module, attr, kernel_op)
+        yk, _ = orig_block(cfg_, bp, mixer, ffn, x, positions, cache, pos)
+        setattr(module, attr, path["plain"])
+        yp, aux = orig_block(cfg_, bp, mixer, ffn, x, positions, cache, pos)
+        yp2, yk2 = yp.reshape(-1, yp.shape[-1]).float(), yk.reshape(-1, yk.shape[-1]).float()
+        zero = torch.zeros(yp2.shape[0], dtype=torch.bool, device=yp2.device)
+        flip, set_flip, kept_other, unexplained, ties = zero, zero, zero, zero, zero
+        if routes:  # a MoE layer: the kernel leg's routing, then the plain leg's
+            (ik, kk, _, _, lk), (ip, kp, mp, gp, lp) = routes
+            flip = (ik != ip).any(-1)
+            set_flip = (ik.sort(-1).values != ip.sort(-1).values).any(-1)
+            kept_other = ~flip & (kk != kp).any(-1)
+            unexplained = flip & (gp > 2 * (lk - lp).abs().amax(-1))
+            ties = mp == 0
+        alike = ~flip & ~kept_other
+        tol = LAYER_ULPS * bf16_step(torch, yp2.abs().amax(-1))
+        ratio = torch.where(alike, (yk2 - yp2).abs().amax(-1) / tol, 0.0)
+        n_explained = (flip & ~unexplained).sum()
+        stats.append(torch.stack([
+            torch.tensor(float(flip.numel()), device=yp2.device), flip.sum().float(),
+            unexplained.sum().float(), kept_other.sum().float(),
+            torch.where(n_explained > 0, 0, kept_other.sum()).float(), ratio.amax(),
+            ties.sum().float(), set_flip.sum().float()]))
+        return yp, aux
+
+    restore = record_routing(torch, routes)
+    transformer._apply_block = checking
+    try:
+        teacher_forced(torch, cfg, params, prompts, dev, tokens, path, path["plain"])
+    finally:
+        transformer._apply_block = orig_block
+        setattr(module, attr, kernel_op)
+        restore()
+    st = torch.stack(stats).cpu()
+    worst = int(st[:, 5].argmax())
+    return {"layer_calls": len(stats), "token_calls": int(st[:, 0].sum()),
+            "flips": int(st[:, 1].sum()), "expert_set_flips": int(st[:, 7].sum()),
+            "unexplained_flips": int(st[:, 2].sum()),
+            "kept_otherwise": int(st[:, 3].sum()),
+            "kept_otherwise_without_a_flip": int(st[:, 4].sum()),
+            "max_diff_in_tolerances": float(st[:, 5].max()),
+            "worst_call": {"step": worst // cfg.n_layers, "layer": worst % cfg.n_layers},
+            "exact_router_ties_at_top_k": int(st[:, 6].sum()), "layer_ulps": LAYER_ULPS}
+
+
+def moe_rule(torch, cfg, params, prompts, dev, toks, path, agree) -> dict:
+    """Phase 17's check of the kernel path against the plain path (the MoE
+    rule above); returns what it measured."""
+    e2e, spread = agree["bf16"], agree["bf16_plain_alt_vs_plain"]
+
+    def meets(a):
+        return a["n_far_flips"] == 0 and a["max_abs_diff"] <= LM_BF16_ATOL
+
+    runs = {}
+    for name, op in (("kernel", None), ("plain", path["plain"])):
+        calls: list = []
+        restore = record_routing(torch, calls)
+        try:
+            teacher_forced(torch, cfg, params, prompts, dev, toks, path, op)
+        finally:
+            restore()
+        runs[name] = calls
+    pattern, n_periods = cfg.layer_pattern()
+    n_moe = sum(ffn == "moe" for _, ffn in pattern) * n_periods
+    flips = routing_flips(torch, runs["kernel"], runs["plain"], n_moe)
+    del runs
+    log("serve: routing of the kernel path against the plain path (both teacher-forced): "
+        + json.dumps(flips))
+    layer = moe_layerwise(torch, cfg, params, prompts, dev, toks, path)
+    log("serve: layer by layer, kernel vs plain on the plain path's input: " + json.dumps(layer))
+    out = {**agree, "routing_flips": flips, "layerwise": layer,
+           "end_to_end_rule_met": meets(e2e)}
+    if meets(e2e):
+        log("serve: the end-to-end rule holds (kernel vs plain, bf16 logits)")
+        return out
+    check(not meets(spread),
+          f"serve: kernel vs plain logits fail the end-to-end rule ({json.dumps(e2e)}) where two "
+          f"correct plain versions meet it ({json.dumps(spread)})")
+    check(layer["unexplained_flips"] == 0,
+          f"serve: {layer['unexplained_flips']} routing flips between the kernel and the plain "
+          "attention exceed their router-logit change")
+    check(layer["kept_otherwise_without_a_flip"] == 0,
+          f"serve: {layer['kept_otherwise_without_a_flip']} tokens kept otherwise in a layer "
+          "call without a routing flip")
+    check(layer["max_diff_in_tolerances"] <= 1.0,
+          f"serve: a layer's kernel output is {layer['max_diff_in_tolerances']:.2f} tolerances "
+          f"({LAYER_ULPS} bf16 steps) from the plain one, at {layer['worst_call']}")
+    log("serve: the end-to-end rule fails for two correct plain versions too; held layer by "
+        "layer instead (MoE rule): every layer within tolerance, every routing flip explained")
+    return out
+
+
 def serve_lm(torch, np, dev, arch: str) -> dict:
     """Drive the main path of ``arch`` once, counted; then check it against
     the plain path and time it.  Returns what the kernels line and PERF.md
@@ -998,16 +1246,18 @@ def serve_lm(torch, np, dev, arch: str) -> dict:
     agree = agreement(torch, [lg for lg, _ in picks], toks, plain, LM_BF16_ATOL)
     log(f"serve: plain path teacher-forced on the kernel path's tokens "
         f"({time.perf_counter() - t_plain:.1f} s), bf16: " + json.dumps(agree))
-    if path["plain_f64"] is not None:
+    if path["plain_alt"] is not None:
         # the spread between two correct plain versions, for scale
-        alt = teacher_forced(torch, cfg, params, prompts, dev, toks, path, path["plain_f64"])
+        alt = teacher_forced(torch, cfg, params, prompts, dev, toks, path, path["plain_alt"])
         spread = agreement(torch, alt, [lg.argmax(-1) for lg in alt], plain, LM_BF16_ATOL)
         del alt
-        log("serve: the plain path with its op in float64, against the plain path, bf16: "
-            + json.dumps(spread))
-        agree = {"bf16": agree, "bf16_plain_f64_vs_plain": spread}
+        log(f"serve: the plain path with its op as {path['plain_alt'].__name__}, against the "
+            "plain path, bf16: " + json.dumps(spread))
+        agree = {"bf16": agree, "bf16_plain_alt_vs_plain": spread}
     del plain
-    if path["f32_atol"] is None:
+    if path.get("moe"):
+        agree = moe_rule(torch, cfg, params, prompts, dev, toks, path, agree)
+    elif path["f32_atol"] is None:
         check(agree["n_far_flips"] == 0,
               f"serve: an argmax differs where the plain top-two gap >= {LM_BF16_ATOL}")
         check(agree["max_abs_diff"] <= LM_BF16_ATOL,
@@ -1658,15 +1908,212 @@ def compile_in_port(torch, np, dev, golden: dict, info: dict) -> dict:
         f"{out['serve']['req_per_s']:.0f} req/s, {stats['n_batches']} batches, "
         f"{counts['adder_graph']} adder-graph launches = ({stats['n_jit_compiles']} captures + "
         f"{stats['n_batches']} replays) x {n_steps}")
+    return out, designs["mixer_full"]
+
+
+# ----------------------------------------------------------------------
+# 15. the flow facade: versioned rollouts on the card
+# ----------------------------------------------------------------------
+ROLLOUT_CYCLES = 5
+# allocated device memory after a register/drain cycle (with one version
+# live) may differ from the first cycle's by at most this: the drained
+# version's graphs and pool are released when its dispatchers stop, and
+# what else it held (the design's tables, < 1 MB for the Mixer) goes with
+# the garbage collector
+ROLLOUT_SLACK_BYTES = 1 << 20
+
+
+def serve_flow(torch, np, dev, mixer_path, x_gold, y_gold, port_mixer) -> dict:
+    """The README quickstart through the port: ``Flow.load`` ->
+    ``Flow.serve`` -> ``register`` v1 -> a 4096 burst, during which the
+    port-compiled Mixer is registered (its graphs captured) as v2 -> every
+    future golden, v1 drained.  Then two jet_tagger designs compiled on
+    the card by ``Flow.compile`` from two seeds, rolled v1 -> v2 (v1 kept)
+    -> ``activate(1)`` -> ``unregister``, each output its own version's
+    ``forward_int``; then ROLLOUT_CYCLES register/drain cycles of the
+    Mixer with device memory read after each; and the legacy spelling
+    ``ServeEngine(max_batch=256)`` once."""
+    import gc
+    import warnings
+
+    from repro_torch.flow import CompileConfig, Flow, ServeConfig
+    from repro_torch.nn import init_params, models
+    from repro_torch.nn.compiler import count_cmvm_steps
+    from repro_torch.runtime import ServeEngine
+
+    out = {}
+    reps = 4
+    cfg = ServeConfig(max_batch=256, shards=2)
+    n_steps = count_cmvm_steps(port_mixer.step_specs)
+    reset_counts()
+    t0 = time.perf_counter()
+    with Flow.serve(cfg) as dep:
+        check(dep.register("mixer", Flow.load(mixer_path)) == 1, "flow: v1 is not version 1")
+        v1 = dep.engine._runner("mixer@v1")
+        futs = dep.submit_batch("mixer", np.concatenate([x_gold] * reps))
+        t_reg = time.perf_counter()
+        check(dep.register("mixer", port_mixer, warmup=True) == 2, "flow: v2 is not version 2")
+        rollout_s = time.perf_counter() - t_reg
+        got = np.stack([f.result(120) for f in futs])
+        check(np.array_equal(got, np.concatenate([y_gold] * reps)),
+              "flow: v1's futures across the rollout != JAX golden")
+        s1 = v1.stats()
+        check(s1["n_batches"] > 0 and sum(sh["queue_depth"] for sh in s1["shards"]) == 0,
+              "flow: v1 did not drain")
+        check(all(not sh._graphs and not sh.is_alive() for sh in v1.shards),
+              "flow: the drained v1 kept its graphs")
+        check(dep.versions("mixer") == [2] and dep.engine.models() == ["mixer@v2"],
+              f"flow: live versions {dep.versions('mixer')}")
+        futs = dep.submit_batch("mixer", np.concatenate([x_gold] * reps))
+        got = np.stack([f.result(120) for f in futs])
+        check(np.array_equal(got, np.concatenate([y_gold] * reps)), "flow: v2's outputs != golden")
+        s2 = dep.stats("mixer")
+        check(s2["version"] == 2 and s2["n_fallback_batches"] == 0, f"flow: v2 stats {s2}")
+        check(s2["jit_compiles"] == {b: cfg.shards for b in s2["buckets"]},
+              f"flow: v2 captured {s2['jit_compiles']} at register")
+    counts = read_counts()
+    want = (s1["n_jit_compiles"] + s1["n_batches"] + s2["n_jit_compiles"]
+            + s2["n_batches"]) * n_steps
+    check(counts["adder_graph"] == want,
+          f"flow: {counts['adder_graph']} adder-graph launches, want {want} (captures + batches "
+          f"of both versions, {n_steps} CMVM steps each)")
+    check_only(counts, "adder_graph", "the flow rollout")
+    out["mixer_rollout"] = {
+        "requests": 2 * reps * len(x_gold), "v1_batches": s1["n_batches"],
+        "v1_captures": s1["n_jit_compiles"], "v2_captures_at_register": s2["n_jit_compiles"],
+        "v2_batches": s2["n_batches"], "register_v2_s": rollout_s,
+        "adder_graph_launches": counts["adder_graph"], "seconds": time.perf_counter() - t0}
+    log("flow: mixer v1 -> v2 (captured at register while v1 served its burst) " + json.dumps(
+        out["mixer_rollout"]))
+
+    # two versions that differ: jet_tagger from two seeds, compiled on the card
+    model, in_shape, in_quant = models.jet_tagger()
+    jets = []
+    t0 = time.perf_counter()
+    for seed in (0, 1):
+        params, _ = init_params(model, in_shape, torch.Generator(dev).manual_seed(seed), dev)
+        jets.append(Flow.compile(model, params, in_shape, in_quant, config=CompileConfig(),
+                                 device=dev))
+    compile_s = time.perf_counter() - t0
+    q = in_quant.qint
+    xj = np.random.default_rng(0).integers(q.lo, q.hi + 1, size=(4096, *in_shape)).astype(np.int32)
+    wants = [d.forward_int(torch.from_numpy(xj).to(dev)).cpu().numpy() for d in jets]
+    check(not np.array_equal(*wants), "flow: the two jet_tagger versions agree")
+
+    def burst(dep, want, what):
+        got = np.stack([f.result(120) for f in dep.submit_batch("jet", xj)])
+        check(np.array_equal(got, want), f"flow: jet_tagger {what} != its forward_int")
+
+    with Flow.serve(ServeConfig(max_batch=256, shards=2)) as dep:
+        dep.register("jet", jets[0])
+        burst(dep, wants[0], "v1")
+        dep.register("jet", jets[1], drain=False)
+        check(dep.versions("jet") == [1, 2], f"flow: jet versions {dep.versions('jet')}")
+        burst(dep, wants[1], "v2")
+        dep.activate("jet", 1)
+        burst(dep, wants[0], "v1 after rollback")
+        dep.unregister("jet")
+        check(dep.models() == [] and dep.engine.models() == [], "flow: jet not unregistered")
+    out["jet_rollout"] = {"compile_s": compile_s, "requests": 3 * len(xj),
+                          "adders": [d.total_adders for d in jets]}
+    log("flow: jet_tagger v1 -> v2 (v1 kept) -> activate(1) -> unregister, every output its "
+        "version's forward_int: " + json.dumps(out["jet_rollout"]))
+
+    # register/drain cycles: device memory must not grow with the rollouts
+    mem = []
+    with Flow.serve(ServeConfig(max_batch=256, shards=2)) as dep:
+        for cycle in range(ROLLOUT_CYCLES):
+            # v(n) drained once v(n+1) is live; every bucket captured at register,
+            # so each cycle allocates the same graphs whatever batches the burst forms
+            dep.register("mixer", mixer_path, warmup=True)
+            got = np.stack([f.result(120) for f in dep.submit_batch("mixer", x_gold)])
+            check(np.array_equal(got, y_gold), f"flow: cycle {cycle} != golden")
+            torch.cuda.synchronize()
+            row = {"cycle": cycle + 1, "allocated": torch.cuda.memory_allocated(),
+                   "reserved": torch.cuda.memory_reserved()}
+            gc.collect()
+            row["allocated_after_gc"] = torch.cuda.memory_allocated()
+            mem.append(row)
+            log("flow: rollout cycle " + json.dumps(row))
+        check(dep.versions("mixer") == [ROLLOUT_CYCLES], f"flow: versions {dep.versions('mixer')}")
+        # a drained version's graph pool goes back to the allocator's cache,
+        # which returns it to the card on empty_cache() or when an allocation
+        # would otherwise fail: reserved memory may grow by a pool a cycle,
+        # but none of it stays pinned
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        check(reserved <= mem[0]["reserved"],
+              f"flow: {reserved} bytes reserved after empty_cache(), {mem[0]['reserved']} after "
+              "the first cycle")
+        log(f"flow: after empty_cache() with version {ROLLOUT_CYCLES} live: {reserved} bytes "
+            f"reserved, {torch.cuda.memory_allocated()} allocated")
+    base = mem[0]["allocated_after_gc"]
+    for row in mem[1:]:
+        check(abs(row["allocated_after_gc"] - base) <= ROLLOUT_SLACK_BYTES,
+              f"flow: allocated memory {row['allocated_after_gc']} after cycle {row['cycle']}, "
+              f"{base} after the first (bound {ROLLOUT_SLACK_BYTES} bytes)")
+        check(row["allocated"] - base <= 2 * ROLLOUT_SLACK_BYTES,
+              f"flow: allocated memory before collection {row['allocated']} after cycle "
+              f"{row['cycle']}, {base} after the first")
+    out["memory"] = mem
+    out["reserved_after_empty_cache"] = reserved
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        legacy = ServeEngine(max_batch=256)
+    check(legacy.config == ServeConfig(max_batch=256), f"flow: legacy config {legacy.config}")
+    check(any(issubclass(w.category, DeprecationWarning) for w in caught),
+          "flow: ServeEngine(max_batch=256) did not warn")
+    legacy.shutdown()
+    log("flow: ServeEngine(max_batch=256) warns DeprecationWarning and equals "
+        "ServeEngine(ServeConfig(max_batch=256))")
+    return out
+
+
+# ----------------------------------------------------------------------
+# 16. the co-sim gate with the device leg on the card
+# ----------------------------------------------------------------------
+def cosim_on_card(torch, dev) -> dict:
+    """``cosim_grid(jit="require")``: RTL == DAIS interpreter == the
+    adder-graph kernel on all 34 programs of ``default_grid()``, one
+    kernel launch per program's table; every case's report equal to a CPU
+    run of the same grid (the plain version as the device leg)."""
+    from repro_torch.core import cosim_grid, default_grid
+
+    n_cases = len(default_grid())
+    reset_counts()
+    t0 = time.perf_counter()
+    rep = cosim_grid(jit="require", device=dev)
+    card_s = time.perf_counter() - t0
+    counts = read_counts()
+    check(rep["n_cases"] == n_cases == 34, f"cosim: {rep['n_cases']} cases")
+    bad = [r["name"] for r in rep["cases"] if not (r["bit_exact"] and r["latency_ok"])]
+    check(not bad, f"cosim: RTL != interpreter or latency off in {bad}")
+    check(rep["jit"] == {"checked": n_cases, "skipped": 0, "ok": True},
+          f"cosim: device leg {rep['jit']}")
+    check(rep["all_bit_exact"], "cosim: not bit-exact on every leg")
+    check(counts["adder_graph"] == n_cases,
+          f"cosim: {counts['adder_graph']} adder-graph launches for {n_cases} tables")
+    check_only(counts, "adder_graph", "the co-sim grid")
+    t0 = time.perf_counter()
+    cpu = cosim_grid(jit="require", device="cpu")
+    cpu_s = time.perf_counter() - t0
+    diff = [a["name"] for a, b in zip(rep["cases"], cpu["cases"]) if a != b]
+    check(not diff, f"cosim: the card's reports differ from the CPU run's in {diff}")
+    out = {"cases": n_cases, "bit_exact": rep["n_bit_exact"], "jit": rep["jit"],
+           "adder_graph_launches": counts["adder_graph"], "card_s": card_s, "cpu_s": cpu_s,
+           "external": rep["external"]}
+    log("cosim: " + json.dumps(out) + "; every case's report equals the CPU run's")
     return out
 
 
 def head_dim_inputs(torch, dev) -> dict:
-    """Flash inputs of the main path's shapes at the head dims no served
-    model of this script reaches: kimi-k2's (64:8 heads, head_dim 112),
-    at decode (cache of 512, offset DECODE_TIMING_OFFSET) and at a
-    128-token prefill, and granite-20b's 48:1 decode (head_dim 128: 48
-    packed rows, the prefill kernels).  Random bf16 values, seed 3."""
+    """Flash inputs of the main path's shapes at the head dims and groups
+    of models phase 13 does not serve: kimi-k2's (64:8 heads, head_dim
+    112) and qwen3-moe's (32:4, head_dim 128; phase 17 serves it), at
+    decode (cache of 512, offset DECODE_TIMING_OFFSET) and at a 128-token
+    prefill, and granite-20b's 48:1 decode (head_dim 128: 48 packed rows,
+    the prefill kernels).  Random bf16 values, seed 3."""
     gen = torch.Generator(dev).manual_seed(3)
 
     def rand(*shape):
@@ -1675,17 +2122,45 @@ def head_dim_inputs(torch, dev) -> dict:
     off = torch.tensor(DECODE_TIMING_OFFSET, dtype=torch.int32, device=dev)
     out = {}
     for name, (b, hq, hkv, d) in (("kimi-k2 head_dim 112", (SERVE_BATCH, 64, 8, 112)),
-                                  ("granite-20b 48:1", GRANITE_DECODE)):
+                                  ("granite-20b 48:1", GRANITE_DECODE),
+                                  ("qwen3-moe head_dim 128 32:4", QWEN3_MOE_DECODE)):
         out[f"{name} decode"] = ([rand(b, hq, 1, d), rand(b, hkv, SERVE_MAX_SEQ, d),
                                   rand(b, hkv, SERVE_MAX_SEQ, d)], {"causal": True, "offset": off})
-    b, hq, hkv, d = SERVE_BATCH, 64, 8, 112
-    out["kimi-k2 head_dim 112 prefill"] = ([rand(b, hq, PROMPT_LEN, d), rand(b, hkv, PROMPT_LEN, d),
-                                            rand(b, hkv, PROMPT_LEN, d)], {"causal": True})
+    for name, (b, hq, hkv, d) in (("kimi-k2 head_dim 112", (SERVE_BATCH, 64, 8, 112)),
+                                  ("qwen3-moe head_dim 128 32:4", QWEN3_MOE_DECODE)):
+        out[f"{name} prefill"] = ([rand(b, hq, PROMPT_LEN, d), rand(b, hkv, PROMPT_LEN, d),
+                                   rand(b, hkv, PROMPT_LEN, d)], {"causal": True})
     return out
 
 
 # ----------------------------------------------------------------------
+def moe_decode_bound(arch: str) -> dict:
+    """The least time of one decode step at batch SERVE_BATCH, dense over
+    the experts as the model computes it: every weight but the embedding
+    table read once (bf16), and each layer's K/V read up to the mean cache
+    position of the served decode steps, at HBM_BYTES_PER_S."""
+    import math
+
+    from repro_torch import configs
+    from repro_torch.models import param_specs
+    from repro_torch.models.transformer import tree_map
+
+    cfg = configs.get(arch)
+    specs = param_specs(cfg)
+    sizes = []
+    tree_map(lambda spec: sizes.append(math.prod(spec.shape)),
+             {k: v for k, v in specs.items() if k != "embed"})
+    weight_bytes = 2 * sum(sizes)
+    mean_pos = PROMPT_LEN + (NEW_TOKENS - 1) / 2
+    kv_bytes = 2 * cfg.n_layers * 2 * SERVE_BATCH * cfg.n_kv_heads * mean_pos * cfg.hd
+    step_ms = (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    return {"weight_bytes": weight_bytes, "kv_bytes": kv_bytes, "step_ms": step_ms,
+            "tokens_per_s": SERVE_BATCH / step_ms * 1e3}
+
+
 def main() -> int:
+    import gc
+
     import numpy as np
     import torch
 
@@ -1944,9 +2419,41 @@ def main() -> int:
     del sl, ft
 
     log("== 14. compile in the port, serve on the card")
-    cp = compile_in_port(torch, np, dev, golden, info)
+    cp, port_mixer = compile_in_port(torch, np, dev, golden, info)
     kernels["kernels"][0]["launches_compiled_in_port"] = cp["serve"]["adder_graph_launches"]
     log("compile summary: " + json.dumps(cp))
+
+    log("== 15. the flow facade: versioned rollouts on the card")
+    fl = serve_flow(torch, np, dev, mixer_path, x_gold, y_gold, port_mixer)
+    kernels["kernels"][0]["launches_flow_rollout"] = fl["mixer_rollout"]["adder_graph_launches"]
+    log("flow summary: " + json.dumps(fl))
+    del port_mixer
+
+    log("== 16. the co-sim gate, its device leg on the card")
+    cs = cosim_on_card(torch, dev)
+    kernels["kernels"][0]["launches_cosim"] = cs["adder_graph_launches"]
+
+    log("== 17. serve qwen3-moe-30b-a3b at full width (MoE)")
+    gc.collect()  # the earlier phases' engines and weights (reference cycles included)
+    torch.cuda.empty_cache()
+    log(f"before: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved on the card")
+    torch.cuda.reset_peak_memory_stats()
+    mo = serve_lm(torch, np, dev, "qwen3-moe-30b-a3b")
+    mo["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    mo["bound"] = moe_decode_bound("qwen3-moe-30b-a3b")
+    log(f"qwen3-moe-30b-a3b: peak {mo['peak_allocated_gb']:.3f} GB allocated; decode step "
+        f"bound {json.dumps(mo['bound'])}; the replayed step {mo['step_ms']:.3f} ms, "
+        f"{mo['step_ms'] / mo['bound']['step_ms']:.2f}x the bound")
+    ft = flash_times(torch, {f"qwen3-moe-30b-a3b {k}": v for k, v in mo["inputs"].items()})
+    flash_entry["head_dims"].update(
+        {name: {k: row[k] for k in ("shape", "plan", "ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "max_abs_err")} for name, row in ft.items()})
+    flash_entry["launches_qwen3_moe"] = mo["launches"]
+    flash_entry["max_abs_err"] = max(flash_entry["max_abs_err"],
+                                     *(row["max_abs_err"] for row in ft.values()))
+    log("serve summary: " + json.dumps({k: v for k, v in mo.items() if k != "inputs"}))
+    del mo, ft
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(info["nvidia_smi"])

@@ -16,10 +16,12 @@ Public API:
     emit_verilog      standalone RTL generation
     parse_verilog     netlist parser for the emitted subset
     RTLSimulator      cycle-accurate pure-Python RTL simulation
+    cosim_grid        RTL == DAIS interpreter == adder-graph kernel gate
 """
 
 from .cache import CacheStats, SolutionCache, pack_solution, solve_key, unpack_solution
 from .csd import csd_nnz, csd_span, from_csd, to_csd, vector_csd_nnz
+from .cosim import cosim_case, cosim_grid, cosim_program, default_grid
 from .cost import adder_cost, ceil_log2, min_tree_depth, min_tree_depth_hist, overlap_bits
 from .cse import CSE
 from .dais import (
@@ -60,9 +62,13 @@ __all__ = [
     "adder_cost",
     "ceil_log2",
     "config_solve_key",
+    "cosim_case",
+    "cosim_grid",
+    "cosim_program",
     "csd_nnz",
     "csd_span",
     "decompose",
+    "default_grid",
     "emit_verilog",
     "from_csd",
     "min_tree_depth",

@@ -20,7 +20,7 @@ from collections.abc import Sequence
 
 import numpy as np
 
-from ..flow.config import ConfigError, SolverConfig
+from ..flow.config import UNSET, ConfigError, SolverConfig, resolve_legacy
 from ..obs import solvelog, trace
 from .cache import SolutionCache, solve_key
 from .cost import ceil_log2, min_tree_depth
@@ -108,16 +108,40 @@ def _budgets(
     return [mn + dc for mn in mins], mins
 
 
+# legacy kwarg name -> SolverConfig field
+_LEGACY_SOLVER_KWARGS = {
+    "dc": "dc",
+    "decompose_stage": "decompose",
+    "weighted": "weighted",
+    "assembly_dedup": "dedup",
+    "depth_weight": "depth_weight",
+    "engine": "engine",
+}
+
+
 def solve_cmvm(
     m: np.ndarray,
     qint_in: Sequence[QInterval] | None = None,
     depth_in: Sequence[int] | None = None,
+    dc=UNSET,
+    decompose_stage=UNSET,
+    weighted=UNSET,
+    assembly_dedup=UNSET,
+    depth_weight=UNSET,
+    engine=UNSET,
     program: DAISProgram | None = None,
     input_rows: Sequence[int] | None = None,
     cache: SolutionCache | None = None,
     config: SolverConfig | None = None,
 ) -> Solution:
     """Optimize ``y = x @ m`` into an adder graph.
+
+    The canonical way to set solver options is ``config=``, a
+    :class:`repro_torch.flow.SolverConfig`.  The individual option kwargs
+    (``dc``, ``decompose_stage``, ``weighted``, ``assembly_dedup``,
+    ``depth_weight``, ``engine``) are the JAX package's deprecated shim:
+    they warn, construct the equivalent config and delegate, so both
+    spellings give bit-identical programs and the same cache keys.
 
     Parameters
     ----------
@@ -136,9 +160,24 @@ def solve_cmvm(
         bit-identical), stage-1 ``decompose``, ``weighted``/``dedup``/
         ``depth_weight`` CSE scoring knobs.
     """
+    legacy = {
+        name: val
+        for name, val in (
+            ("dc", dc),
+            ("decompose_stage", decompose_stage),
+            ("weighted", weighted),
+            ("assembly_dedup", assembly_dedup),
+            ("depth_weight", depth_weight),
+            ("engine", engine),
+        )
+        if val is not UNSET
+    }
+    config = resolve_legacy(
+        "solve_cmvm", config, legacy, SolverConfig,
+        lambda lg: SolverConfig(**{_LEGACY_SOLVER_KWARGS[k]: v for k, v in lg.items()}),
+    )
     return _solve_cmvm(
-        m, qint_in, depth_in, SolverConfig() if config is None else config,
-        program=program, input_rows=input_rows, cache=cache,
+        m, qint_in, depth_in, config, program=program, input_rows=input_rows, cache=cache
     )
 
 

@@ -14,6 +14,10 @@ Runtime-only fields that cannot affect the produced design -- the live
 ``cache`` handle and the ``jobs`` parallelism of ``CompileConfig`` --
 are excluded from ``to_dict``/``digest`` (``jobs`` is serialized but not
 digested; ``cache`` is neither).
+
+``UNSET`` and :func:`resolve_legacy` are the deprecation shim of the
+legacy option kwargs of ``solve_cmvm``, ``compile_model`` and
+``ServeEngine``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,14 +25,73 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import warnings
+from collections.abc import Callable
 from dataclasses import dataclass, field
 from typing import Any, ClassVar
 
 _DIGEST_VERSION = "da4ml-flow-config-v1"
 
 
+class _Unset:
+    """Sentinel for legacy-kwarg shims (distinguishes "not passed" from
+    an explicit default).  Singleton; reprs as ``UNSET`` so shimmed
+    signatures stay readable."""
+
+    _instance: "_Unset" | None = None
+
+    def __new__(cls) -> "_Unset":
+        if cls._instance is None:
+            cls._instance = super().__new__(cls)
+        return cls._instance
+
+    def __repr__(self) -> str:
+        return "UNSET"
+
+
+UNSET = _Unset()
+
+
 class ConfigError(ValueError):
     """Invalid configuration value."""
+
+
+def resolve_legacy(
+    api: str,
+    config: "_ConfigBase" | None,
+    legacy: dict,
+    config_cls: type,
+    build: Callable[[dict], "_ConfigBase"],
+) -> "_ConfigBase":
+    """Shared deprecation-shim logic for the legacy-kwarg entrypoints
+    (``solve_cmvm``, ``compile_model``, ``ServeEngine``).
+
+    ``legacy`` holds the explicitly-passed legacy kwargs (UNSET values
+    filtered by the caller).  Passing both spellings is a loud
+    ``TypeError``; the legacy spelling warns ``DeprecationWarning``;
+    ``build(legacy)`` constructs the equivalent config.  A ``config`` of
+    the wrong type is rejected here with a named ``ConfigError``.
+    """
+    if config is not None:
+        if legacy:
+            raise TypeError(
+                f"{api}: pass either config= or the legacy option kwargs "
+                f"({sorted(legacy)}), not both"
+            )
+        if not isinstance(config, config_cls):
+            raise ConfigError(
+                f"{api}: config must be a {config_cls.__name__}, "
+                f"got {type(config).__name__}"
+            )
+        return config
+    if legacy:
+        warnings.warn(
+            f"{api}'s option kwargs are deprecated; pass "
+            f"config=repro_torch.flow.{config_cls.__name__}(...) instead",
+            DeprecationWarning,
+            stacklevel=3,  # helper -> shim -> caller
+        )
+    return build(legacy)
 
 
 @dataclass(frozen=True)

@@ -1,16 +1,17 @@
-"""The LM stack of the dense and SSM families: embeddings, a stack of
-pre-norm blocks (attention and SwiGLU for the dense family, a Mamba-1
-mixer alone for the SSM family), final norm and head, with a decode
-cache (head-major K/V, or the SSM's conv window and state) for prefill
-and decode.
+"""The LM stack of the dense, MoE and SSM families: embeddings, a stack
+of pre-norm blocks (attention and a SwiGLU FFN for the dense family,
+attention and a top-k MoE FFN -- every ``moe_every``-th layer, dense
+SwiGLU between -- for the MoE family, a Mamba-1 mixer alone for the SSM
+family), final norm and head, with a decode cache (head-major K/V, or
+the SSM's conv window and state) for prefill and decode.
 
 Parameters keep the JAX package's period-stacked layout: every leaf of a
 block carries a leading ``n_periods`` dim, so a JAX parameter pytree
 carries across leaf for leaf (:func:`params_from_numpy`).  A Python loop
 over the periods takes the place of ``lax.scan``; remat, sharding and
-abstract parameters have no counterpart on one device.  The MoE,
-hybrid, encoder-decoder and VLM families are not ported yet (ROADMAP
-Queue 1) and raise ``NotImplementedError``.
+abstract parameters have no counterpart on one device.  The hybrid,
+encoder-decoder and VLM families are not ported yet (ROADMAP Queue 1)
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,9 +23,10 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..configs.base import ATTN, MLP, SSM, ArchConfig
+from ..configs.base import ATTN, MLP, MOE, SSM, ArchConfig
 from .attention import attention_block
 from .layers import embed_tokens, rmsnorm, swiglu, unembed
+from .moe import moe_block
 from .ssm import mamba_block
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -40,17 +42,17 @@ class PSpec:
     fan_in_axis: int | None = None  # for 1/sqrt(fan_in) scaling
 
 
-_PORTED = {"dense": [(ATTN, MLP)], "ssm": [(SSM, None)]}  # family -> its one layer pattern
+_PORTED = ("dense", "moe", "ssm")  # families the port runs
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is of the dense or the
-    SSM family."""
-    if cfg.n_experts or cfg.layer_pattern()[0] != _PORTED.get(cfg.family):
+    """Raise ``NotImplementedError`` unless ``cfg`` is of the dense, MoE
+    or SSM family."""
+    if cfg.family not in _PORTED:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP Queue 1: "
-            "MoE and hybrid families, then encoder-decoder and VLM); the port runs the "
-            "dense and SSM families only"
+            "the hybrid family, then encoder-decoder and VLM); the port runs the "
+            "dense, MoE and SSM families only"
         )
 
 
@@ -101,6 +103,17 @@ def _ssm_specs(cfg: ArchConfig, periods: int) -> dict:
     }
 
 
+def _moe_specs(cfg: ArchConfig, periods: int) -> dict:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = (periods,)
+    return {
+        "router": PSpec(p + (d, e), fan_in_axis=1),
+        "w_gate": PSpec(p + (e, d, f), fan_in_axis=2),
+        "w_up": PSpec(p + (e, d, f), fan_in_axis=2),
+        "w_down": PSpec(p + (e, f, d), fan_in_axis=2),
+    }
+
+
 def _block_specs(cfg: ArchConfig, mixer: str, ffn: str | None, periods: int) -> dict:
     d = cfg.d_model
     p = (periods,)
@@ -111,7 +124,7 @@ def _block_specs(cfg: ArchConfig, mixer: str, ffn: str | None, periods: int) -> 
         s[SSM] = _ssm_specs(cfg, periods)
     if ffn is not None:  # a block without an FFN (the SSM family's) has no norm2
         s["norm2"] = PSpec(p + (d,), "ones")
-        s[MLP] = _mlp_specs(cfg, periods)
+        s[ffn] = _mlp_specs(cfg, periods) if ffn == MLP else _moe_specs(cfg, periods)
     return s
 
 
@@ -237,7 +250,9 @@ def unflatten(flat) -> dict:
 # Stack application
 # ----------------------------------------------------------------------
 def _apply_block(cfg, bp, mixer, ffn, x, positions, cache, pos):
-    """One block; ``cache`` is this layer's slice, updated in place."""
+    """One block; ``cache`` is this layer's slice, updated in place.
+    Returns (x, the MoE aux loss or None)."""
+    aux = None
     h = rmsnorm(x, bp["norm1"])
     if mixer == ATTN:
         attn_cache = None if cache is None else {"k": cache["k"], "v": cache["v"], "pos": pos}
@@ -245,24 +260,30 @@ def _apply_block(cfg, bp, mixer, ffn, x, positions, cache, pos):
     else:
         h = mamba_block(cfg, bp[SSM], h, cache)
     x = x + h
-    if ffn is not None:
+    if ffn == MLP:
         h = rmsnorm(x, bp["norm2"])
         m = bp[MLP]
         x = x + swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
-    return x
+    elif ffn == MOE:
+        h, aux = moe_block(cfg, bp[MOE], rmsnorm(x, bp["norm2"]))
+        x = x + h
+    return x, aux
 
 
 def _apply_stack(cfg, blocks, x, positions, caches=None, pos=None):
     """Run the layer stack, one period at a time.  ``blocks`` and
     ``caches``: one period-stacked tree per period position; the caches
-    are updated in place."""
+    are updated in place.  Returns (x, the summed MoE aux loss, f32)."""
     pattern, n_periods = cfg.layer_pattern()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for t in range(n_periods):
         for i, (mixer, ffn) in enumerate(pattern):
             bp = tree_map(lambda a, t=t: a[t], blocks[i])
             c = None if caches is None else tree_map(lambda a, t=t: a[t], caches[i])
-            x = _apply_block(cfg, bp, mixer, ffn, x, positions, c, pos)
-    return x
+            x, a = _apply_block(cfg, bp, mixer, ffn, x, positions, c, pos)
+            if a is not None:
+                aux = aux + a
+    return x, aux
 
 
 def _head(cfg, params, x):
@@ -275,14 +296,15 @@ def _head(cfg, params, x):
 # ----------------------------------------------------------------------
 def forward(cfg: ArchConfig, params: dict, batch: dict):
     """Training/prefill forward without a cache.  batch: tokens [B, S].
-    Returns (logits [B, S, Vp], aux_loss), aux_loss 0 (no MoE is ported)."""
+    Returns (logits [B, S, Vp], aux_loss): the MoE layers' summed Switch
+    load-balance loss (f32; 0 without MoE layers)."""
     check_supported(cfg)
     tokens = batch["tokens"]
     x = embed_tokens(params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    x = _apply_stack(cfg, params["blocks"], x, positions)
+    x, aux = _apply_stack(cfg, params["blocks"], x, positions)
     x = rmsnorm(x, params["final_norm"])
-    return _head(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+    return _head(cfg, params, x), aux
 
 
 def kv_cache_heads(cfg: ArchConfig) -> int:
@@ -324,7 +346,7 @@ def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache: dict
     x = embed_tokens(params["embed"], tokens)
     pos = cache["pos"]
     positions = pos.reshape(1, 1).expand(x.shape[0], 1)
-    x = _apply_stack(cfg, params["blocks"], x, positions, caches=cache["blocks"], pos=pos)
+    x, _ = _apply_stack(cfg, params["blocks"], x, positions, caches=cache["blocks"], pos=pos)
     x = rmsnorm(x, params["final_norm"])
     logits = _head(cfg, params, x)[:, 0, :]
     return logits, {"blocks": cache["blocks"], "pos": pos + 1}
@@ -347,7 +369,7 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, max_seq: int, cache: dic
         tree_map(lambda t: t.zero_(), cache)
     x = embed_tokens(params["embed"], tokens)
     positions = torch.arange(s, device=x.device)
-    x = _apply_stack(cfg, params["blocks"], x, positions, caches=cache["blocks"], pos=0)
+    x, _ = _apply_stack(cfg, params["blocks"], x, positions, caches=cache["blocks"], pos=0)
     x = rmsnorm(x, params["final_norm"])
     logits = _head(cfg, params, x[:, -1:, :])[:, 0, :]
     cache["pos"].fill_(s)

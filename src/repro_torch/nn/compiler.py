@@ -47,7 +47,7 @@ from ..core.cache import SolutionCache, solve_key
 from ..core.fixed_point import QInterval
 from ..core.pipelining import pipeline
 from ..core.solver import Solution, config_solve_key, solve_task
-from ..flow.config import CompileConfig, ConfigError, SolverConfig
+from ..flow.config import UNSET, CompileConfig, ConfigError, SolverConfig, resolve_legacy
 from ..kernels.adder_graph import AdderGraphTables, adder_graph_apply, compile_tables
 from ..obs import trace
 from .layers import (
@@ -656,11 +656,30 @@ def _per_layer_stats(
     return per_layer
 
 
+# legacy kwarg name -> its default, from which the CompileConfig is built
+_LEGACY_COMPILE_DEFAULTS = {
+    "dc": 2,
+    "strategy": "da",
+    "max_delay_per_stage": 5,
+    "use_pallas": False,
+    "jobs": None,
+    "cache": None,
+    "engine": "batch",
+}
+
+
 def compile_model(
     model: Sequential,
     params: list,
     in_shape: tuple[int, ...],
     in_quant: QuantConfig,
+    dc=UNSET,
+    strategy=UNSET,
+    max_delay_per_stage=UNSET,
+    use_pallas=UNSET,
+    jobs=UNSET,
+    cache=UNSET,
+    engine=UNSET,
     config: CompileConfig | None = None,
     device: str | torch.device | None = None,
 ) -> CompiledDesign:
@@ -672,17 +691,59 @@ def compile_model(
     or :func:`repro_torch.nn.params_from_numpy` (tensors on any device)
     or of numpy arrays; the weights are quantized with numpy on the
     host.  ``config`` is a :class:`repro_torch.flow.CompileConfig`
-    (default ``CompileConfig()``): ``strategy`` ("da" solver / "latency"
-    baseline); ``jobs`` (CMVM solver thread-pool width: None =
-    cpu_count, 1 = serial; any value is bit-identical, and serial
-    fallbacks are recorded in ``solver_stats["pool_fallback"]``);
-    ``cache`` (a :class:`SolutionCache` so repeated compiles skip solved
-    CMVMs); ``solver`` (nested :class:`SolverConfig`); ``verify`` (the
+    (default ``CompileConfig()``; this is what ``Flow.compile`` passes):
+    ``strategy`` ("da" solver / "latency" baseline); ``jobs`` (CMVM
+    solver thread-pool width: None = cpu_count, 1 = serial; any value is
+    bit-identical, and serial fallbacks are recorded in
+    ``solver_stats["pool_fallback"]``); ``cache`` (a
+    :class:`SolutionCache` so repeated compiles skip solved CMVMs);
+    ``solver`` (nested :class:`SolverConfig`); ``verify`` (the
     static-verification tier; error findings raise
-    ``DesignVerificationError``).
+    ``DesignVerificationError``).  The individual option kwargs (``dc``
+    ... ``engine``) are the JAX package's deprecated shim: they warn and
+    build the equivalent config, so both spellings give bit-identical
+    designs.
     """
-    dev = resolve_device(device)
-    cfg = CompileConfig() if config is None else config
+    legacy = {
+        name: val
+        for name, val in (
+            ("dc", dc),
+            ("strategy", strategy),
+            ("max_delay_per_stage", max_delay_per_stage),
+            ("use_pallas", use_pallas),
+            ("jobs", jobs),
+            ("cache", cache),
+            ("engine", engine),
+        )
+        if val is not UNSET
+    }
+    cfg = resolve_legacy("compile_model", config, legacy, CompileConfig, _config_from_legacy)
+    return _compile_model(model, params, in_shape, in_quant, cfg, resolve_device(device))
+
+
+def _config_from_legacy(legacy: dict) -> CompileConfig:
+    def get(k):
+        return legacy.get(k, _LEGACY_COMPILE_DEFAULTS[k])
+
+    return CompileConfig(
+        strategy=get("strategy"),
+        max_delay_per_stage=get("max_delay_per_stage"),
+        use_pallas=get("use_pallas"),
+        jobs=get("jobs"),
+        cache=get("cache"),
+        solver=SolverConfig(dc=get("dc"), engine=get("engine")),
+    )
+
+
+def _compile_model(
+    model: Sequential,
+    params: list,
+    in_shape: tuple[int, ...],
+    in_quant: QuantConfig,
+    cfg: CompileConfig,
+    dev: torch.device,
+) -> CompiledDesign:
+    """Config-consuming compiler core (all public paths delegate here)."""
     if not isinstance(cfg, CompileConfig):
         raise ConfigError(
             f"compile_model: config must be a CompileConfig, got {type(cfg).__name__}"

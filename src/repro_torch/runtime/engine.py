@@ -76,7 +76,7 @@ import torch
 
 from .._device import resolve_device
 from ..chaos import fault_point
-from ..flow.config import ServeConfig
+from ..flow.config import UNSET, ServeConfig, resolve_legacy
 from ..kernels._build import KernelError
 from ..kernels.graphs import CapturedGraph, capture
 from ..nn.compiler import CompiledDesign
@@ -145,6 +145,14 @@ class _Request:
         self.future = future
         self.tid = tid  # per-shard trace id, stamped at enqueue
         self.deadline = deadline  # absolute perf_counter seconds, or None
+
+
+def _serve_config_from_legacy(legacy: dict) -> ServeConfig:
+    if "overflow" in legacy:
+        legacy["backpressure"] = legacy.pop("overflow")
+    if legacy.get("buckets") is not None:
+        legacy["buckets"] = tuple(legacy["buckets"])
+    return ServeConfig(**legacy)
 
 
 def _default_buckets(max_batch: int) -> tuple[int, ...]:
@@ -623,6 +631,17 @@ class _Shard(threading.Thread):
             self._not_empty.notify_all()
             self._not_full.notify_all()
 
+    def release_device(self) -> None:
+        """Drop a stopped shard's graphs (and with them their memory pool)
+        and its pinned buffers, so a drained model gives its device memory
+        back at once, not when the garbage collector breaks the runner's
+        reference cycles."""
+        with self._device_lock:
+            self._graphs.clear()
+            self._graph_pool = None
+            self._x_host.clear()
+            self._y_host.clear()
+
     def snapshot(self) -> dict:
         with self._lock:
             qsize = len(self._pending)
@@ -867,6 +886,15 @@ class _ModelRunner:
             sh._fail_pending(sh._final_error)
         if self._supervisor is not None:
             self._supervisor.join(timeout=1.0)
+        with self._restart_lock:
+            done = [*self.shards, *self._retired]
+        for sh in done:
+            # a dispatcher still inside a batch (its drain timed out) keeps
+            # its graphs; every other one gives them back now
+            if sh.is_alive():
+                sh.join(max(0.0, deadline - time.perf_counter()))
+            if not sh.is_alive():
+                sh.release_device()
 
     def stats(self) -> dict:
         with self._restart_lock:
@@ -962,16 +990,43 @@ class ServeEngine:
     ``device="cpu"``; every registered design must live there.
 
     ``register`` rejects duplicate model names loudly: replacing a model
-    in place would mix two designs' results under one name.
+    in place would mix two designs' results under one name.  Rolling a
+    model forward is a versioning operation:
+    :class:`repro_torch.flow.Deployment`.
+
+    The keyword-only ``max_batch`` ... ``overflow`` are the JAX package's
+    deprecated option kwargs (``overflow`` maps to ``backpressure``):
+    they warn and build the equivalent config.  They are keyword-only
+    here, where the JAX package takes them first and positionally,
+    because the port's callers pass ``config`` first.
     """
 
     def __init__(
-        self, config: ServeConfig | None = None, device: str | torch.device | None = None
+        self,
+        config: ServeConfig | None = None,
+        device: str | torch.device | None = None,
+        *,
+        max_batch=UNSET,
+        queue_depth=UNSET,
+        max_wait_us=UNSET,
+        buckets=UNSET,
+        overflow=UNSET,
     ):
+        legacy = {
+            name: val
+            for name, val in (
+                ("max_batch", max_batch),
+                ("queue_depth", queue_depth),
+                ("max_wait_us", max_wait_us),
+                ("buckets", buckets),
+                ("overflow", overflow),
+            )
+            if val is not UNSET
+        }
+        self.config = resolve_legacy(
+            "ServeEngine", config, legacy, ServeConfig, _serve_config_from_legacy
+        )
         self.device = resolve_device(device)
-        self.config = config if config is not None else ServeConfig()
-        if not isinstance(self.config, ServeConfig):
-            raise TypeError(f"config must be a ServeConfig, got {type(self.config).__name__}")
         self._runners: dict[str, _ModelRunner] = {}
         self._lock = threading.Lock()
 

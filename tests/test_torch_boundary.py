@@ -64,6 +64,9 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
         "artifact", "diagnostics", "program", "steps", "verify")} <= set(mods)
     assert {"repro_torch.nn.layers", "repro_torch.nn.models", "repro_torch.nn.compiler",
             "repro_torch.nn.quant"} <= set(mods)
+    # the facade, the co-sim gate and the MoE family
+    assert {"repro_torch.flow.facade", "repro_torch.core.cosim",
+            "repro_torch.models.moe"} <= set(mods)
     res = _run(
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -156,3 +159,28 @@ def test_no_card_means_raise_not_cpu(no_card):
 def test_unsupported_device_is_refused():
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
+
+
+def test_no_card_means_raise_for_the_facade_cosim_and_moe(no_card):
+    from repro_torch.core import cosim_grid
+    from repro_torch.flow import Deployment, Flow
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Flow.load(MIXER)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Flow.serve()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Deployment()
+    jet, jet_shape, jet_quant = nn_models.jet_tagger()
+    jet_params, _ = nn_init_params(jet, jet_shape, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Flow.compile(jet, jet_params, jet_shape, jet_quant)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cosim_grid()
+    moe_cfg = configs.get_smoke("qwen3-moe-30b-a3b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(moe_cfg, torch.Generator().manual_seed(0))
+    moe_params = init_params(moe_cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(moe_cfg, moe_params, batch_size=1, max_seq=8)
+    assert Engine(moe_cfg, moe_params, 1, 8, device="cpu").device == torch.device("cpu")

@@ -22,7 +22,13 @@ dispatch failing the numpy interpreter serves the golden outputs (every
 bucket captured at registration, so a capture that fails fails there);
 and a design the port compiled itself (jet_tagger, weights drawn on the
 card) runs each CMVM step through the kernel as ``DAISProgram.evaluate``
-computes it (exact).
+computes it (exact).  A ``Deployment`` rolls a model from one version
+to the next while v1 is in flight (every future its own version's
+output, v1's graphs released once drained); the co-sim gate's device
+leg runs all 34 programs of ``default_grid()`` on the kernel, bit-exact
+and equal to its CPU run; ``moe_block`` on the card equals its CPU run
+(f32, atol 1e-5) and replays as a CUDA graph with no host sync, bit for
+bit.
 
 Every test here needs a card and skips without one.  This file imports
 neither ``jax`` nor ``repro``, so it runs where only PyTorch is
@@ -42,8 +48,8 @@ import torch
 
 from repro_torch import configs
 from repro_torch.chaos import FaultPlan, FaultRule, active
-from repro_torch.core import DAISProgram, QInterval, Term
-from repro_torch.flow import CompileConfig, ServeConfig
+from repro_torch.core import DAISProgram, QInterval, Term, cosim_grid
+from repro_torch.flow import CompileConfig, Flow, ServeConfig
 from repro_torch.kernels.adder_graph import adder_graph_apply, compile_tables
 from repro_torch.kernels.adder_graph import kernel as ag_kernel
 from repro_torch.kernels.adder_graph.ref import adder_graph_ref
@@ -56,7 +62,9 @@ from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
 from repro_torch.kernels.ssm_scan import kernel as ss_kernel
 from repro_torch.kernels.ssm_scan import selective_scan
 from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
+from repro_torch.kernels.graphs import capture
 from repro_torch.models import decode_step, init_params, params_from_numpy, prefill, unflatten
+from repro_torch.models import moe
 from repro_torch.nn import compile_model, numpy_forward_fn
 from repro_torch.nn import compiler as nn_compiler
 from repro_torch.nn import init_params as nn_init_params
@@ -502,7 +510,8 @@ def _eager_tokens(cfg, params, prompts, max_seq, n_new):
 
 @pytest.mark.parametrize("name,dtype", [("smollm-135m", "bfloat16"), ("smollm-135m", "float32"),
                                         ("falcon-mamba-7b", "bfloat16"),
-                                        ("stablelm-3b", "bfloat16")])
+                                        ("stablelm-3b", "bfloat16"),
+                                        ("qwen3-moe-30b-a3b", "bfloat16")])
 def test_graph_replayed_tokens_equal_an_eager_loop(card, name, dtype):
     """The engine's decode graph against an eager loop over the same
     prefill/decode_step on the card: the same greedy tokens exactly, over
@@ -720,3 +729,86 @@ def test_qmm_wrapper_rejects_what_it_does_not_take(card):
     big = torch.zeros(1, qm_kernel.MAX_K + 1, dtype=torch.int8, device=card)
     with pytest.raises(ValueError, match="overflow"):
         qm_kernel.quant_matmul_cuda(big, big.t().contiguous(), xs[:1], xs[:1])
+
+
+# ----------------------------------------------------------------------
+# the flow facade, the co-sim gate and the MoE block on the card
+# ----------------------------------------------------------------------
+def test_deployment_rollout_on_the_card(card):
+    """Two jet_tagger designs compiled on the card from two seeds: v2 is
+    registered (and captured) while v1's burst is in flight; every v1
+    future resolves to v1's ``forward_int``, v2 serves its own, and the
+    drained v1 gives its graphs back."""
+    model, in_shape, in_quant = nn_models.jet_tagger()
+    designs = []
+    for seed in (0, 1):
+        params, _ = nn_init_params(model, in_shape, torch.Generator(card).manual_seed(seed), card)
+        designs.append(Flow.compile(model, params, in_shape, in_quant,
+                                    config=CompileConfig(jobs=2), device=card))
+    q = in_quant.qint
+    x = np.random.default_rng(0).integers(q.lo, q.hi + 1, size=(2048, *in_shape)).astype(np.int32)
+    want = [d.forward_int(torch.from_numpy(x).to(card)).cpu().numpy() for d in designs]
+    assert not np.array_equal(*want)
+    with Flow.serve(ServeConfig(max_batch=64, shards=2)) as dep:
+        assert dep.register("jet", designs[0]) == 1
+        v1 = dep.engine._runner("jet@v1")
+        futs = dep.submit_batch("jet", x)
+        assert dep.register("jet", designs[1], warmup=True) == 2
+        np.testing.assert_array_equal(np.stack([f.result(60) for f in futs]), want[0])
+        got = np.stack([f.result(60) for f in dep.submit_batch("jet", x)])
+        np.testing.assert_array_equal(got, want[1])
+        s = dep.stats("jet")
+        assert s["version"] == 2 and s["jit_compiles"] == {b: 2 for b in s["buckets"]}
+        assert all(not sh._graphs and not sh.is_alive() for sh in v1.shards)
+
+
+def test_cosim_device_leg_on_the_card(card):
+    before = ag_kernel.launches.value
+    rep = cosim_grid(jit="require", device=card)
+    launched = ag_kernel.launches.value - before
+    assert rep["n_cases"] == rep["n_bit_exact"] == 34 and rep["all_bit_exact"]
+    assert rep["jit"] == {"checked": 34, "skipped": 0, "ok": True}
+    assert launched == 34  # one table per program, one launch per table
+    assert rep["cases"] == cosim_grid(jit="require", device="cpu")["cases"]
+
+
+def _moe_inputs(cfg, seed):
+    rng = np.random.default_rng(seed)
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff
+    router = rng.standard_normal((d, e)).astype(np.float32) / 8
+    router[:, 1::2] = router[:, 0::2]  # twin experts: exact router ties
+    p = {"router": router,
+         "w_gate": rng.standard_normal((e, d, f)).astype(np.float32) / 8,
+         "w_up": rng.standard_normal((e, d, f)).astype(np.float32) / 8,
+         "w_down": rng.standard_normal((e, f, d)).astype(np.float32) / 11}
+    x = rng.standard_normal((4, 32, d)).astype(np.float32)
+    return {k: torch.from_numpy(v) for k, v in p.items()}, torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("cf", [0.5, 4.0])
+def test_moe_block_on_the_card_equals_its_cpu_run(card, cf):
+    cfg = configs.get_smoke("qwen3-moe-30b-a3b", capacity_factor=cf)
+    p, x = _moe_inputs(cfg, seed=int(cf * 2))
+    want, want_aux = moe.moe_block(cfg, p, x)
+    got, aux = moe.moe_block(cfg, {k: v.to(card) for k, v in p.items()}, x.to(card))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(float(aux), float(want_aux), atol=1e-6, rtol=0)
+
+
+def test_moe_block_replays_as_a_graph_without_a_sync(card):
+    cfg = configs.get_smoke("qwen3-moe-30b-a3b", d_model=256, d_ff=128, n_experts=128,
+                            experts_per_token=8, capacity_factor=1.25)
+    p, x = _moe_inputs(cfg, seed=7)
+    p = {k: v.to(card, torch.bfloat16) for k, v in p.items()}
+    x = x.to(card, torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # any implicit sync in the block raises
+    try:
+        eager, _ = moe.moe_block(cfg, p, x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    graph = capture(lambda: moe.moe_block(cfg, p, x)[0])  # a sync would break the capture
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(graph.output, eager)

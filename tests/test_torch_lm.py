@@ -93,8 +93,10 @@ def test_config_registry_and_shapes_equal_reference():
     assert configs.get("smollm-135m").param_count() == 162_826_560
 
 
-@pytest.mark.parametrize(  # the dense and SSM families are ported (test_torch_ssm.py)
-    "name", sorted(n for n, c in jax_configs.ARCHS.items() if c.family not in ("dense", "ssm")))
+@pytest.mark.parametrize(  # the dense, SSM and MoE families are ported (test_torch_ssm.py,
+    # test_torch_moe.py)
+    "name", sorted(n for n, c in jax_configs.ARCHS.items()
+                   if c.family not in ("dense", "ssm", "moe")))
 def test_other_families_raise(name):
     cfg = configs.get_smoke(name)
     with pytest.raises(NotImplementedError, match="not ported yet"):
