@@ -4,7 +4,7 @@
     python3 chip_smoke.py            (from the repository root)
 
 Builds every CUDA kernel of the port from the sources in the checkout,
-then runs seventeen phases, each of which must pass:
+then runs twenty-one phases, each of which must pass:
 
 1. probe    the card (``nvidia-smi`` name and power limit), CUDA and nvcc
             versions, ptxas resource usage of each kernel, and that
@@ -182,7 +182,40 @@ then runs seventeen phases, each of which must pass:
             correct plain versions fail that too, layer by layer with the
             routing flips explained; see "MoE rule" below); the peak device
             memory, the decode step against its bytes bound, and the kernel
-            timed at its prefill and decode inputs.
+            timed at its prefill and decode inputs;
+18. lm      the reduced jamba, whisper and internvl2 from their committed JAX
+            weights and stub inputs (``assets/{jamba,whisper,internvl2}_smoke``)
+            served on the card through ``Engine(extra_inputs=...)`` reproduce
+            the JAX engine's greedy tokens exactly and its prefill and first
+            decode logits within 1e-4 (f32), flash (and the scan) launched
+            once per attention (cross-attention, encoder, Mamba) layer per
+            step;
+19. serve   the encoder-decoder main path at full width: whisper-base (6
+            encoder and 6 decoder layers, d_model 512, 8:8 heads, vocab
+            51865, bf16, 109,854,720 parameters, not cut) with random
+            weights and ``enc_frames`` [8, 1500, 512] (numpy, seed 0) as its
+            stub front end's output, served as phase 8 serves smollm-135m
+            (18 flash launches at prefill -- 6 encoder, 6 self, 6 cross --
+            and 12 per replay: 774), the static cross cache never rebound,
+            held by phase 8's rule; then flash timed at the encoder's
+            non-causal 1500 x 1500, the cross-attention at prefill and at
+            decode, and the decoder's self-attention;
+20. serve   the VLM main path at full width: internvl2-26b (48 layers,
+            d_model 6144, 48:8 heads, head_dim 128, d_ff 16384, vocab 92553,
+            bf16, 19,862,722,560 parameters, not cut) with ``img_embeds``
+            [8, 256, 6144] (numpy, seed 0) before the prompts: a 384-row
+            prefill, decode from position 384; 48 x 64 flash launches;
+            phase 8's rule;
+21. serve   the hybrid main path at full width, cut to 16 of its 32 layers
+            (103 GB whole does not fit the card): jamba-v0.1-52b (14 Mamba
+            and 2 attention layers, d_model 4096, 32:8 heads, MoE of 16
+            experts top-2 on odd layers, d_ff 14336, bf16, 26,053,480,448
+            parameters); 128 flash launches, 14 on the scan's prefill kernel
+            and 882 on its decode kernel; held by the MoE rule with both
+            ops swapped; flash and the scan timed at the path's inputs.
+Phases 17-21 each start on an emptied card (what stays allocated is
+printed) and print the decode step's device time by kernel, launches,
+idle share and bytes bound.
 
 The line before the last is the ``kernels`` JSON object, with each
 source's kernels under ``entry_points``; the last line is ``{"ok": true,
@@ -192,6 +225,7 @@ repository beside it, the script fails before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -442,9 +476,11 @@ def kernel_counters() -> dict:
             for name, counter in mod.kernel_launches.items()}
 
 
-def check_only(counts: dict, kernel: str | None, what: str) -> None:
-    """No kernel but ``kernel`` was launched in the run that gave ``counts``."""
-    others = {k: v for k, v in counts.items() if k != kernel and v}
+def check_only(counts: dict, kernels, what: str) -> None:
+    """No kernel but ``kernels`` (a name or a set of them) was launched in
+    the run that gave ``counts``."""
+    kernels = {kernels} if isinstance(kernels, str) else set(kernels)
+    others = {k: v for k, v in counts.items() if k not in kernels and v}
     check(not others, f"{what} launched other kernels: {others}")
 
 
@@ -507,24 +543,25 @@ def graph_ms(torch, fn, calls: int = 20, replays: int = 20) -> float:
     return start.elapsed_time(end) / (replays * calls)
 
 
-def profile_once(torch, fn, key: str) -> dict:
+def profile_once(torch, fn, key: str, keys=()) -> dict:
     """One call of ``fn`` under the profiler (ending in a synchronise): the
     device time and launches of all kernels and of those whose profiler
-    name contains ``key``, device time by kernel, and the host ops by self
-    CPU time.  Kernels launched by a CUDA-graph replay are listed as
-    kernels too."""
+    name contains ``key`` (and, under ``by_key``, each of ``keys``), device
+    time by kernel, and the host ops by self CPU time.  Kernels launched
+    by a CUDA-graph replay are listed as kernels too."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    by_kernel, launches, key_launches = {}, 0, 0
+    by_kernel, n_by_kernel, launches, key_launches = {}, {}, 0, 0
     for ev in prof.key_averages():
         if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
             continue  # host-side ops; their kernels are listed on their own
         us = getattr(ev, "self_device_time_total", 0.0) or 0.0
         if us > 0:
             by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + us
+            n_by_kernel[ev.key] = n_by_kernel.get(ev.key, 0) + ev.count
             launches += ev.count
             key_launches += ev.count if key in ev.key else 0
     host = sorted(((ev.self_cpu_time_total, ev.count, ev.key) for ev in prof.key_averages()
@@ -541,6 +578,9 @@ def profile_once(torch, fn, key: str) -> dict:
         "n_kernels": len(ranked),
         "ranked": ranked,
         "host": host,
+        "by_key": {k: {"ms": sum(us for n, us in by_kernel.items() if k in n) / 1e3,
+                       "launches": sum(c for n, c in n_by_kernel.items() if k in n)}
+                   for k in keys},
     }
 
 
@@ -740,10 +780,28 @@ def flash_cases(torch, dev) -> dict:
 # ----------------------------------------------------------------------
 # 7 and 10. reduced LMs against the committed JAX golden outputs
 # ----------------------------------------------------------------------
-def lm_golden(torch, np, dev, asset_name: str, kernel: str) -> None:
-    """The reduced LM of ``assets/<asset_name>`` served on the card: the JAX
-    engine's greedy tokens exactly, its logits within ``LM_F32_ATOL``, and
-    one launch of ``kernel`` per layer per step."""
+def expected_launches(cfg) -> dict:
+    """Kernel launches of one prefill and of one decode step of ``cfg``'s
+    stack, by kernel: flash for every attention layer (the encoder's at
+    prefill, and each decoder block's cross-attention, of an
+    encoder-decoder too), the scan for every Mamba layer."""
+    from repro_torch.configs.base import ATTN, SSM
+
+    pattern, n_periods = cfg.layer_pattern()
+    n_attn = sum(m == ATTN for m, _ in pattern) * n_periods
+    n_ssm = sum(m == SSM for m, _ in pattern) * n_periods
+    n_cross = len(pattern) * n_periods if cfg.family == "encdec" else 0
+    n_enc = cfg.encoder_layers if cfg.family == "encdec" else 0
+    out = {"prefill": {"flash_attention": n_attn + n_cross + n_enc, "ssm_scan": n_ssm},
+           "decode": {"flash_attention": n_attn + n_cross, "ssm_scan": n_ssm}}
+    return {k: {kern: n for kern, n in v.items() if n} for k, v in out.items()}
+
+
+def lm_golden(torch, np, dev, asset_name: str) -> dict:
+    """The reduced LM of ``assets/<asset_name>`` served on the card, with
+    its stored extra inputs: the JAX engine's greedy tokens exactly, its
+    logits within ``LM_F32_ATOL``, and each kernel of the stack launched
+    as ``expected_launches`` says per step.  Returns the launches."""
     from repro_torch import configs
     from repro_torch.models import decode_step, params_from_numpy, prefill, unflatten
     from repro_torch.serve import Engine, Request
@@ -755,38 +813,46 @@ def lm_golden(torch, np, dev, asset_name: str, kernel: str) -> None:
         params = params_from_numpy(cfg, unflatten(dict(w)), device=dev)
     with np.load(asset / "golden.npz") as g:
         golden = dict(g)
+    extra = {k: torch.from_numpy(golden[k]).to(dev) for k in manifest.get("extra_inputs", [])}
     reqs = [Request(p, int(n)) for p, n in zip(golden["prompts"], golden["max_new_tokens"])]
     eng = Engine(cfg, params, manifest["batch_size"], manifest["max_seq"],
-                 eos_id=manifest["eos_id"], device=dev)
+                 eos_id=manifest["eos_id"], device=dev, extra_inputs=extra)
     reset_counts()
     eng.generate(reqs)
     counts = read_counts()
-    launched = counts[kernel]
-    check_only(counts, kernel, f"{asset_name}'s serve")
-    want_launches = cfg.n_layers * (1 + manifest["decode_steps"])
-    check(launched == want_launches, f"{asset_name}: {launched} {kernel} launches, "
-                                     f"want {want_launches}")
-    for i, (r, want) in enumerate(zip(reqs, golden["tokens"])):
-        want = [int(t) for t in want if t >= 0]
-        check(r.out_tokens == want, f"{asset_name}: request {i} tokens {r.out_tokens} != JAX {want}")
+    per_step = expected_launches(cfg)
+    check_only(counts, set(per_step["decode"]), f"{asset_name}'s serve")
+    want = {k: per_step["prefill"][k] + manifest["decode_steps"] * n
+            for k, n in per_step["decode"].items()}
+    got = {k: counts[k] for k in want}
+    check(got == want, f"{asset_name}: launches {got}, want {want}")
+    for i, (r, want_tok) in enumerate(zip(reqs, golden["tokens"])):
+        want_tok = [int(t) for t in want_tok if t >= 0]
+        check(r.out_tokens == want_tok,
+              f"{asset_name}: request {i} tokens {r.out_tokens} != JAX {want_tok}")
     tokens = torch.from_numpy(np.stack([r.prompt for r in reqs])).to(dev)
-    logits, cache = prefill(cfg, params, {"tokens": tokens}, manifest["max_seq"])
+    logits, cache = prefill(cfg, params, {"tokens": tokens, **extra}, manifest["max_seq"])
     err0 = float(np.abs(logits.cpu().numpy() - golden["prefill_logits"]).max())
     logits, _ = decode_step(cfg, params, logits.argmax(-1)[:, None], cache)
     err1 = float(np.abs(logits.cpu().numpy() - golden["decode_logits"]).max())
     check(max(err0, err1) <= LM_F32_ATOL,
           f"{asset_name}: logits differ from JAX by {err0:.3g} (prefill), {err1:.3g} (decode)")
-    log(f"{cfg.name} ({cfg.param_count()} params, f32): {len(reqs)} requests' greedy tokens equal "
-        f"the JAX engine's; {launched} {kernel} launches = {cfg.n_layers} layers x "
-        f"(1 + {manifest['decode_steps']}); max |logits - JAX| prefill {err0:.3g}, "
-        f"decode {err1:.3g} (atol {LM_F32_ATOL})")
+    log(f"{cfg.name} ({cfg.param_count()} params, f32{', extra inputs ' if extra else ''}"
+        f"{', '.join(f'{k} {list(v.shape)}' for k, v in extra.items())}): {len(reqs)} requests' "
+        f"greedy tokens equal the JAX engine's; launches {json.dumps(got)} = prefill "
+        f"{json.dumps(per_step['prefill'])} + {manifest['decode_steps']} x "
+        f"{json.dumps(per_step['decode'])}; max |logits - JAX| prefill {err0:.3g}, decode "
+        f"{err1:.3g} (atol {LM_F32_ATOL})")
+    return got
 
 
 # ----------------------------------------------------------------------
-# 8 and 11. an LM main path at full width
+# 8, 11, 13, 17, 19-21. an LM main path at full width
 # ----------------------------------------------------------------------
 PROMPT_LEN, NEW_TOKENS, SERVE_BATCH, SERVE_MAX_SEQ = 128, 64, 8, 512
 DECODE_TIMING_OFFSET = 160  # flash: about the mean cache position of the 63 decode steps
+DECODE_TIMING_STEP = DECODE_TIMING_OFFSET - PROMPT_LEN + 1  # the decode step that reaches it
+JAMBA_LAYERS = 16  # of 32: 2 of the 4 periods (26.05e9 parameters, 52.1 GB in bf16)
 
 
 def plain_selective_scan_f64(dt, bmat, cmat, x, a, h0, h_out=None):
@@ -810,97 +876,174 @@ def plain_attention_f32(q, k, v, causal=True, offset=None):
                          offset=offset).to(q.dtype)
 
 
+def stub_inputs(torch, np, cfg, dev) -> dict:
+    """The stub front ends' outputs for a served batch, drawn with numpy
+    (seed 0) and cast to ``cfg.dtype`` on the card: whisper's
+    ``enc_frames`` [8, encoder_seq, d_model], a VLM's ``img_embeds`` [8,
+    vision_tokens, d_model]; nothing for the other families."""
+    from repro_torch.models.transformer import torch_dtype
+
+    rows = {"encdec": ("enc_frames", cfg.encoder_seq), "vlm": ("img_embeds", cfg.vision_tokens)}
+    if cfg.family not in rows:
+        return {}
+    name, n = rows[cfg.family]
+    x = np.random.default_rng(0).standard_normal((SERVE_BATCH, n, cfg.d_model), dtype=np.float32)
+    return {name: torch.from_numpy(x).to(dev, torch_dtype(cfg))}
+
+
 def lm_paths() -> dict:
-    """Per served architecture: its kernel (launch counter and profiler
-    name), the model module's name for the op that reaches the kernel, the
-    plain version that replaces it on the plain path, where the weights
-    are drawn, and which layer-0 calls of the op to keep for timing (call
-    index -> name; the layer loop makes one call per layer per step)."""
+    """Per served architecture: its ops (each a kernel with its launch
+    counter and profiler name, the model module's name for the op that
+    reaches it, the plain version that replaces it on the plain path and
+    another correct plain version, and which calls of the op to keep for
+    timing: name -> (step, index of the call within the step), step 0
+    being prefill), the config served (jamba's cut), where the weights are
+    drawn, and how the path is held to its plain path."""
+    from repro_torch import configs
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
     from repro_torch.models import attention, ssm
 
-    dense = {
+    flash = {
         "kernel": "flash_attention", "profile_key": "namespace)::flash_",
         "module": attention, "attr": "flash_attention", "plain": attention_ref,
-        "f32_atol": None,  # held by LM_BF16_ATOL in bf16
-        "plain_alt": None,
-        "capture": {"prefill": 0, "decode": DECODE_TIMING_OFFSET - PROMPT_LEN + 1},
+        "plain_alt": plain_attention_f32,
+        "capture": {"prefill": (0, 0), "decode": (DECODE_TIMING_STEP, 0)},
     }
+    scan = {
+        "kernel": "ssm_scan", "profile_key": "namespace)::ssm_",
+        "module": ssm, "attr": "selective_scan", "plain": selective_scan_ref,
+        "plain_alt": plain_selective_scan_f64,
+        "capture": {"prefill": (0, 0), "decode": (1, 0)},
+    }
+    whisper = configs.get("whisper-base")
+    dense = {"ops": [flash], "init_on_card": True, "f32_atol": None, "alt": False,
+             "moe": False, "n_layers": None, "cut": None}
     return {
         # 0.3 GB: drawn on the host, as phase 8 always has
         "smollm-135m": {**dense, "init_on_card": False},
         # 5.6 GB of bf16 weights (head_dim 80)
-        "stablelm-3b": {**dense, "init_on_card": True},
+        "stablelm-3b": dense,
         # 61 GB of bf16 weights (128 experts, head_dim 128, GQA 32:4): held by
         # the MoE rule (phase 17), beside attention kept in f32, another
         # correct plain version that rounds to bf16 at other places
-        "qwen3-moe-30b-a3b": {**dense, "init_on_card": True, "plain_alt": plain_attention_f32,
-                              "moe": True},
+        "qwen3-moe-30b-a3b": {**dense, "alt": True, "moe": True},
         "falcon-mamba-7b": {
-            "kernel": "ssm_scan", "profile_key": "namespace)::ssm_",
-            "module": ssm, "attr": "selective_scan", "plain": selective_scan_ref,
-            "init_on_card": True,  # 14.5 GB of bf16 weights, 29 GB of f32 draws
+            **dense, "ops": [scan],  # 14.5 GB of bf16 weights, 29 GB of f32 draws
             # 64 random bf16 layers amplify a one-ulp f32 difference in the
             # scan's output (it flips a bf16 rounding) into logit differences
             # above LM_BF16_ATOL: two correct plain versions of the scan (f32,
             # and f64 rounded to f32) differ as much.  In f32 the same weights
             # agree within about 1e-3, so the paths are held there, at 1e-2;
             # the bf16 agreement is measured and printed.
-            "f32_atol": 1e-2,
-            "plain_alt": plain_selective_scan_f64,
-            "capture": {"prefill": 0, "decode": 1},
+            "f32_atol": 1e-2, "alt": True,
         },
+        # 0.2 GB: the encoder's 1500 frames, cross-attention, held by phase 8's rule.
+        # Prefill calls flash for the 6 encoder layers first, then for each
+        # decoder layer its self-attention and its cross-attention; a decode
+        # step for each decoder layer's self- and cross-attention
+        "whisper-base": {**dense, "ops": [{**flash, "capture": {
+            "encoder prefill": (0, 0),
+            "prefill": (0, whisper.encoder_layers),
+            "cross prefill": (0, whisper.encoder_layers + 1),
+            "decode": (DECODE_TIMING_STEP, 0),
+            "cross decode": (DECODE_TIMING_STEP, 1)}}]},
+        # 39.7 GB: 256 image embeddings before the 128 tokens (a 384-row
+        # prefill; decode from position 384), head_dim 128 at GQA 48:8
+        "internvl2-26b": {**dense, "alt": True},
+        # 52.1 GB at 16 of 32 layers (103 GB whole does not fit 80 GB; 24
+        # layers, 77.6 GB, leave no room for caches and workspace): 14 Mamba
+        # layers and 2 attention, MoE (16 experts top-2) on the odd ones.
+        # Held by the MoE rule with both ops swapped (104 GB in f32)
+        "jamba-v0.1-52b": {**dense, "ops": [flash, scan], "alt": True, "moe": True,
+                           "n_layers": JAMBA_LAYERS,
+                           "cut": f"n_layers 32 -> {JAMBA_LAYERS}: the whole model, 103 GB "
+                                  "in bf16, does not fit one 80 GB card"},
     }
 
 
-def eager_serve(torch, cfg, params, prompts, dev, path) -> dict:
+def path_config(arch: str, path: dict):
+    """The config a path serves: the catalog's, cut where the path says."""
+    from repro_torch import configs
+
+    cfg = configs.get(arch)
+    return cfg if path["n_layers"] is None else dataclasses.replace(cfg, n_layers=path["n_layers"])
+
+
+@contextlib.contextmanager
+def swapped(swaps):
+    """Within the block, each (module, attr, fn) of ``swaps`` has
+    ``module.attr`` set to ``fn``; restored after."""
+    saved = [(m, a, getattr(m, a)) for m, a, _ in swaps]
+    for m, a, fn in swaps:
+        setattr(m, a, fn)
+    try:
+        yield
+    finally:
+        for m, a, fn in saved:
+            setattr(m, a, fn)
+
+
+def op_swaps(path, which: str) -> list:
+    """(module, attr, the op's ``which`` version) for each op of the path:
+    ``plain`` or ``plain_alt``."""
+    return [(op["module"], op["attr"], op[which]) for op in path["ops"]]
+
+
+def eager_serve(torch, cfg, params, prompts, dev, path, extra, want) -> dict:
     """The engine's loop run eagerly on the same kernels: prefill, then 63
     greedy decode steps through ``decode_step``, each pick brought to the
     host (``tolist``) as the engine brings it.  Returns the picks per step,
     the loop's prefill ms, decode ms per step and tokens/s, and under
-    ``inputs`` the (args, kwargs) of the layer-0 calls of the path's op that
-    ``path["capture"]`` names (by decode step: 0 is prefill): the main
-    path's shapes and values.  (Calls are counted, not inspected, so
-    nothing syncs; the op is unwrapped after the last of them.)"""
+    ``inputs`` (by kernel) the (args, kwargs) of the calls of each op that
+    its ``capture`` names: the main path's shapes and values.  (Calls are
+    counted from ``want``, the launches per prefill and per step, not
+    inspected, so nothing syncs; an op is unwrapped after its last.)"""
     from repro_torch.models import decode_step, prefill
-
-    wanted = {cfg.n_layers * step: name for name, step in path["capture"].items()}
-    seen, n_calls = {}, [0]
-    module, attr = path["module"], path["attr"]
-    orig = getattr(module, attr)
 
     def clone(v):
         return v.clone() if isinstance(v, torch.Tensor) else v
 
-    def record(*args, **kw):
-        name = wanted.get(n_calls[0])
-        if name is not None:
-            seen[name] = ([clone(a) for a in args], {k: clone(v) for k, v in kw.items()})
-            if len(seen) == len(wanted):
-                setattr(module, attr, orig)
-        n_calls[0] += 1
-        return orig(*args, **kw)
+    def recorder(op, orig, wanted, kept):
+        calls = [0]
 
-    setattr(module, attr, record)
-    try:
-        with torch.inference_mode():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            tokens = torch.from_numpy(prompts).to(dev).long()
-            logits, cache = prefill(cfg, params, {"tokens": tokens}, SERVE_MAX_SEQ)
+        def record(*args, **kw):
+            name = wanted.get(calls[0])
+            if name is not None:
+                kept[name] = ([clone(a) for a in args], {k: clone(v) for k, v in kw.items()})
+                if len(kept) == len(wanted):
+                    setattr(op["module"], op["attr"], orig)
+            calls[0] += 1
+            return orig(*args, **kw)
+
+        return record
+
+    seen, wraps = {}, []
+    for op in path["ops"]:
+        kern = op["kernel"]
+        pre, dec = want["prefill"][kern], want["decode"][kern]
+        wanted = {(i if step == 0 else pre + (step - 1) * dec + i): name
+                  for name, (step, i) in op["capture"].items()}
+        seen[kern] = {}
+        wraps.append((op["module"], op["attr"],
+                      recorder(op, getattr(op["module"], op["attr"]), wanted, seen[kern])))
+    with swapped(wraps), torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens = torch.from_numpy(prompts).to(dev).long()
+        logits, cache = prefill(cfg, params, {"tokens": tokens, **extra}, SERVE_MAX_SEQ)
+        tok = logits.argmax(-1)
+        picks = [tok.tolist()]
+        t_first = time.perf_counter()
+        for _ in range(NEW_TOKENS - 1):
+            logits, cache = decode_step(cfg, params, tok[:, None], cache)
             tok = logits.argmax(-1)
-            picks = [tok.tolist()]
-            t_first = time.perf_counter()
-            for _ in range(NEW_TOKENS - 1):
-                logits, cache = decode_step(cfg, params, tok[:, None], cache)
-                tok = logits.argmax(-1)
-                picks.append(tok.tolist())
-            t_end = time.perf_counter()
-    finally:
-        setattr(module, attr, orig)
-    check(len(seen) == len(wanted), f"eager loop: kept {sorted(seen)} of the op's calls, "
-                                    f"want {sorted(wanted.values())}")
+            picks.append(tok.tolist())
+        t_end = time.perf_counter()
+    for op in path["ops"]:
+        got = seen[op["kernel"]]
+        check(len(got) == len(op["capture"]), f"eager loop: kept {sorted(got)} of "
+                                              f"{op['kernel']}'s calls, want {sorted(op['capture'])}")
     n_tok = SERVE_BATCH * NEW_TOKENS
     return {"picks": picks, "inputs": seen, "prefill_ms": (t_first - t0) * 1e3,
             "decode_ms": (t_end - t_first) * 1e3 / (NEW_TOKENS - 1),
@@ -913,26 +1056,20 @@ def requests_for(prompts, new_tokens):
     return [Request(p, new_tokens) for p in prompts]
 
 
-def teacher_forced(torch, cfg, params, prompts, dev, tokens, path, op) -> list:
-    """Logits of prefill and of one decode step per entry of ``tokens``
-    but the last, each step fed the given tokens, with the path's op
-    replaced by ``op`` (``None``: the op itself, which reaches the kernel)."""
+def teacher_forced(torch, cfg, params, prompts, dev, tokens, swaps, extra) -> list:
+    """Logits of prefill (with the extra inputs) and of one decode step
+    per entry of ``tokens`` but the last, each step fed the given tokens,
+    with the ops of ``swaps`` replaced (none: the ops themselves, which
+    reach the kernels)."""
     from repro_torch.models import decode_step, prefill
 
-    module, attr = path["module"], path["attr"]
-    kernel_op = getattr(module, attr)
-    if op is not None:
-        setattr(module, attr, op)
-    try:
-        with torch.inference_mode():
-            logits, cache = prefill(cfg, params, {"tokens": torch.from_numpy(prompts).to(dev)},
-                                    SERVE_MAX_SEQ)
-            out = [logits]
-            for tok in tokens[:-1]:
-                logits, cache = decode_step(cfg, params, tok[:, None], cache)
-                out.append(logits)
-    finally:
-        setattr(module, attr, kernel_op)
+    with swapped(swaps), torch.inference_mode():
+        batch = {"tokens": torch.from_numpy(prompts).to(dev), **extra}
+        logits, cache = prefill(cfg, params, batch, SERVE_MAX_SEQ)
+        out = [logits]
+        for tok in tokens[:-1]:
+            logits, cache = decode_step(cfg, params, tok[:, None], cache)
+            out.append(logits)
     return out
 
 
@@ -1037,10 +1174,11 @@ def routing_flips(torch, a: list, b: list, n_layers: int) -> dict:
             "kept_otherwise": drops, "first_flip_call": first, "flips_by_layer": by_layer}
 
 
-def moe_layerwise(torch, cfg, params, prompts, dev, tokens, path) -> dict:
+def moe_layerwise(torch, cfg, params, prompts, dev, tokens, path, extra) -> dict:
     """The plain path teacher-forced on ``tokens``, each layer run twice on
-    its own input: with the kernel op, then with the plain op (whose output
-    goes on).  Summed over the layer calls: the tokens, the routing flips
+    its own input (and cache, restored between the two): with the kernel
+    ops, then with the plain ops (whose output goes on).  Summed over the
+    layer calls: the tokens, the routing flips
     between the two (ordered top-k; of them, another expert set) and those
     not explained by their router-logit change, the tokens kept otherwise
     and those in a call without an explained flip, and the largest
@@ -1049,17 +1187,24 @@ def moe_layerwise(torch, cfg, params, prompts, dev, tokens, path) -> dict:
     fails)."""
     from repro_torch.models import transformer
 
-    module, attr = path["module"], path["attr"]
-    kernel_op, orig_block = getattr(module, attr), transformer._apply_block
+    kernel_ops = [(op["module"], op["attr"], getattr(op["module"], op["attr"]))
+                  for op in path["ops"]]
+    plain_ops = op_swaps(path, "plain")
+    orig_block = transformer._apply_block
     stats = []
     routes: list = []
 
-    def checking(cfg_, bp, mixer, ffn, x, positions, cache, pos):
+    def checking(*args):
+        cache = args[6]  # this layer's cache slice: the SSM's state moves on in place
+        saved = None if cache is None else {k: t.clone() for k, t in cache.items()}
         routes.clear()
-        setattr(module, attr, kernel_op)
-        yk, _ = orig_block(cfg_, bp, mixer, ffn, x, positions, cache, pos)
-        setattr(module, attr, path["plain"])
-        yp, aux = orig_block(cfg_, bp, mixer, ffn, x, positions, cache, pos)
+        with swapped(kernel_ops):
+            yk, _ = orig_block(*args)
+        if saved is not None:
+            for k, t in saved.items():
+                cache[k].copy_(t)
+        with swapped(plain_ops):
+            yp, aux = orig_block(*args)
         yp2, yk2 = yp.reshape(-1, yp.shape[-1]).float(), yk.reshape(-1, yk.shape[-1]).float()
         zero = torch.zeros(yp2.shape[0], dtype=torch.bool, device=yp2.device)
         flip, set_flip, kept_other, unexplained, ties = zero, zero, zero, zero, zero
@@ -1082,12 +1227,10 @@ def moe_layerwise(torch, cfg, params, prompts, dev, tokens, path) -> dict:
         return yp, aux
 
     restore = record_routing(torch, routes)
-    transformer._apply_block = checking
     try:
-        teacher_forced(torch, cfg, params, prompts, dev, tokens, path, path["plain"])
+        with swapped([(transformer, "_apply_block", checking)]):
+            teacher_forced(torch, cfg, params, prompts, dev, tokens, plain_ops, extra)
     finally:
-        transformer._apply_block = orig_block
-        setattr(module, attr, kernel_op)
         restore()
     st = torch.stack(stats).cpu()
     worst = int(st[:, 5].argmax())
@@ -1101,20 +1244,21 @@ def moe_layerwise(torch, cfg, params, prompts, dev, tokens, path) -> dict:
             "exact_router_ties_at_top_k": int(st[:, 6].sum()), "layer_ulps": LAYER_ULPS}
 
 
-def moe_rule(torch, cfg, params, prompts, dev, toks, path, agree) -> dict:
-    """Phase 17's check of the kernel path against the plain path (the MoE
-    rule above); returns what it measured."""
+def moe_rule(torch, cfg, params, prompts, dev, toks, path, agree, extra) -> dict:
+    """Phase 17's and 21's check of the kernel path against the plain path
+    (the MoE rule above, every op of the path swapped); returns what it
+    measured."""
     e2e, spread = agree["bf16"], agree["bf16_plain_alt_vs_plain"]
 
     def meets(a):
         return a["n_far_flips"] == 0 and a["max_abs_diff"] <= LM_BF16_ATOL
 
     runs = {}
-    for name, op in (("kernel", None), ("plain", path["plain"])):
+    for name, swaps in (("kernel", []), ("plain", op_swaps(path, "plain"))):
         calls: list = []
         restore = record_routing(torch, calls)
         try:
-            teacher_forced(torch, cfg, params, prompts, dev, toks, path, op)
+            teacher_forced(torch, cfg, params, prompts, dev, toks, swaps, extra)
         finally:
             restore()
         runs[name] = calls
@@ -1124,7 +1268,7 @@ def moe_rule(torch, cfg, params, prompts, dev, toks, path, agree) -> dict:
     del runs
     log("serve: routing of the kernel path against the plain path (both teacher-forced): "
         + json.dumps(flips))
-    layer = moe_layerwise(torch, cfg, params, prompts, dev, toks, path)
+    layer = moe_layerwise(torch, cfg, params, prompts, dev, toks, path, extra)
     log("serve: layer by layer, kernel vs plain on the plain path's input: " + json.dumps(layer))
     out = {**agree, "routing_flips": flips, "layerwise": layer,
            "end_to_end_rule_met": meets(e2e)}
@@ -1136,7 +1280,7 @@ def moe_rule(torch, cfg, params, prompts, dev, toks, path, agree) -> dict:
           f"correct plain versions meet it ({json.dumps(spread)})")
     check(layer["unexplained_flips"] == 0,
           f"serve: {layer['unexplained_flips']} routing flips between the kernel and the plain "
-          "attention exceed their router-logit change")
+          "ops exceed their router-logit change")
     check(layer["kept_otherwise_without_a_flip"] == 0,
           f"serve: {layer['kept_otherwise_without_a_flip']} tokens kept otherwise in a layer "
           "call without a routing flip")
@@ -1152,42 +1296,52 @@ def serve_lm(torch, np, dev, arch: str) -> dict:
     """Drive the main path of ``arch`` once, counted; then check it against
     the plain path and time it.  Returns what the kernels line and PERF.md
     need."""
-    from repro_torch import configs
     from repro_torch.models import init_params, prefill
     from repro_torch.serve import Engine
 
     path = lm_paths()[arch]
-    kernel = path["kernel"]
-    cfg = configs.get(arch)
+    ops = path["ops"]
+    cfg = path_config(arch, path)
+    want = expected_launches(cfg)
+    kernels = sorted(want["decode"])
     t0 = time.perf_counter()
     gen = torch.Generator(dev if path["init_on_card"] else "cpu").manual_seed(0)
     params = init_params(cfg, gen, device=dev)
+    extra = stub_inputs(torch, np, cfg, dev)
     torch.cuda.synchronize()
-    log(f"{cfg.name}: {cfg.param_count()} params in {cfg.dtype}, random (seed 0, the port's "
-        f"init_params, drawn on the {gen.device.type}; no checkpoint ships), made in "
-        f"{time.perf_counter() - t0:.2f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    log(f"{cfg.name}: {cfg.n_layers} layers{' (cut: ' + path['cut'] + ')' if path['cut'] else ''}, "
+        f"{cfg.param_count()} params in {cfg.dtype}, random (seed 0, the port's init_params, "
+        f"drawn on the {gen.device.type}; no checkpoint ships), made in "
+        f"{time.perf_counter() - t0:.2f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card"
+        + "".join(f"; {k} {list(v.shape)} {str(v.dtype)[6:]} (numpy seed 0)"
+                  for k, v in extra.items()))
     prompts = np.random.default_rng(0).integers(
         2, cfg.vocab_size, size=(SERVE_BATCH, PROMPT_LEN)).astype(np.int32)
 
     # warm-up of the eager prefill (cuBLAS's choices for these shapes), so
     # neither the served nor the eager loop's prefill pays for it
     with torch.inference_mode():
-        prefill(cfg, params, {"tokens": torch.from_numpy(prompts).to(dev).long()}, SERVE_MAX_SEQ)
+        prefill(cfg, params, {"tokens": torch.from_numpy(prompts).to(dev).long(), **extra},
+                SERVE_MAX_SEQ)
     torch.cuda.synchronize()
 
     # no EOS id: every request runs its 64 tokens.  The engine captures its
     # decode step here, before the counted run
     t_cap = time.perf_counter()
-    eng = Engine(cfg, params, batch_size=SERVE_BATCH, max_seq=SERVE_MAX_SEQ, eos_id=-1)
+    eng = Engine(cfg, params, batch_size=SERVE_BATCH, max_seq=SERVE_MAX_SEQ, eos_id=-1,
+                 extra_inputs=extra)
     capture_s = time.perf_counter() - t_cap
-    per_replay = eng.decode_graph.launches_by_kernel()
-    check(per_replay.get(kernel) == cfg.n_layers,
+    # by source (the counters of launch_counters; a source's kernels are counted apart too)
+    per_replay = {k: n for k, n in eng.decode_graph.launches_by_kernel().items()
+                  if n and k in launch_counters()}
+    check(per_replay == want["decode"],
           f"{arch}: the decode graph records {per_replay} launches per replay, want "
-          f"{cfg.n_layers} of {kernel}")
+          f"{want['decode']}")
     log(f"serve: decode step captured as a CUDA graph in {capture_s:.2f} s (warm-up step "
         f"included); launches per replay, recorded at capture: {json.dumps(per_replay)}")
     picks, stamps = [], []
     pick = eng._pick
+    cross_ptrs = [t.data_ptr() for c in eng.static_cache.get("cross", []) for t in c.values()]
 
     def recording_pick(logits):
         tok = pick(logits)
@@ -1204,13 +1358,20 @@ def serve_lm(torch, np, dev, arch: str) -> dict:
     eng.generate(reqs)
     t_end = time.perf_counter()
     counts = read_counts()
-    launches = counts[kernel]
-    by_kernel = read_kernel_counts(kernel)
-    check_only(counts, kernel, f"{arch}'s serve")
+    launches = {k: counts[k] for k in kernels}
+    by_kernel = read_kernel_counts("ssm_scan") if "ssm_scan" in want["decode"] else {}
+    check_only(counts, set(kernels), f"{arch}'s serve")
+    check(cross_ptrs == [t.data_ptr() for c in eng.static_cache.get("cross", [])
+                         for t in c.values()], "serve: the static cross cache was rebound")
 
     n_tok = sum(len(r.out_tokens) for r in reqs)
-    check(launches == cfg.n_layers * NEW_TOKENS,
-          f"serve: {launches} {kernel} launches, want {cfg.n_layers} x {NEW_TOKENS}")
+    served = {k: want["prefill"][k] + (NEW_TOKENS - 1) * want["decode"][k] for k in kernels}
+    check(launches == served, f"serve: launches {launches}, want {served} (prefill "
+                              f"{want['prefill']} + {NEW_TOKENS - 1} x {want['decode']})")
+    if by_kernel:
+        scan = {"prefill": want["prefill"]["ssm_scan"],
+                "decode": (NEW_TOKENS - 1) * want["decode"]["ssm_scan"]}
+        check(by_kernel == scan, f"serve: the scan's kernels took {by_kernel}, want {scan}")
     check(all(len(r.out_tokens) == NEW_TOKENS for r in reqs), "serve: a request fell short")
     # the logits span the padded vocabulary, and neither this engine nor the
     # JAX engine masks the padding; with random weights an argmax can land
@@ -1221,17 +1382,19 @@ def serve_lm(torch, np, dev, arch: str) -> dict:
     check(all(bool(torch.isfinite(lg).all()) for lg, _ in picks), "serve: non-finite logits")
     prefill_ms = (stamps[0] - t_start) * 1e3
     decode_ms = (stamps[-1] - stamps[0]) * 1e3 / (len(stamps) - 1)
-    log(f"serve (decode graph): {len(reqs)} requests x {NEW_TOKENS} tokens, {launches} {kernel} "
-        f"launches = {cfg.n_layers} x {NEW_TOKENS}; prefill {prefill_ms:.3f} ms, decode "
-        f"{decode_ms:.3f} ms per step, {n_tok / (t_end - t_start):.1f} generated tokens/s "
-        f"({t_end - t_start:.3f} s for {n_tok} tokens); finite logits; {n_pad} tokens in the "
-        f"vocabulary's padding ({cfg.vocab_size} to {cfg.padded_vocab})")
+    log(f"serve (decode graph): {len(reqs)} requests x {NEW_TOKENS} tokens, launches "
+        f"{json.dumps(launches)} = prefill {json.dumps(want['prefill'])} + {NEW_TOKENS - 1} x "
+        f"{json.dumps(want['decode'])}{'; scan kernels ' + json.dumps(by_kernel) if by_kernel else ''}"
+        f"; prefill {prefill_ms:.3f} ms, decode {decode_ms:.3f} ms per step, "
+        f"{n_tok / (t_end - t_start):.1f} generated tokens/s ({t_end - t_start:.3f} s for {n_tok} "
+        f"tokens); finite logits; {n_pad} tokens in the vocabulary's padding ({cfg.vocab_size} to "
+        f"{cfg.padded_vocab})")
 
     # the same loop eagerly, on the same kernels: the same tokens exactly
-    eager = eager_serve(torch, cfg, eng.params, prompts, dev, path)
+    eager = eager_serve(torch, cfg, eng.params, prompts, dev, path, extra, want)
     inputs = eager.pop("inputs")
-    served = [[r.out_tokens[i] for r in reqs] for i in range(NEW_TOKENS)]
-    n_diff = sum(a != b for a, b in zip(served, eager["picks"]))
+    served_toks = [[r.out_tokens[i] for r in reqs] for i in range(NEW_TOKENS)]
+    n_diff = sum(a != b for a, b in zip(served_toks, eager["picks"]))
     check(n_diff == 0, f"serve: {n_diff} of {NEW_TOKENS} steps' tokens differ between the "
                        "decode graph and the eager loop")
     log(f"serve (eager loop over prefill/decode_step): the same {n_tok} tokens exactly; prefill "
@@ -1242,26 +1405,29 @@ def serve_lm(torch, np, dev, arch: str) -> dict:
     # the plain path, teacher-forced on the kernel path's tokens
     toks = [t for _, t in picks]
     t_plain = time.perf_counter()
-    plain = teacher_forced(torch, cfg, params, prompts, dev, toks, path, path["plain"])
+    plain = teacher_forced(torch, cfg, params, prompts, dev, toks, op_swaps(path, "plain"), extra)
     agree = agreement(torch, [lg for lg, _ in picks], toks, plain, LM_BF16_ATOL)
     log(f"serve: plain path teacher-forced on the kernel path's tokens "
         f"({time.perf_counter() - t_plain:.1f} s), bf16: " + json.dumps(agree))
-    if path["plain_alt"] is not None:
+    if path["alt"]:
         # the spread between two correct plain versions, for scale
-        alt = teacher_forced(torch, cfg, params, prompts, dev, toks, path, path["plain_alt"])
+        alt = teacher_forced(torch, cfg, params, prompts, dev, toks, op_swaps(path, "plain_alt"),
+                             extra)
         spread = agreement(torch, alt, [lg.argmax(-1) for lg in alt], plain, LM_BF16_ATOL)
         del alt
-        log(f"serve: the plain path with its op as {path['plain_alt'].__name__}, against the "
-            "plain path, bf16: " + json.dumps(spread))
+        log(f"serve: the plain path with its ops as "
+            f"{', '.join(op['plain_alt'].__name__ for op in ops)}, against the plain path, "
+            "bf16: " + json.dumps(spread))
         agree = {"bf16": agree, "bf16_plain_alt_vs_plain": spread}
     del plain
-    if path.get("moe"):
-        agree = moe_rule(torch, cfg, params, prompts, dev, toks, path, agree)
+    if path["moe"]:
+        agree = moe_rule(torch, cfg, params, prompts, dev, toks, path, agree, extra)
     elif path["f32_atol"] is None:
-        check(agree["n_far_flips"] == 0,
+        e2e = agree["bf16"] if path["alt"] else agree
+        check(e2e["n_far_flips"] == 0,
               f"serve: an argmax differs where the plain top-two gap >= {LM_BF16_ATOL}")
-        check(agree["max_abs_diff"] <= LM_BF16_ATOL,
-              f"serve: kernel vs plain logits differ by {agree['max_abs_diff']}")
+        check(e2e["max_abs_diff"] <= LM_BF16_ATOL,
+              f"serve: kernel vs plain logits differ by {e2e['max_abs_diff']}")
     else:
         # the same weights in f32: the kernel path against the plain path,
         # both teacher-forced on the served tokens, held to f32_atol
@@ -1270,8 +1436,10 @@ def serve_lm(torch, np, dev, arch: str) -> dict:
         t32 = time.perf_counter()
         cfg32 = dataclasses.replace(cfg, dtype="float32")
         params32 = tree_map(lambda t: t.float(), params)
-        k32 = teacher_forced(torch, cfg32, params32, prompts, dev, toks, path, None)
-        p32 = teacher_forced(torch, cfg32, params32, prompts, dev, toks, path, path["plain"])
+        extra32 = {k: v.float() for k, v in extra.items()}
+        k32 = teacher_forced(torch, cfg32, params32, prompts, dev, toks, [], extra32)
+        p32 = teacher_forced(torch, cfg32, params32, prompts, dev, toks, op_swaps(path, "plain"),
+                             extra32)
         agree32 = agreement(torch, k32, [lg.argmax(-1) for lg in k32], p32, path["f32_atol"])
         del params32, k32, p32
         torch.cuda.empty_cache()
@@ -1283,31 +1451,35 @@ def serve_lm(torch, np, dev, arch: str) -> dict:
               f"serve f32: kernel vs plain logits differ by {agree32['max_abs_diff']}")
         agree["f32"] = agree32
 
-    step = decode_breakdown(torch, cfg, eng, prompts, dev, path["profile_key"], per_replay[kernel])
-    return {"launches": launches, "launches_by_kernel": by_kernel,
+    step = decode_breakdown(torch, cfg, eng, prompts, dev, ops, per_replay, extra)
+    return {"config": {"n_layers": cfg.n_layers, "params": cfg.param_count(), "cut": path["cut"]},
+            "launches": launches, "launches_by_kernel": by_kernel,
             "launches_per_replay": per_replay, "capture_s": capture_s,
             "prefill_ms": prefill_ms, "decode_ms": decode_ms,
             "tokens_per_s": n_tok / (t_end - t_start), "eager": eager, "inputs": inputs,
             "kernel_vs_plain": agree, **step}
 
 
-def decode_breakdown(torch, cfg, eng, prompts, dev, profile_key: str, per_replay: int) -> dict:
-    """One decode step at cache position ~PROMPT_LEN, run eagerly and as
-    the engine's graph replay: its time (host clock over 20 back-to-back
-    steps, ending in a sync) and, from the profiler, the device time of the
-    path's kernel (profiler name containing ``profile_key``) and of all
-    kernels in one step, the step's kernel launches and its idle share.
-    Neither may sync the host.  The profiler's count of the path's kernel
-    in one replay must equal ``per_replay``, the launches the capture
-    recorded."""
+def decode_breakdown(torch, cfg, eng, prompts, dev, ops, per_replay: dict, extra) -> dict:
+    """One decode step at cache position ~PROMPT_LEN (after the vision
+    tokens of a VLM), run eagerly and as the engine's graph replay: its
+    time (host clock over 20 back-to-back steps, ending in a sync) and,
+    from the profiler, the device time of the path's kernels (profiler
+    names containing each op's ``profile_key``) and of all kernels in one
+    step, the step's kernel launches and its idle share.  Neither may sync
+    the host.  The profiler's count of each of the path's kernels in one
+    replay must equal ``per_replay``, the launches the capture recorded."""
     from repro_torch.models import decode_step, prefill
 
     graph = eng.decode_graph
+    keys = {op["kernel"]: op["profile_key"] for op in ops}
+    first = ops[0]["profile_key"]
     with torch.inference_mode():
-        tokens = torch.from_numpy(prompts).to(dev).long()
-        logits, cache = prefill(cfg, eng.params, {"tokens": tokens}, SERVE_MAX_SEQ)
+        batch = {"tokens": torch.from_numpy(prompts).to(dev).long(), **extra}
+        logits, cache = prefill(cfg, eng.params, batch, SERVE_MAX_SEQ)
         tok = logits.argmax(-1)[:, None]
         state = {"cache": cache}
+        start = PROMPT_LEN + sum(v.shape[1] for k, v in extra.items() if k == "img_embeds")
 
         def eager_step():
             state["cache"] = decode_step(cfg, eng.params, tok, state["cache"])[1]
@@ -1316,8 +1488,7 @@ def decode_breakdown(torch, cfg, eng, prompts, dev, profile_key: str, per_replay
             eng.static_tokens.copy_(tok)
             graph.replay()
 
-        logits, _ = prefill(cfg, eng.params, {"tokens": tokens}, SERVE_MAX_SEQ,
-                            cache=eng.static_cache)
+        logits, _ = prefill(cfg, eng.params, batch, SERVE_MAX_SEQ, cache=eng.static_cache)
         out = {}
         for name, step in (("eager", eager_step), ("graph", replay_step)):
             for _ in range(3):
@@ -1336,7 +1507,7 @@ def decode_breakdown(torch, cfg, eng, prompts, dev, profile_key: str, per_replay
                 step()
                 launch_ms += (time.perf_counter() - t1) * 1e3 / 5
                 torch.cuda.synchronize()
-            prof = profile_once(torch, step, profile_key)
+            prof = profile_once(torch, step, first, keys=list(keys.values()))
             torch.cuda.set_sync_debug_mode("error")  # a step that waits for the card raises
             try:
                 step()
@@ -1344,12 +1515,13 @@ def decode_breakdown(torch, cfg, eng, prompts, dev, profile_key: str, per_replay
                 torch.cuda.set_sync_debug_mode("default")
             torch.cuda.synchronize()
             all_ms = prof["all_ms"]
-            log(f"decode step, {name} (back to back, position ~{PROMPT_LEN + 3}; no host sync "
-                f"inside): {step_ms:.3f} ms; the host enqueues one in {launch_ms:.3f} ms; "
-                f"device time: all kernels "
+            by_key = {kern: prof["by_key"][key] for kern, key in keys.items()}
+            log(f"decode step, {name} (back to back, position ~{start + 3}; no host sync "
+                f"inside): {step_ms:.3f} ms; the host enqueues one in "
+                f"{launch_ms:.3f} ms; device time: all kernels "
                 f"{all_ms if all_ms is None else round(all_ms, 4)} ms in {prof['launches']} "
-                f"launches, {profile_key} {prof['key_ms']} ms in {prof['key_launches']} launches "
-                f"(rank {prof['rank']} of {prof['n_kernels']} kernels); idle "
+                f"launches; the path's kernels {json.dumps(by_key)} (rank of {first} "
+                f"{prof['rank']} of {prof['n_kernels']} kernels); idle "
                 f"{(1 - all_ms / step_ms) * 100 if all_ms else float('nan'):.1f}%")
             for k, us in prof["ranked"][:8]:
                 log(f"  {us / 1e3:.4f} ms  {k[:110]}")
@@ -1363,20 +1535,19 @@ def decode_breakdown(torch, cfg, eng, prompts, dev, profile_key: str, per_replay
                 "step_ms": step_ms,
                 "enqueue_ms": launch_ms,
                 "profiler_all_kernels_ms": all_ms,
-                "profiler_kernel_ms": prof["key_ms"],
                 "profiler_launches": prof["launches"],
-                "profiler_kernel_launches": prof["key_launches"],
+                "profiler_by_kernel": by_key,
                 "kernel_rank": prof["rank"],
                 "idle_share": 1 - all_ms / step_ms if all_ms else None,
             }
-    seen = out["graph"]["profiler_kernel_launches"]
     check(out["graph"]["profiler_all_kernels_ms"] is not None,
           "the profiler shows no device time inside a graph replay: the launches per replay "
           "cannot be cross-checked")
-    check(seen == per_replay, f"the profiler sees {seen} launches of {profile_key} in one "
-                              f"replay, the capture recorded {per_replay}")
-    log(f"profiler cross-check: {seen} launches of {profile_key} in one replay = "
-        f"{per_replay} recorded at capture")
+    seen = {kern: v["launches"] for kern, v in out["graph"]["profiler_by_kernel"].items()}
+    check(seen == per_replay, f"the profiler sees {seen} launches in one replay, the capture "
+                              f"recorded {per_replay}")
+    log(f"profiler cross-check: {json.dumps(seen)} launches in one replay = {json.dumps(per_replay)} "
+        "recorded at capture")
     return {"decode_step": out, "step_ms": out["graph"]["step_ms"],
             "idle_share": out["graph"]["idle_share"]}
 
@@ -2134,33 +2305,88 @@ def head_dim_inputs(torch, dev) -> dict:
 
 
 # ----------------------------------------------------------------------
-def moe_decode_bound(arch: str) -> dict:
+def decode_bound(cfg, n_img: int = 0) -> dict:
     """The least time of one decode step at batch SERVE_BATCH, dense over
-    the experts as the model computes it: every weight but the embedding
-    table read once (bf16), and each layer's K/V read up to the mean cache
-    position of the served decode steps, at HBM_BYTES_PER_S."""
+    any experts as the model computes it: every weight a decode step reads
+    (all but the embedding table and an encoder's) read once (bf16); each
+    attention layer's K/V read up to the mean cache position of the served
+    decode steps (after ``n_img`` vision tokens), an encoder-decoder's
+    cross K/V whole; each Mamba layer's f32 state read and written and its
+    conv window read; at HBM_BYTES_PER_S."""
     import math
 
-    from repro_torch import configs
+    from repro_torch.configs.base import ATTN, SSM
     from repro_torch.models import param_specs
     from repro_torch.models.transformer import tree_map
 
-    cfg = configs.get(arch)
-    specs = param_specs(cfg)
     sizes = []
     tree_map(lambda spec: sizes.append(math.prod(spec.shape)),
-             {k: v for k, v in specs.items() if k != "embed"})
+             {k: v for k, v in param_specs(cfg).items()
+              if k not in ("embed", "enc_blocks", "enc_final_norm")})
     weight_bytes = 2 * sum(sizes)
-    mean_pos = PROMPT_LEN + (NEW_TOKENS - 1) / 2
-    kv_bytes = 2 * cfg.n_layers * 2 * SERVE_BATCH * cfg.n_kv_heads * mean_pos * cfg.hd
-    step_ms = (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
-    return {"weight_bytes": weight_bytes, "kv_bytes": kv_bytes, "step_ms": step_ms,
-            "tokens_per_s": SERVE_BATCH / step_ms * 1e3}
+    pattern, n_periods = cfg.layer_pattern()
+    n_attn = sum(m == ATTN for m, _ in pattern) * n_periods
+    n_ssm = sum(m == SSM for m, _ in pattern) * n_periods
+    mean_pos = n_img + PROMPT_LEN + (NEW_TOKENS - 1) / 2
+    kv = 2 * 2 * SERVE_BATCH * cfg.n_kv_heads * cfg.hd  # bf16 K and V, per cached position
+    kv_bytes = n_attn * kv * mean_pos
+    if cfg.family == "encdec":
+        kv_bytes += len(pattern) * n_periods * kv * cfg.encoder_seq
+    ssm_bytes = n_ssm * SERVE_BATCH * cfg.d_inner * (2 * 4 * cfg.ssm_state + 2 * (cfg.ssm_conv - 1))
+    step_ms = (weight_bytes + kv_bytes + ssm_bytes) / HBM_BYTES_PER_S * 1e3
+    return {"weight_bytes": weight_bytes, "kv_bytes": kv_bytes, "ssm_state_bytes": ssm_bytes,
+            "step_ms": step_ms, "tokens_per_s": SERVE_BATCH / step_ms * 1e3}
+
+
+def fresh_card(torch) -> None:
+    """Free what the earlier phases left (engines and weights, reference
+    cycles included) and print what stays allocated."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"before: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved on the card")
+    torch.cuda.reset_peak_memory_stats()
+
+
+HEAD_DIM_KEYS = ("shape", "plan", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "max_abs_err")
+
+
+def serve_phase(torch, np, dev, arch: str, flash_entry: dict, scan_entry: dict,
+                info: dict) -> dict:
+    """Phases 17 and 19-21: serve ``arch`` at full width on an emptied
+    card, its decode step against its bytes bound, then flash (and the
+    scan) timed at the path's own inputs; the kernels line takes the
+    launches and the rows."""
+    fresh_card(torch)
+    log(f"card: {info['nvidia_smi']}")
+    out = serve_lm(torch, np, dev, arch)
+    cfg = path_config(arch, lm_paths()[arch])
+    out["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["bound"] = decode_bound(cfg, cfg.vision_tokens if cfg.family == "vlm" else 0)
+    log(f"{arch}: peak {out['peak_allocated_gb']:.3f} GB allocated; decode step bound "
+        f"{json.dumps(out['bound'])}; the replayed step {out['step_ms']:.3f} ms, "
+        f"{out['step_ms'] / out['bound']['step_ms']:.2f}x the bound")
+    inputs = out.pop("inputs")
+    tag = arch.replace("-", "_").replace(".", "")
+    for kern, entry in (("flash_attention", flash_entry), ("ssm_scan", scan_entry)):
+        if kern not in inputs:
+            continue
+        named = {f"{arch} {k}": v for k, v in inputs[kern].items()}
+        rows = flash_times(torch, named) if kern == "flash_attention" else scan_times(
+            torch, named, info)
+        entry.setdefault("paths", {}).update(
+            {name: {k: row.get(k) for k in (*HEAD_DIM_KEYS, "kernel", "l2_warm_ms")
+                    if k in row} for name, row in rows.items()})
+        entry[f"launches_{tag}"] = out["launches"][kern]
+        entry["max_abs_err"] = max(entry["max_abs_err"], *(r["max_abs_err"] for r in rows.values()))
+    log("serve summary: " + json.dumps(out))
+    return out
 
 
 def main() -> int:
-    import gc
-
     import numpy as np
     import torch
 
@@ -2319,18 +2545,18 @@ def main() -> int:
     flash_errs = flash_cases(torch, dev)
 
     log("== 7. reduced smollm-135m against the committed JAX golden outputs")
-    lm_golden(torch, np, dev, "smollm_smoke", "flash_attention")
+    lm_golden(torch, np, dev, "smollm_smoke")
 
     log("== 8. serve smollm-135m at full width (main path)")
     lm = serve_lm(torch, np, dev, "smollm-135m")
-    ft = flash_times(torch, lm["inputs"])
+    ft = flash_times(torch, lm["inputs"]["flash_attention"])
     dec, pre = ft["decode"], ft["prefill"]
     flash_entry = {
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
-        "launches": lm["launches"],
+        "launches": lm["launches"]["flash_attention"],
         "max_abs_err": max(*flash_errs.values(), dec["max_abs_err"], pre["max_abs_err"]),
         "ms": dec["ms"],
         "plain_ms": dec["plain_ms"],
@@ -2350,25 +2576,25 @@ def main() -> int:
     qmm_phase9 = qmm_cases(torch, dev)
 
     log("== 10. reduced falcon-mamba against the committed JAX golden outputs")
-    lm_golden(torch, np, dev, "falcon_mamba_smoke", "ssm_scan")
+    lm_golden(torch, np, dev, "falcon_mamba_smoke")
 
     log("== 11. serve falcon-mamba-7b at full width (main path); the W8A8 matmul's op")
     sm = serve_lm(torch, np, dev, "falcon-mamba-7b")
-    n_layers = sm["launches"] // NEW_TOKENS
+    n_layers = sm["launches"]["ssm_scan"] // NEW_TOKENS
     want = {"decode": n_layers * (NEW_TOKENS - 1), "prefill": n_layers}
     check(sm["launches_by_kernel"] == want,
           f"falcon-mamba's serve took the scan kernels {sm['launches_by_kernel']}, want {want}")
     log(f"serve: scan launches by kernel {sm['launches_by_kernel']}")
-    st = scan_times(torch, sm["inputs"], info)
+    st = scan_times(torch, sm["inputs"]["ssm_scan"], info)
     dec, pre = st["decode"], st["prefill"]
     entry_keys = ("shape", "kernel", "ms", "timed", "l2_warm_ms", "plain_ms", "bound_ms",
                   "bound_by", "library_ms", "library", "max_abs_err")
-    kernels["kernels"].append({
+    scan_entry = {
         "name": "ssm_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan/kernel.py:25",
-        "launches": sm["launches"],
+        "launches": sm["launches"]["ssm_scan"],
         "max_abs_err": max(scan_phase9["max_abs_err"], dec["max_abs_err"], pre["max_abs_err"]),
         "ms": dec["ms"],
         "l2_warm_ms": dec["l2_warm_ms"],
@@ -2383,7 +2609,8 @@ def main() -> int:
         "prefill": {k: pre[k] for k in entry_keys},
         "entry_points": {k: {**v, "launches": sm["launches_by_kernel"][k]}
                          for k, v in scan_phase9["entry_points"].items()},
-    })
+    }
+    kernels["kernels"].append(scan_entry)
     log("serve summary: " + json.dumps({k: v for k, v in sm.items() if k != "inputs"}))
     del sm, st
     qm = qmm_path_and_times(torch, dev)
@@ -2405,13 +2632,12 @@ def main() -> int:
 
     log("== 13. serve stablelm-3b at full width (head_dim 80)")
     sl = serve_lm(torch, np, dev, "stablelm-3b")
-    ft = flash_times(torch, {f"stablelm-3b {k}": v for k, v in sl["inputs"].items()})
+    ft = flash_times(torch, {f"stablelm-3b {k}": v
+                             for k, v in sl["inputs"]["flash_attention"].items()})
     ft.update(flash_times(torch, head_dim_inputs(torch, dev)))
-    flash_entry["head_dims"] = {
-        name: {k: row[k] for k in ("shape", "plan", "ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms", "max_abs_err")}
-        for name, row in ft.items()}
-    flash_entry["launches_stablelm_3b"] = sl["launches"]
+    flash_entry["head_dims"] = {name: {k: row[k] for k in HEAD_DIM_KEYS}
+                                for name, row in ft.items()}
+    flash_entry["launches_stablelm_3b"] = sl["launches"]["flash_attention"]
     flash_entry["max_abs_err"] = max(flash_entry["max_abs_err"],
                                      *(row["max_abs_err"] for row in ft.values()))
     log("serve summary: " + json.dumps({k: v for k, v in sl.items() if k != "inputs"}))
@@ -2434,26 +2660,23 @@ def main() -> int:
     kernels["kernels"][0]["launches_cosim"] = cs["adder_graph_launches"]
 
     log("== 17. serve qwen3-moe-30b-a3b at full width (MoE)")
-    gc.collect()  # the earlier phases' engines and weights (reference cycles included)
-    torch.cuda.empty_cache()
-    log(f"before: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, "
-        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved on the card")
-    torch.cuda.reset_peak_memory_stats()
-    mo = serve_lm(torch, np, dev, "qwen3-moe-30b-a3b")
-    mo["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    mo["bound"] = moe_decode_bound("qwen3-moe-30b-a3b")
-    log(f"qwen3-moe-30b-a3b: peak {mo['peak_allocated_gb']:.3f} GB allocated; decode step "
-        f"bound {json.dumps(mo['bound'])}; the replayed step {mo['step_ms']:.3f} ms, "
-        f"{mo['step_ms'] / mo['bound']['step_ms']:.2f}x the bound")
-    ft = flash_times(torch, {f"qwen3-moe-30b-a3b {k}": v for k, v in mo["inputs"].items()})
-    flash_entry["head_dims"].update(
-        {name: {k: row[k] for k in ("shape", "plan", "ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms", "max_abs_err")} for name, row in ft.items()})
-    flash_entry["launches_qwen3_moe"] = mo["launches"]
-    flash_entry["max_abs_err"] = max(flash_entry["max_abs_err"],
-                                     *(row["max_abs_err"] for row in ft.values()))
-    log("serve summary: " + json.dumps({k: v for k, v in mo.items() if k != "inputs"}))
-    del mo, ft
+    serve_phase(torch, np, dev, "qwen3-moe-30b-a3b", flash_entry, scan_entry, info)
+
+    log("== 18. reduced jamba, whisper and internvl2 against the committed JAX golden outputs")
+    fresh_card(torch)
+    for name in ("jamba_smoke", "whisper_smoke", "internvl2_smoke"):
+        got = lm_golden(torch, np, dev, name)
+        for kern, n in got.items():
+            (flash_entry if kern == "flash_attention" else scan_entry)[f"launches_{name}"] = n
+
+    log("== 19. serve whisper-base at full width (encoder-decoder)")
+    serve_phase(torch, np, dev, "whisper-base", flash_entry, scan_entry, info)
+
+    log("== 20. serve internvl2-26b at full width (VLM)")
+    serve_phase(torch, np, dev, "internvl2-26b", flash_entry, scan_entry, info)
+
+    log(f"== 21. serve jamba-v0.1-52b at full width, cut to {JAMBA_LAYERS} layers (hybrid)")
+    serve_phase(torch, np, dev, "jamba-v0.1-52b", flash_entry, scan_entry, info)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(info["nvidia_smi"])

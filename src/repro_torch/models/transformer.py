@@ -1,17 +1,21 @@
-"""The LM stack of the dense, MoE and SSM families: embeddings, a stack
-of pre-norm blocks (attention and a SwiGLU FFN for the dense family,
+"""The LM stack of every family of the catalog: embeddings, a stack of
+pre-norm blocks (attention and a SwiGLU FFN for the dense family,
 attention and a top-k MoE FFN -- every ``moe_every``-th layer, dense
 SwiGLU between -- for the MoE family, a Mamba-1 mixer alone for the SSM
+family, Mamba and attention at 7:1 with MoE on odd layers for the hybrid
 family), final norm and head, with a decode cache (head-major K/V, or
-the SSM's conv window and state) for prefill and decode.
+the SSM's conv window and state) for prefill and decode.  The
+encoder-decoder family (whisper) adds an encoder over stub frame
+embeddings (``enc_frames``) and a cross-attention sub-block in each
+decoder block, whose K/V are computed once at prefill into the cache's
+``cross``; the VLM family puts stub image embeddings (``img_embeds``)
+before the tokens.
 
 Parameters keep the JAX package's period-stacked layout: every leaf of a
 block carries a leading ``n_periods`` dim, so a JAX parameter pytree
 carries across leaf for leaf (:func:`params_from_numpy`).  A Python loop
 over the periods takes the place of ``lax.scan``; remat, sharding and
-abstract parameters have no counterpart on one device.  The hybrid,
-encoder-decoder and VLM families are not ported yet (ROADMAP Queue 1)
-and raise ``NotImplementedError``.
+abstract parameters have no counterpart on one device.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 
 from .._device import resolve_device
 from ..configs.base import ATTN, MLP, MOE, SSM, ArchConfig
-from .attention import attention_block
+from .attention import attention_block, precompute_cross_cache
 from .layers import embed_tokens, rmsnorm, swiglu, unembed
 from .moe import moe_block
 from .ssm import mamba_block
@@ -42,18 +46,13 @@ class PSpec:
     fan_in_axis: int | None = None  # for 1/sqrt(fan_in) scaling
 
 
-_PORTED = ("dense", "moe", "ssm")  # families the port runs
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is of the dense, MoE
-    or SSM family."""
-    if cfg.family not in _PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP Queue 1: "
-            "the hybrid family, then encoder-decoder and VLM); the port runs the "
-            "dense, MoE and SSM families only"
-        )
+    """Raise ``ValueError`` unless ``cfg`` is of one of the ``FAMILIES``."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}, not one of {FAMILIES}")
 
 
 def torch_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -114,7 +113,8 @@ def _moe_specs(cfg: ArchConfig, periods: int) -> dict:
     }
 
 
-def _block_specs(cfg: ArchConfig, mixer: str, ffn: str | None, periods: int) -> dict:
+def _block_specs(cfg: ArchConfig, mixer: str, ffn: str | None, periods: int,
+                 cross: bool = False) -> dict:
     d = cfg.d_model
     p = (periods,)
     s: dict = {"norm1": PSpec(p + (d,), "ones")}
@@ -122,6 +122,9 @@ def _block_specs(cfg: ArchConfig, mixer: str, ffn: str | None, periods: int) -> 
         s[ATTN] = _attn_specs(cfg, periods)
     else:
         s[SSM] = _ssm_specs(cfg, periods)
+    if cross:  # an encoder-decoder's decoder block
+        s["norm_x"] = PSpec(p + (d,), "ones")
+        s["cross"] = _attn_specs(cfg, periods)
     if ffn is not None:  # a block without an FFN (the SSM family's) has no norm2
         s["norm2"] = PSpec(p + (d,), "ones")
         s[ffn] = _mlp_specs(cfg, periods) if ffn == MLP else _moe_specs(cfg, periods)
@@ -132,14 +135,21 @@ def param_specs(cfg: ArchConfig) -> dict:
     check_supported(cfg)
     d, v = cfg.d_model, cfg.padded_vocab
     period, n_periods = cfg.layer_pattern()
+    cross = cfg.family == "encdec"
     specs: dict = {
         "embed": PSpec((v, d), "embed"),
         "final_norm": PSpec((d,), "ones"),
-        "blocks": [_block_specs(cfg, mixer, ffn, n_periods) for mixer, ffn in period],
+        "blocks": [_block_specs(cfg, mixer, ffn, n_periods, cross) for mixer, ffn in period],
     }
     if not cfg.tie_embeddings:
         specs["head"] = PSpec((d, v), fan_in_axis=0)
+    if cross:
+        specs["enc_blocks"] = [_block_specs(cfg, ATTN, MLP, cfg.encoder_layers)]
+        specs["enc_final_norm"] = PSpec((d,), "ones")
     return specs
+
+
+_STACKED = ("blocks", "enc_blocks")  # lists of period-stacked blocks
 
 
 def tree_map(fn, tree):
@@ -198,10 +208,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None) -> dic
             piece.copy_(w * scale)
         return out
 
-    specs = param_specs(cfg)
-    params = {k: make(v, False) for k, v in specs.items() if k != "blocks"}
-    params["blocks"] = tree_map(lambda spec: make(spec, True), specs["blocks"])
-    return params
+    return {k: tree_map(lambda spec: make(spec, True), v) if k in _STACKED else make(v, False)
+            for k, v in param_specs(cfg).items()}
 
 
 def params_from_numpy(cfg: ArchConfig, tree, device=None) -> dict:
@@ -249,17 +257,26 @@ def unflatten(flat) -> dict:
 # ----------------------------------------------------------------------
 # Stack application
 # ----------------------------------------------------------------------
-def _apply_block(cfg, bp, mixer, ffn, x, positions, cache, pos):
-    """One block; ``cache`` is this layer's slice, updated in place.
-    Returns (x, the MoE aux loss or None)."""
+def _apply_block(cfg, bp, mixer, ffn, x, positions, cache, pos, causal=True, enc_out=None,
+                 cross_cache=None):
+    """One block; ``cache`` is this layer's slice, updated in place, and
+    ``cross_cache`` its precomputed cross K/V (read only).  Returns (x,
+    the MoE aux loss or None)."""
     aux = None
     h = rmsnorm(x, bp["norm1"])
     if mixer == ATTN:
         attn_cache = None if cache is None else {"k": cache["k"], "v": cache["v"], "pos": pos}
-        h, _ = attention_block(cfg, bp[ATTN], h, positions, attn_cache)
+        h, _ = attention_block(cfg, bp[ATTN], h, positions, attn_cache, causal)
     else:
         h = mamba_block(cfg, bp[SSM], h, cache)
     x = x + h
+    if enc_out is not None or cross_cache is not None:
+        h = rmsnorm(x, bp["norm_x"])
+        if cross_cache is None:
+            h, _ = attention_block(cfg, bp["cross"], h, positions, None, False, enc_out)
+        else:  # K/V from the cross cache; kv_source only flags the cross path
+            h, _ = attention_block(cfg, bp["cross"], h, positions, cross_cache, False, h)
+        x = x + h
     if ffn == MLP:
         h = rmsnorm(x, bp["norm2"])
         m = bp[MLP]
@@ -270,20 +287,46 @@ def _apply_block(cfg, bp, mixer, ffn, x, positions, cache, pos):
     return x, aux
 
 
-def _apply_stack(cfg, blocks, x, positions, caches=None, pos=None):
-    """Run the layer stack, one period at a time.  ``blocks`` and
-    ``caches``: one period-stacked tree per period position; the caches
-    are updated in place.  Returns (x, the summed MoE aux loss, f32)."""
-    pattern, n_periods = cfg.layer_pattern()
+def _apply_stack(cfg, blocks, pattern, x, positions, caches=None, pos=None, causal=True,
+                 enc_out=None, cross_caches=None):
+    """Run the layer stack of ``pattern`` (one period of (mixer, ffn)),
+    one period at a time.  ``blocks``, ``caches`` and ``cross_caches``:
+    one period-stacked tree per period position; the caches are updated
+    in place.  Returns (x, the summed MoE aux loss, f32)."""
+    n_periods = blocks[0]["norm1"].shape[0]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for t in range(n_periods):
         for i, (mixer, ffn) in enumerate(pattern):
-            bp = tree_map(lambda a, t=t: a[t], blocks[i])
-            c = None if caches is None else tree_map(lambda a, t=t: a[t], caches[i])
-            x, a = _apply_block(cfg, bp, mixer, ffn, x, positions, c, pos)
+            bp, c, cc = (None if tree is None else tree_map(lambda a: a[t], tree[i])
+                         for tree in (blocks, caches, cross_caches))
+            x, a = _apply_block(cfg, bp, mixer, ffn, x, positions, c, pos, causal, enc_out, cc)
             if a is not None:
                 aux = aux + a
     return x, aux
+
+
+def _encode(cfg, params, enc_frames):
+    """The whisper-style encoder over stub frame embeddings [B, T, D]:
+    full self-attention blocks, then the encoder's final norm."""
+    positions = torch.arange(enc_frames.shape[1], device=enc_frames.device)
+    x, _ = _apply_stack(cfg, params["enc_blocks"], [(ATTN, MLP)], enc_frames, positions,
+                        causal=False)
+    return rmsnorm(x, params["enc_final_norm"])
+
+
+def _build_cross_caches(cfg, params, enc_out, out):
+    """Write the cross-attention K/V of every decoder block over the
+    encoder output [B, encoder_seq, D] into ``out``, a cache's ``cross``
+    (per period position, [n_periods, B, Hkv, encoder_seq, hd]): the same
+    tensors, which a captured decode step reads."""
+    for bp, cc in zip(params["blocks"], out):
+        for t in range(bp["norm1"].shape[0]):
+            new = precompute_cross_cache(cfg, {k: w[t] for k, w in bp["cross"].items()}, enc_out)
+            if new["k"].shape != cc["k"][t].shape:
+                raise ValueError(f"encoder output {tuple(enc_out.shape)} does not fit the cross "
+                                 f"cache {tuple(cc['k'].shape)} (encoder_seq {cfg.encoder_seq})")
+            cc["k"][t].copy_(new["k"])
+            cc["v"][t].copy_(new["v"])
 
 
 def _head(cfg, params, x):
@@ -294,17 +337,35 @@ def _head(cfg, params, x):
 # ----------------------------------------------------------------------
 # Public model functions
 # ----------------------------------------------------------------------
+def _embed_inputs(cfg, params, batch):
+    """The token embeddings, after the VLM's image embeddings (cast to
+    their dtype) where the family has them, and the encoder's output for
+    an encoder-decoder (else None).  Returns (x, n_img, enc_out)."""
+    x = embed_tokens(params["embed"], batch["tokens"])
+    n_img = 0
+    if cfg.family == "vlm":
+        img = batch["img_embeds"].to(x.dtype)  # [B, vt, D] (frontend stub)
+        x = torch.cat([img, x], dim=1)
+        n_img = img.shape[1]
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_out = _encode(cfg, params, batch["enc_frames"].to(x.dtype))
+    return x, n_img, enc_out
+
+
 def forward(cfg: ArchConfig, params: dict, batch: dict):
-    """Training/prefill forward without a cache.  batch: tokens [B, S].
-    Returns (logits [B, S, Vp], aux_loss): the MoE layers' summed Switch
-    load-balance loss (f32; 0 without MoE layers)."""
+    """Training/prefill forward without a cache.  batch: tokens [B, S],
+    and ``enc_frames`` [B, T, D] (encoder-decoder) or ``img_embeds`` [B,
+    vt, D] (VLM).  Returns (logits [B, S, Vp] of the text positions,
+    aux_loss): the MoE layers' summed Switch load-balance loss (f32; 0
+    without MoE layers)."""
     check_supported(cfg)
-    tokens = batch["tokens"]
-    x = embed_tokens(params["embed"], tokens)
+    x, n_img, enc_out = _embed_inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, aux = _apply_stack(cfg, params["blocks"], x, positions)
+    pattern, _ = cfg.layer_pattern()
+    x, aux = _apply_stack(cfg, params["blocks"], pattern, x, positions, enc_out=enc_out)
     x = rmsnorm(x, params["final_norm"])
-    return _head(cfg, params, x), aux
+    return _head(cfg, params, x[:, n_img:, :]), aux
 
 
 def kv_cache_heads(cfg: ArchConfig) -> int:
@@ -318,7 +379,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None) -> dict:
     a head-major ``k``/``v`` of [n_periods, B, H, max_seq, hd] in
     ``cfg.dtype`` for attention, or the SSM's ``conv`` window [n_periods,
     B, k-1, d_inner] in ``cfg.dtype`` and state ``h`` [n_periods, B,
-    d_inner, N] in f32; and ``pos``, an int32 scalar tensor on the device."""
+    d_inner, N] in f32; ``pos``, an int32 scalar tensor on the device;
+    and for an encoder-decoder ``cross``, the cross-attention K/V of
+    [n_periods, B, H, encoder_seq, hd], filled by prefill."""
     check_supported(cfg)
     dev = resolve_device(device)
     period, n_periods = cfg.layer_pattern()
@@ -335,41 +398,56 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None) -> dict:
         else:
             blocks.append({"conv": zeros(cfg.ssm_conv - 1, cfg.d_inner),
                            "h": zeros(cfg.d_inner, cfg.ssm_state, dt=torch.float32)})
-    return {"blocks": blocks, "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    cache = {"blocks": blocks, "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    if cfg.family == "encdec":
+        shp = (cfg.n_kv_heads, cfg.encoder_seq, cfg.hd)
+        cache["cross"] = [{"k": zeros(*shp), "v": zeros(*shp)}]
+    return cache
 
 
 def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache: dict):
     """One-token decode. tokens: [B, 1].  Returns (logits [B, Vp], cache).
-    The cache's tensors are written in place; the returned cache shares
-    them and carries ``pos + 1``.  Nothing here syncs the host."""
+    The cache's tensors are written in place (the cross cache is only
+    read); the returned cache shares them and carries ``pos + 1``.
+    Nothing here syncs the host."""
     check_supported(cfg)
     x = embed_tokens(params["embed"], tokens)
     pos = cache["pos"]
     positions = pos.reshape(1, 1).expand(x.shape[0], 1)
-    x, _ = _apply_stack(cfg, params["blocks"], x, positions, caches=cache["blocks"], pos=pos)
+    pattern, _ = cfg.layer_pattern()
+    cross = cache.get("cross")
+    x, _ = _apply_stack(cfg, params["blocks"], pattern, x, positions, caches=cache["blocks"],
+                        pos=pos, cross_caches=cross)
     x = rmsnorm(x, params["final_norm"])
     logits = _head(cfg, params, x)[:, 0, :]
-    return logits, {"blocks": cache["blocks"], "pos": pos + 1}
+    return logits, {**cache, "pos": pos + 1}
 
 
 def prefill(cfg: ArchConfig, params: dict, batch: dict, max_seq: int, cache: dict | None = None):
-    """Prefill: forward over the prompt, building the decode cache on the
-    tokens' device.  Returns (logits of the last position [B, Vp], cache).
-    ``cache``, where given (one of ``init_cache(cfg, B, max_seq)``), is
-    zeroed and written in place instead of a new one: the serving engine
-    keeps one static cache for its decode graph."""
+    """Prefill: forward over the prompt (after the VLM's image embeddings;
+    an encoder-decoder first runs its encoder and fills the cross cache),
+    building the decode cache on the tokens' device.  Returns (logits of
+    the last position [B, Vp], cache).  ``cache``, where given (one of
+    ``init_cache(cfg, B, max_seq)``), is written in place instead of a new
+    one, its self-attention and SSM entries zeroed first: the serving
+    engine keeps one static cache, cross K/V included, for its decode
+    graph."""
     check_supported(cfg)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
+    x, _, enc_out = _embed_inputs(cfg, params, batch)
+    b, s = x.shape[:2]
     if s > max_seq:
-        raise ValueError(f"prefill length {s} exceeds cache size {max_seq}")
+        raise ValueError(f"prefill length {s} (vision tokens included) exceeds cache size "
+                         f"{max_seq}")
     if cache is None:
-        cache = init_cache(cfg, b, max_seq, device=tokens.device)
+        cache = init_cache(cfg, b, max_seq, device=x.device)
     else:
-        tree_map(lambda t: t.zero_(), cache)
-    x = embed_tokens(params["embed"], tokens)
+        tree_map(lambda t: t.zero_(), cache["blocks"])
+    if enc_out is not None:
+        _build_cross_caches(cfg, params, enc_out, cache["cross"])
     positions = torch.arange(s, device=x.device)
-    x, _ = _apply_stack(cfg, params["blocks"], x, positions, caches=cache["blocks"], pos=0)
+    pattern, _ = cfg.layer_pattern()
+    x, _ = _apply_stack(cfg, params["blocks"], pattern, x, positions, caches=cache["blocks"],
+                        pos=0, enc_out=enc_out, cross_caches=cache.get("cross"))
     x = rmsnorm(x, params["final_norm"])
     logits = _head(cfg, params, x[:, -1:, :])[:, 0, :]
     cache["pos"].fill_(s)

@@ -14,11 +14,16 @@ static state: the decode cache (K/V preallocated to ``max_seq``, or the
 SSM's conv window and state), a token buffer and the cache position,
 which the captured body writes back.  A decode step is then a token copy
 and one replay.  Prefill runs eagerly, once per batch, into the static
-cache.  The pick (argmax, or a categorical draw from the engine's
+cache; an encoder-decoder's prefill writes the new encoder output's
+cross K/V into the static cross cache, the tensors the graph reads.  The
+pick (argmax, or a categorical draw from the engine's
 generator) stays outside the graph; its ``tolist`` syncs the host each
 step, as the JAX engine's ``np.asarray(tok)`` does.  On the CPU both run
 eagerly and each batch gets a fresh cache.  The SSM blocks' f32 leaves
-are cast once, when the parameters move to the device.
+are cast once, when the parameters move to the device.  ``extra_inputs``
+(``enc_frames`` of an encoder-decoder, ``img_embeds`` of a VLM: the
+stub front ends' outputs) are given once per engine, moved to its device
+and added to every batch, as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -49,6 +54,8 @@ class Engine:
     with ``device="cpu"``.  ``params`` are moved to the device.  Sampling
     is greedy, or categorical at ``temperature`` from ``generator`` (a
     ``torch.Generator`` on the device; by default one seeded with 0).
+    ``extra_inputs`` (tensors or numpy arrays, each with the batch
+    dimension ``batch_size``) join every batch's ``tokens``.
 
     On the card ``decode_graph`` is the captured decode step (its
     ``launches_by_kernel()`` are the kernel launches of one replay), over
@@ -66,6 +73,7 @@ class Engine:
         temperature: float = 1.0,
         device=None,
         generator: torch.Generator | None = None,
+        extra_inputs: dict | None = None,
     ):
         check_supported(cfg)
         if sample not in ("greedy", "categorical"):
@@ -84,6 +92,8 @@ class Engine:
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
         self.generator = generator
+        self.extra_inputs = {k: torch.as_tensor(v).to(self.device)
+                             for k, v in (extra_inputs or {}).items()}
         self.decode_graph: CapturedGraph | None = None
         self.static_cache: dict | None = None
         self.static_tokens: torch.Tensor | None = None
@@ -121,9 +131,9 @@ class Engine:
         while len(requests) < self.batch_size:
             requests.append(Request(requests[0].prompt, 0, done=True))
         prompts = np.stack([np.asarray(r.prompt, np.int64) for r in requests])
-        tokens = torch.from_numpy(prompts).to(self.device)
+        batch = {"tokens": torch.from_numpy(prompts).to(self.device), **self.extra_inputs}
         graph = self.decode_graph
-        logits, cache = prefill(self.cfg, self.params, {"tokens": tokens}, self.max_seq,
+        logits, cache = prefill(self.cfg, self.params, batch, self.max_seq,
                                 cache=None if graph is None else self.static_cache)
         tok = self._pick(logits)
         budget = max(r.max_new_tokens for r in requests)

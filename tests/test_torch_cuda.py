@@ -12,10 +12,15 @@ granite-20b's 48:1 group; the hand-written selective-scan kernels (decode at eve
 to 16, prefill) against their plain version (atol 1e-5, the JAX kernel
 tests' own) and the W8A8 matmul kernels (TMA/wgmma and mma.sync)
 against their plain version (exact); and the reduced smollm-135m
-and falcon-mamba LMs against their committed JAX golden tokens (exact)
-and logits (atol 1e-4 in float32).  The serving paths run through CUDA
+falcon-mamba, jamba, whisper and internvl2 LMs against their committed
+JAX golden tokens (exact) and logits (atol 1e-4 in float32); flash at
+the regimes of those three families at full width (non-causal 1500 x
+1500, cross-attention over 1500 frames at prefill and decode, GQA groups
+6 and 4 at head_dim 128, a 384-row prefill).  The serving paths run through CUDA
 graphs: the LM engine's replayed decode step gives exactly the tokens of
-an eager loop over ``prefill``/``decode_step``, the DA engine's graphs
+an eager loop over ``prefill``/``decode_step`` (for the hybrid,
+encoder-decoder and VLM families too, whose static cross cache is never
+rebound), the DA engine's graphs
 (two shards) give the golden outputs bit for bit with one capture per
 shard and bucket used, and with ``fallback="interpreter"`` and every
 dispatch failing the numpy interpreter serves the golden outputs (every
@@ -496,9 +501,11 @@ def test_lm_asset_reproduces_jax_golden(card, asset, counter):
 
 
 def _eager_tokens(cfg, params, prompts, max_seq, n_new):
-    """Greedy tokens of an eager loop over prefill and decode_step."""
+    """Greedy tokens of an eager loop over prefill and decode_step;
+    ``prompts`` is the tokens, or a whole batch with extra inputs."""
+    batch = prompts if isinstance(prompts, dict) else {"tokens": prompts}
     with torch.inference_mode():
-        logits, cache = prefill(cfg, params, {"tokens": prompts}, max_seq)
+        logits, cache = prefill(cfg, params, batch, max_seq)
         tok = logits.argmax(-1)
         out = [tok]
         for _ in range(n_new - 1):
@@ -535,6 +542,133 @@ def test_graph_replayed_tokens_equal_an_eager_loop(card, name, dtype):
         want = _eager_tokens(cfg, eng.params, torch.from_numpy(prompts.astype(np.int64)).to(card),
                              48, 9)
         assert [r.out_tokens for r in reqs] == want
+
+
+def _stub_inputs(cfg, b, card, seed=0):
+    """A family's stub front-end outputs for a batch of ``b``, on the card."""
+    g = torch.Generator(card).manual_seed(seed)
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
+    rows = {"encdec": ("enc_frames", cfg.encoder_seq), "vlm": ("img_embeds", cfg.vision_tokens)}
+    if cfg.family not in rows:
+        return {}
+    name, n = rows[cfg.family]
+    return {name: torch.randn(b, n, cfg.d_model, generator=g, device=card).to(dtype)}
+
+
+def _calls_per_step(cfg):
+    """Flash and scan launches of one prefill and of one decode step."""
+    pattern, n_periods = cfg.layer_pattern()
+    attn = sum(m == "attn" for m, _ in pattern) * n_periods
+    scan = sum(m == "ssm" for m, _ in pattern) * n_periods
+    cross = len(pattern) * n_periods if cfg.family == "encdec" else 0
+    enc = cfg.encoder_layers if cfg.family == "encdec" else 0
+    return {fa_kernel: (attn + cross + enc, attn + cross), ss_kernel: (scan, scan)}
+
+
+@pytest.mark.parametrize("asset", ["jamba_smoke", "whisper_smoke", "internvl2_smoke"])
+def test_family_asset_reproduces_jax_golden(card, asset):
+    """A reduced hybrid, encoder-decoder or VLM from its committed JAX
+    weights and stub inputs, served on the card through
+    ``Engine(extra_inputs=...)``: the JAX engine's greedy tokens exactly,
+    prefill and first decode logits within 1e-4, each kernel launched
+    once per attention (or cross-attention, or Mamba) layer per step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    asset = ASSETS / asset
+    manifest = json.loads((asset / "manifest.json").read_text())
+    cfg = configs.get_smoke(manifest["arch"], **manifest["smoke_kwargs"])
+    with np.load(asset / "weights.npz") as w:
+        params = params_from_numpy(cfg, unflatten(dict(w)))
+    with np.load(asset / "golden.npz") as g:
+        golden = dict(g)
+    extra = {k: torch.from_numpy(golden[k]) for k in manifest["extra_inputs"]}
+    reqs = [Request(p, int(n)) for p, n in zip(golden["prompts"], golden["max_new_tokens"])]
+    eng = Engine(cfg, params, manifest["batch_size"], manifest["max_seq"],
+                 eos_id=manifest["eos_id"], extra_inputs=extra)
+    per_step = _calls_per_step(cfg)
+    want = {c.launches.name: dec for c, (_, dec) in per_step.items() if dec}
+    got = eng.decode_graph.launches_by_kernel()
+    assert {k: got.get(k, 0) for k in (fa_kernel.launches.name, ss_kernel.launches.name)
+            if got.get(k)} == want
+    before = {c: c.launches.value for c in per_step}
+    eng.generate(reqs)
+    for c, (pre, dec) in per_step.items():
+        assert c.launches.value - before[c] == pre + dec * manifest["decode_steps"]
+    for r, want in zip(reqs, golden["tokens"]):
+        assert r.out_tokens == [int(t) for t in want if t >= 0]
+    batch = {"tokens": torch.from_numpy(np.stack([r.prompt for r in reqs])).to(card),
+             **{k: v.to(card) for k, v in extra.items()}}
+    logits, cache = prefill(cfg, params, batch, manifest["max_seq"])
+    np.testing.assert_allclose(logits.cpu().numpy(), golden["prefill_logits"], atol=1e-4, rtol=0)
+    logits, _ = decode_step(cfg, params, logits.argmax(-1)[:, None], cache)
+    np.testing.assert_allclose(logits.cpu().numpy(), golden["decode_logits"], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["jamba-v0.1-52b", "whisper-base", "internvl2-26b"])
+def test_family_graph_tokens_equal_an_eager_loop(card, name):
+    """The hybrid, encoder-decoder and VLM families in bf16 through the
+    engine's decode graph, in two engines with other stub inputs (given
+    per engine), each serving two batches: the greedy tokens of an eager
+    loop exactly, and the static cache's tensors, cross K/V included, the
+    same before and after (prefill writes into them; the graph reads them)."""
+    cfg = dataclasses.replace(configs.get_smoke(name), dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(card).manual_seed(0), device=card)
+    rng = np.random.default_rng(0)
+    for seed in (0, 1):
+        extra = _stub_inputs(cfg, 4, card, seed)
+        eng = Engine(cfg, params, 4, 48, eos_id=-1, extra_inputs=extra)
+        ptrs = [t.data_ptr() for t in _leaves(eng.static_cache)]
+        for prompt_len in (11, 20):
+            prompts = rng.integers(2, cfg.vocab_size, size=(4, prompt_len)).astype(np.int32)
+            reqs = [Request(p, 9) for p in prompts]
+            eng.generate(reqs)
+            batch = {"tokens": torch.from_numpy(prompts.astype(np.int64)).to(card), **extra}
+            assert [r.out_tokens for r in reqs] == _eager_tokens(cfg, eng.params, batch, 48, 9)
+        assert [t.data_ptr() for t in _leaves(eng.static_cache)] == ptrs
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", [
+    (8, 8, 8, 1500, 1500, 64, False),  # whisper-base's encoder: Sk not a multiple of a key tile
+    (8, 8, 8, 128, 1500, 64, False),  # whisper's cross-attention at prefill
+    (8, 8, 8, 1, 1500, 64, False),  # whisper's cross-attention at decode: 2 splits of 750 keys
+    (8, 48, 8, 384, 384, 128, True),  # internvl2-26b's prefill: 256 vision + 128 text rows
+    (8, 32, 8, 128, 128, 128, True),  # jamba's prefill, group 4
+])
+def test_flash_at_the_families_regimes(card, dtype, b, hq, hkv, sq, sk, d, causal):
+    """Flash against its plain version at the full-width shapes of the
+    encoder-decoder, VLM and hybrid paths."""
+    q, k, v = _qkv(card, dtype, b, hq, hkv, sq, sk, d, seed=sq + sk)
+    plan = fa_kernel.flash_plan(b, hq, hkv, sq, sk, dtype)
+    if sq == 1:
+        assert plan == fa_kernel.FlashPlan("decode", 2)
+    got = flash_attention(q, k, v, causal=causal)
+    want = attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=FA_ATOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq", [48, 32])  # internvl2-26b's group 6, jamba's group 4
+@pytest.mark.parametrize("pos", [0, 160, 416, 511])
+def test_flash_decode_at_groups_6_and_4_head_dim_128(card, dtype, hq, pos):
+    """Decode at head_dim 128 with 8 KV heads and GQA group 6 or 4 (the
+    decode kernel's 16-row tile, partly filled), against a cache whose
+    slots past ``pos`` hold garbage."""
+    q, k, v = _qkv(card, dtype, 8, hq, 8, 1, 512, 128, seed=hq * 1000 + pos)
+    k[:, :, pos + 1:] = 1e4
+    v[:, :, pos + 1:] = -1e4
+    assert fa_kernel.flash_plan(8, hq, 8, 1, 512, dtype).kernel == "decode"
+    got = flash_attention(q, k, v, causal=True, offset=torch.tensor(pos, dtype=torch.int32,
+                                                                    device=card))
+    want = attention_ref(q, k[:, :, : pos + 1], v[:, :, : pos + 1], causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=FA_ATOL[dtype], rtol=0)
 
 
 # ----------------------------------------------------------------------

@@ -34,7 +34,6 @@ from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.models import (
     decode_step,
     forward,
-    init_cache,
     init_params,
     layers,
     param_specs,
@@ -42,7 +41,6 @@ from repro_torch.models import (
     prefill,
     unflatten,
 )
-from repro_torch.models.attention import attention_block
 from repro_torch.serve import Engine, Request
 
 ASSET = Path(__file__).resolve().parent.parent / "src" / "repro_torch" / "assets" / "smollm_smoke"
@@ -93,20 +91,6 @@ def test_config_registry_and_shapes_equal_reference():
     assert configs.get("smollm-135m").param_count() == 162_826_560
 
 
-@pytest.mark.parametrize(  # the dense, SSM and MoE families are ported (test_torch_ssm.py,
-    # test_torch_moe.py)
-    "name", sorted(n for n, c in jax_configs.ARCHS.items()
-                   if c.family not in ("dense", "ssm", "moe")))
-def test_other_families_raise(name):
-    cfg = configs.get_smoke(name)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        param_specs(cfg)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Engine(cfg, {}, 1, 8, device="cpu")
-
-
 # ----------------------------------------------------------------------
 # layers, one by one
 # ----------------------------------------------------------------------
@@ -140,14 +124,6 @@ def test_rmsnorm_and_rope_keep_bf16():
     x = torch.randn(2, 3, 4, 16, generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
     assert layers.rmsnorm(x, torch.ones(16)).dtype == torch.bfloat16
     assert layers.rope(x, torch.arange(3), 1e4).dtype == torch.bfloat16
-
-
-def test_cross_attention_is_refused(smollm):
-    cfg, _, _, params = smollm
-    bp = {k: v[0] for k, v in params["blocks"][0]["attn"].items()}
-    x = torch.zeros(1, 2, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        attention_block(cfg, bp, x, torch.arange(2), kv_source=x)
 
 
 # ----------------------------------------------------------------------

@@ -17,19 +17,29 @@ smallest integer type that holds the grid), and ``y``, the JAX
 ``forward_int`` of ``x`` as int32, checked equal to the numpy
 interpreter before it is written.
 
-It also writes two LM assets, each a reduced float32 config with
+It also writes five LM assets, each a reduced float32 config with
 weights from ``init_params(cfg, PRNGKey(0))`` in ``weights.npz`` (keys
 are ``"/"``-joined tree paths), and in ``golden.npz`` the JAX
 ``Engine``'s greedy serve of three prompts (``default_rng(0)``) padded to
 a batch of 4: the prompts, each request's ``max_new_tokens`` and output
-tokens, and the logits of prefill and of the first decode step.
-``manifest.json`` holds the engine's settings, the number of decode
-steps it ran and the smallest gap between the top two logits of any
-greedy pick.
+tokens, and the logits of prefill and of the first decode step.  An
+encoder-decoder or VLM asset also stores the engine's ``extra_inputs``,
+float32 standard normals drawn from another ``default_rng(0)`` for the
+batch of 4: ``enc_frames`` [4, encoder_seq, d_model] or ``img_embeds``
+[4, vision_tokens, d_model].  ``manifest.json`` holds the engine's
+settings, the names of its extra inputs, the number of decode steps it
+ran and the smallest gap between the top two logits of any greedy pick.
 
     smollm_smoke        configs.get_smoke("smollm-135m", n_heads=9, n_kv_heads=3)
     falcon_mamba_smoke  configs.get_smoke("falcon-mamba-7b"): 2 Mamba-1 layers,
                         d_model 64, d_inner 128, state 8
+    jamba_smoke         configs.get_smoke("jamba-v0.1-52b"): 16 layers (14 Mamba,
+                        2 attention), d_model 64, 8 experts top-2 on odd layers,
+                        capacity factor 4 (no drops)
+    whisper_smoke       configs.get_smoke("whisper-base"): 2 encoder and 2 decoder
+                        layers, d_model 64, encoder_seq 16
+    internvl2_smoke     configs.get_smoke("internvl2-26b"): 2 layers, d_model 64,
+                        8 vision tokens
 
 Run from the repository root:
 
@@ -140,7 +150,22 @@ LMS = {
     "smollm_smoke": {"arch": "smollm-135m", "smoke_kwargs": {"n_heads": 9, "n_kv_heads": 3},
                      **_SERVE},
     "falcon_mamba_smoke": {"arch": "falcon-mamba-7b", "smoke_kwargs": {}, **_SERVE},
+    "jamba_smoke": {"arch": "jamba-v0.1-52b", "smoke_kwargs": {}, **_SERVE},
+    "whisper_smoke": {"arch": "whisper-base", "smoke_kwargs": {}, **_SERVE},
+    "internvl2_smoke": {"arch": "internvl2-26b", "smoke_kwargs": {}, **_SERVE},
 }
+
+
+def extra_inputs(cfg, batch: int) -> dict:
+    """The stub front ends' outputs of an encoder-decoder or VLM asset."""
+    rng = np.random.default_rng(0)
+    if cfg.family == "encdec":
+        return {"enc_frames": rng.standard_normal((batch, cfg.encoder_seq, cfg.d_model))
+                .astype(np.float32)}
+    if cfg.family == "vlm":
+        return {"img_embeds": rng.standard_normal((batch, cfg.vision_tokens, cfg.d_model))
+                .astype(np.float32)}
+    return {}
 
 
 def make_lm_smoke(name: str) -> None:
@@ -150,7 +175,10 @@ def make_lm_smoke(name: str) -> None:
     rng = np.random.default_rng(0)
     prompts = rng.integers(2, cfg.vocab_size, size=(len(m["max_new_tokens"]), m["prompt_len"]))
     prompts = prompts.astype(np.int32)
-    eng = Engine(cfg, params, m["batch_size"], m["max_seq"], eos_id=m["eos_id"])
+    extra = extra_inputs(cfg, m["batch_size"])
+    m["extra_inputs"] = sorted(extra)
+    eng = Engine(cfg, params, m["batch_size"], m["max_seq"], eos_id=m["eos_id"],
+                 extra_inputs={k: jnp.asarray(v) for k, v in extra.items()})
     picked, n_decode = [], [0]
     pick, decode = eng._pick, eng._decode
 
@@ -172,7 +200,7 @@ def make_lm_smoke(name: str) -> None:
     top2 = np.sort(np.concatenate(picked), axis=-1)[:, -2:]
     # prefill and the first decode step, called as the engine calls them
     padded = np.stack([r.prompt for r in reqs])
-    logits0, cache = eng._prefill(params, {"tokens": jnp.asarray(padded)})
+    logits0, cache = eng._prefill(params, {"tokens": jnp.asarray(padded), **eng.extra_inputs})
     logits1, _ = decode(params, jnp.argmax(logits0, axis=-1)[:, None], cache)
     np.testing.assert_array_equal(np.asarray(logits0, np.float32), picked[0])
     m.update(decode_steps=n_decode[0], min_top2_gap=float((top2[:, 1] - top2[:, 0]).min()),
@@ -185,7 +213,7 @@ def make_lm_smoke(name: str) -> None:
     np.savez_compressed(
         out / "golden.npz", prompts=prompts, max_new_tokens=np.asarray(m["max_new_tokens"]),
         tokens=tokens, prefill_logits=np.asarray(logits0, np.float32),
-        decode_logits=np.asarray(logits1, np.float32),
+        decode_logits=np.asarray(logits1, np.float32), **extra,
     )
     (out / "manifest.json").write_text(json.dumps(m, indent=1) + "\n")
     size = sum(f.stat().st_size for f in out.iterdir())
