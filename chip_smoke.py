@@ -4,7 +4,7 @@
     python3 chip_smoke.py            (from the repository root)
 
 Builds every CUDA kernel of the port from the sources in the checkout,
-then runs twenty-one phases, each of which must pass:
+then runs twenty-five phases, each of which must pass:
 
 1. probe    the card (``nvidia-smi`` name and power limit), CUDA and nvcc
             versions, ptxas resource usage of each kernel, and that
@@ -212,7 +212,43 @@ then runs twenty-one phases, each of which must pass:
             experts top-2 on odd layers, d_ff 14336, bf16, 26,053,480,448
             parameters); 128 flash launches, 14 on the scan's prefill kernel
             and 882 on its decode kernel; held by the MoE rule with both
-            ops swapped; flash and the scan timed at the path's inputs.
+            ops swapped; flash and the scan timed at the path's inputs;
+22. bwd     both backward kernels against their plain versions on the
+            card: flash in f32 and bf16 at head_dim 16/32/64/80/112/128,
+            GQA groups 1 to 4, causal and full, Sq < Sk, held to the f32
+            gradient of the same inputs (2e-5 f32, 2^-6 bf16, relative to
+            the largest element); the scan at ragged channels, N 1/4/5/16,
+            S 1 to 128, with and without dh, held to the plain backward
+            (2e-5); every case launched twice, bit-equal;
+23. train   the training main path at full width: smollm-135m (162,826,560
+            parameters, bf16, AdamW with an f32 master, remat "full")
+            through ``Trainer`` and ``Pipeline`` at the launcher's defaults
+            (seq 128, batch 8, lr 3e-3).  First-step gradients of every
+            parameter against the plain path (each op swapped for its plain
+            version), per leaf within GRAD_BF16_REL of its largest element,
+            beside another correct plain version's distance, and wq, wk, wv
+            and wo non-zero; 20 steps counted (30 x 2 flash forward and 30
+            backward launches a step, no other kernel), loss falling; a
+            crash at step 5 by ``fail_hook``, resumed from the async
+            checkpoint of step 4, reaches the uninterrupted run's
+            parameters at step 8 bit for bit; the flash backward at one of
+            the main path's backward calls against the f32 gradient and
+            the plain backward, timed beside its bound and SDPA's backward;
+            a timed stretch at seq 1024, batch 16: step ms, tokens/s, peak
+            memory and the model-FLOPs share of the bf16 dense peak;
+24. train   falcon-mamba-7b at full width cut to 8 of its 64 layers
+            (1,375,113,216 parameters): first-step gradients of an f32 copy
+            against the plain path within 1e-4 of the largest element, and
+            in_proj, a_log, x_proj, dt_proj and conv non-zero; 10 steps of
+            ``make_train_step`` with int8 moments (8 x 2 scan forward, all
+            on the prefill kernel, and 8 backward launches a step), loss
+            falling; the scan backward at the main path's inputs timed
+            beside its bound;
+25. qat     the jet tagger's QAT workflow through its example entry point
+            (``python -m repro_torch.examples.train_jet_tagger``): 300
+            steps, both compile strategies, the design bit-exact to the
+            float model, served through ``ServeEngine`` on the adder-graph
+            kernel.
 Phases 17-21 each start on an emptied card (what stays allocated is
 printed) and print the decode step's device time by kernel, launches,
 idle share and bytes bound.
@@ -461,7 +497,8 @@ def launch_counters() -> dict:
     from repro_torch.kernels.ssm_scan import kernel as ss_kernel
 
     return {"adder_graph": ag_kernel.launches, "flash_attention": fa_kernel.launches,
-            "ssm_scan": ss_kernel.launches, "quant_matmul": qm_kernel.launches}
+            "ssm_scan": ss_kernel.launches, "quant_matmul": qm_kernel.launches,
+            "flash_attention_bwd": fa_kernel.bwd_launches, "ssm_scan_bwd": ss_kernel.bwd_launches}
 
 
 def kernel_counters() -> dict:
@@ -2386,6 +2423,523 @@ def serve_phase(torch, np, dev, arch: str, flash_entry: dict, scan_entry: dict,
     return out
 
 
+# ----------------------------------------------------------------------
+# 22-25. training: the backward kernels, smollm-135m and falcon-mamba-7b
+# trained at full width, the jet tagger's QAT workflow
+# ----------------------------------------------------------------------
+TRAIN_SEQ, TRAIN_BATCH = 128, 8  # the launcher's defaults
+TRAIN_STEPS, CRASH_AT, CKPT_EVERY, RESUME_STEPS = 20, 5, 4, 8
+LONG_SEQ, LONG_BATCH, LONG_STEPS = 1024, 16, 5  # the timed stretch
+FALCON_TRAIN_LAYERS, FALCON_STEPS = 8, 10  # of 64: the whole 7.27 B with its state does not fit
+# bf16 gradients of the kernel path against the plain path, per leaf,
+# relative to the leaf's largest element: the flash backward rounds P and
+# dS to bf16 where the plain backward keeps f32, and 30 bf16 layers carry
+# that on; the two correct plain versions (p rounded to bf16 before PV,
+# and all f32) are printed beside it
+GRAD_BF16_REL = 2**-4
+GRAD_F32_REL = 1e-4  # f32 gradients, relative to the model's largest element
+BWD_REL = {"float32": 2e-5, "bfloat16": 2**-6}  # a backward kernel against the f32 gradient
+# kernel names summed in a train step's profile: the backward kernels, the
+# forward kernels, cuBLAS's GEMMs (by their Hopper names) and PyTorch's
+# element-wise kernels
+TRAIN_PROFILE_KEYS = ("fa_bwd", "ssm_bwd", "flash_mma", "ssm_prefill", "nvjet", "xmma", "gemm",
+                      "elementwise")
+
+
+def rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) / max(float(want.float().abs().max()),
+                                                                  1e-6)
+
+
+def bwd_cases(torch, dev) -> float:
+    """Both backward kernels against their plain versions on the card: flash
+    in f32 and bf16 at the head dims and GQA groups of the forward, causal
+    and full, Sq < Sk, held to the f32 gradient of the same inputs; the
+    scan at ragged channels, N 1/5/16, S 1/33/128, with and without dh,
+    held to the plain backward; every case launched twice, bit-equal.
+    Returns the largest relative error."""
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_cuda,
+                                                            flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.kernels.ssm_scan.kernel import selective_scan_bwd_cuda
+    from repro_torch.kernels.ssm_scan.ref import selective_scan_bwd_ref
+
+    gen = torch.Generator(dev).manual_seed(9)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, hq, hkv, sq, sk, d, causal in ((2, 9, 3, 128, 128, 64, True),
+                                              (2, 4, 4, 33, 33, 16, True),
+                                              (1, 8, 2, 40, 40, 80, True),
+                                              (2, 4, 1, 17, 40, 32, True),
+                                              (2, 6, 2, 70, 70, 112, False),
+                                              (1, 4, 2, 100, 130, 128, False)):
+            q, k, v, do = (torch.randn(s, generator=gen, device=dev).to(dtype)
+                           for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d),
+                                     (b, hq, sq, d)))
+            o = flash_attention_cuda(q, k, v, causal=causal)
+            got = flash_attention_bwd_cuda(q, k, v, o, do, causal=causal)
+            again = flash_attention_bwd_cuda(q, k, v, o, do, causal=causal)
+            want = attention_bwd_ref(q.float(), k.float(), v.float(), do.float(), causal=causal)
+            err = max(rel_err(g, w) for g, w in zip(got, want))
+            check(err <= BWD_REL[str(dtype)[6:]] and all(map(torch.equal, got, again)),
+                  f"flash backward {str(dtype)[6:]} q {[b, hq, sq, d]} k {[b, hkv, sk, d]} "
+                  f"causal={causal}: relative error {err}, or two launches differ")
+            worst = max(worst, err)
+    for b, s, d, n in ((2, 33, 129, 16), (1, 1, 64, 4), (2, 128, 256, 16), (3, 17, 100, 5),
+                       (1, 8, 33, 1)):
+        r = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+        args = (torch.nn.functional.softplus(r(b, s, d) - 1), r(b, s, n), r(b, s, n),
+                r(b, s, d), -torch.exp(0.5 * r(d, n)), r(b, d, n))
+        for dh in (None, r(b, d, n)):
+            dy = r(b, s, d)
+            got = selective_scan_bwd_cuda(*args, dy, dh)
+            again = selective_scan_bwd_cuda(*args, dy, dh)
+            want = selective_scan_bwd_ref(*args, dy, dh)
+            err = max(rel_err(g, w) for g, w in zip(got, want))
+            check(err <= BWD_REL["float32"] and all(map(torch.equal, got, again)),
+                  f"scan backward {[b, s, d, n]} dh={dh is not None}: relative error {err}, or "
+                  f"two launches differ")
+            worst = max(worst, err)
+    return worst
+
+
+def grad_leaves(torch, cfg, params, batch, swaps=()):
+    """The gradient of every parameter (JAX's leaf order) of one
+    ``loss_fn`` on ``batch``, with the ops of ``swaps`` replaced."""
+    from repro_torch.models import loss_fn
+    from repro_torch.tree import tree_leaves
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        with swapped(swaps):
+            loss, _ = loss_fn(cfg, params, batch)
+            grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return float(loss.detach()), list(grads)
+
+
+def grads_against_plain(torch, cfg, params, batch, path, rel_bound, per_leaf, must_move) -> dict:
+    """First-step gradients of the kernel path against the plain path (each
+    op swapped for its plain version) and, beside them, another correct
+    plain version against the plain path; the named parameters' gradients
+    must be non-zero."""
+    from repro_torch.tree import tree_leaves
+
+    reset_counts()
+    loss_k, got = grad_leaves(torch, cfg, params, batch)
+    ran = read_counts()
+    loss_p, want = grad_leaves(torch, cfg, params, batch, op_swaps(path, "plain"))
+    _, alt = grad_leaves(torch, cfg, params, batch, op_swaps(path, "plain_alt"))
+
+    def err(a, b):
+        if per_leaf:
+            return max(rel_err(x, y) for x, y in zip(a, b))
+        top = max(float(y.float().abs().max()) for y in b)
+        return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b)) / top
+
+    out = {"loss_kernel": loss_k, "loss_plain": loss_p, "rel_err": err(got, want),
+           "plain_alt_rel_err": err(alt, want), "bound": rel_bound,
+           "per_leaf": per_leaf, "launches": ran}
+    check(out["rel_err"] <= rel_bound,
+          f"{cfg.name}: first-step gradients of the kernel path {out['rel_err']} off the plain "
+          f"path's (bound {rel_bound}; another plain version: {out['plain_alt_rel_err']})")
+    by_id = {id(p): g for p, g in zip(tree_leaves(params), got)}
+    for block, name in must_move:
+        g = by_id[id(params["blocks"][0][block][name])]
+        check(float(g.float().abs().max()) > 0, f"{cfg.name}: the gradient of {name} is zero")
+    out["nonzero"] = [name for _, name in must_move]
+    return out
+
+
+def record_calls(module, attr: str, calls: list, keep: int = 1):
+    """(module, attr, wrapper) that appends the (args, kwargs) of the first
+    ``keep`` calls of ``module.attr`` to ``calls``."""
+    fn = getattr(module, attr)
+
+    def wrapper(*args, **kw):
+        if len(calls) < keep:
+            calls.append((args, kw))
+        return fn(*args, **kw)
+
+    return (module, attr, wrapper)
+
+
+def step_profile(prof: dict, step_ms: float) -> dict:
+    """A train step's device time by kernel from ``profile_once``, and the
+    device's idle share of the step's wall time (None where the profiler
+    showed no device time)."""
+    busy = prof["all_ms"]
+    return {"device_ms": busy, "launches": prof["launches"],
+            "idle_share": None if busy is None else 1 - busy / step_ms,
+            "by_key": prof["by_key"], "top": [(k, us / 1e3) for k, us in prof["ranked"][:10]]}
+
+
+def timed_train_stretch(torch, cfg, step, params, opt_state, pipe, n_steps, first_step) -> dict:
+    """Device-synchronised wall time per train step over ``n_steps`` steps
+    (after two warm-up steps), tokens/s and the peak device memory."""
+    batches = [{k: torch.from_numpy(v).to(params["embed"].device)
+                for k, v in pipe.batch_at(first_step + i).items()} for i in range(n_steps + 2)]
+    for b in batches[:2]:
+        params, opt_state, m = step(params, opt_state, b, first_step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i, b in enumerate(batches[2:]):
+        params, opt_state, m = step(params, opt_state, b, first_step + 2 + i)
+    float(m["loss"])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n_steps
+    tokens = batches[0]["tokens"].numel()
+    out = {"step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "seq": batches[0]["tokens"].shape[1], "batch": batches[0]["tokens"].shape[0],
+           "loss": float(m["loss"])}
+    # where one more step's device time goes, by kernel
+    prof = profile_once(torch, lambda: step(params, opt_state, batches[-1], first_step + n_steps),
+                        "_bwd_", keys=TRAIN_PROFILE_KEYS)
+    out["profile"] = step_profile(prof, out["step_ms"])
+    return out
+
+
+def train_flops(cfg, seq: int, batch: int) -> float:
+    """Model FLOPs of one train step: 6 N per token (N every parameter:
+    the tied embedding is the head's product) plus causal attention, 3 x
+    (QK^T and PV over the live pairs) per layer and query head."""
+    pairs = seq * (seq + 1) // 2
+    attn = 3 * 4 * cfg.hd * pairs * cfg.n_heads * cfg.n_layers * batch
+    return 6 * cfg.param_count() * seq * batch + attn
+
+
+def flash_bwd_row(torch, args, kw) -> dict:
+    """The flash backward at one of the main path's backward calls: held to
+    the f32 gradient and the plain backward, then timed beside its bound
+    and SDPA's backward (autograd through ``scaled_dot_product_attention``
+    less its forward; the library yardstick, which the port never calls)."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    q, k, v, o, do = (t.detach() for t in args)
+    causal = kw.get("causal", True)
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    got = flash_attention_bwd_cuda(q, k, v, o, do, causal=causal)
+    plain = attention_bwd_ref(q, k, v, do, causal=causal)
+    want = attention_bwd_ref(q.float(), k.float(), v.float(), do.float(), causal=causal)
+    err = max(float((g.float() - w).abs().max()) for g, w in zip(got, want))
+    rel = max(rel_err(g, w) for g, w in zip(got, want))
+    plain_rel = max(rel_err(p, w) for p, w in zip(plain, want))
+    check(rel <= BWD_REL[str(q.dtype)[6:]],
+          f"flash backward at the main path's inputs: relative error {rel}")
+    import torch.nn.functional as F
+
+    # K/V repeated to the query heads outside the timed calls, so SDPA takes
+    # its fused backend (the dK/dV sum over each group is not counted)
+    qs, ks, vs = (t.clone().requires_grad_(True) for t in (
+        q, k.repeat_interleave(hq // hkv, dim=1), v.repeat_interleave(hq // hkv, dim=1)))
+
+    def lib():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+
+    def lib_fwd_bwd():
+        torch.autograd.grad(lib(), (qs, ks, vs), do)
+
+    start = sk - sq
+    pairs = sum(min(max(start + i + 1, 0), sk) for i in range(sq)) if causal else sq * sk
+    esz = q.element_size()
+    nbytes = esz * 4 * (b * hq * sq * d + b * hkv * sk * d)  # q, o, dO, dq; k, v, dk, dv
+    flops = 10 * d * b * hq * pairs  # S, dP, dV, dK, dQ: five products of 2 pairs D
+    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    row = {
+        "shape": f"q/o/dO {list(q.shape)}, k/v {list(k.shape)}, {str(q.dtype)[6:]}, "
+                 f"causal={causal}",
+        "ms": graph_ms(torch, lambda: flash_attention_bwd_cuda(q, k, v, o, do, causal=causal)),
+        "eager_ms": time_ms(torch, lambda: flash_attention_bwd_cuda(q, k, v, o, do,
+                                                                     causal=causal), iters=50),
+        "plain_ms": graph_ms(torch, lambda: attention_bwd_ref(q, k, v, do, causal=causal)),
+        "library_ms": graph_ms(torch, lib_fwd_bwd) - graph_ms(torch, lib),
+        "library": "scaled_dot_product_attention's backward (fwd+bwd less fwd) on K/V repeated "
+                   "to the query heads",
+        "timed": "CUDA-graph replays (autograd's backward captured with the forward)",
+        "bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms, "flops_ms": flops_ms,
+        "bound_ms": max(bytes_ms, flops_ms),
+        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+        "max_abs_err": err, "rel_err": rel, "plain_rel_err": plain_rel,
+    }
+    log("flash backward: " + json.dumps(row))
+    return row
+
+
+def scan_bwd_row(torch, args, info) -> dict:
+    """The scan backward at one of the main path's backward calls: held to
+    the plain backward, then timed beside its bound (no single PyTorch
+    call computes it)."""
+    from repro_torch.kernels.ssm_scan.kernel import selective_scan_bwd_cuda
+    from repro_torch.kernels.ssm_scan.ref import selective_scan_bwd_ref
+
+    args = [None if t is None else t.detach() for t in args]
+    got = selective_scan_bwd_cuda(*args)
+    plain = selective_scan_bwd_ref(*args)
+    err = max(float((g - p).abs().max()) for g, p in zip(got, plain))
+    rel = max(rel_err(g, p) for g, p in zip(got, plain))
+    check(rel <= BWD_REL["float32"], f"scan backward at the main path's inputs: relative "
+                                     f"error {rel}")
+    dt, bm = args[0], args[1]
+    b, s, d = dt.shape
+    n = bm.shape[2]
+    # each input read once, each output written once: dt, x, dy in; ddt, dx
+    # out; B, C in, dB, dC out; A in, dA out; h0 in, dh0 out (f32)
+    nbytes = 4 * (5 * b * s * d + 4 * b * s * n + 2 * d * n + 2 * b * d * n)
+    exps = b * s * d * n  # one decay per state update
+    flops = 20 * exps  # the forward's 5 per update recomputed, 15 for the gradients
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    exp_ms = exps / info["exp_per_s"] * 1e3
+    flops_ms = flops / F32_FLOPS_PER_S * 1e3
+    row = {
+        "shape": f"dt/x/dy [{b}, {s}, {d}], B/C [{b}, {s}, {n}], f32",
+        "ms": graph_ms(torch, lambda: selective_scan_bwd_cuda(*args), calls=5, replays=5),
+        "eager_ms": time_ms(torch, lambda: selective_scan_bwd_cuda(*args), iters=20),
+        "plain_ms": graph_ms(torch, lambda: selective_scan_bwd_ref(*args), calls=2, replays=3),
+        "timed": "CUDA-graph replays (autograd's backward captured with the forward)",
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes the recurrence's gradient",
+        "bytes": nbytes, "exps": exps, "flops": flops, "bytes_ms": bytes_ms,
+        "exp_ms": exp_ms, "flops_ms": flops_ms, "bound_ms": max(bytes_ms, exp_ms, flops_ms),
+        "bound_by": "bytes" if bytes_ms >= max(exp_ms, flops_ms) else "operations",
+        "max_abs_err": err, "rel_err": rel,
+    }
+    log("scan backward: " + json.dumps(row))
+    return row
+
+
+def expect_train_launches(counts: dict, want: dict, what: str) -> None:
+    got = {k: v for k, v in counts.items() if v}
+    check(got == want, f"{what}: launches {got}, want {want}")
+
+
+def train_smollm(torch, np, dev, info) -> dict:
+    """Phase 23: smollm-135m at full width trained through ``Trainer`` and
+    ``Pipeline`` at the launcher's defaults (AdamW, f32 master, remat
+    "full"): first-step gradients against the plain path; 20 steps counted
+    (flash forward 2 x 30 and backward 30 a step), loss falling; a crash at
+    step 5 resumed from the async checkpoint to the uninterrupted run's
+    parameters at step 8; the flash backward at the main path's inputs;
+    the timed stretch at seq 1024, batch 16."""
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data import DataConfig, Pipeline
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import init_params
+    from repro_torch.train import Trainer, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = configs.get("smollm-135m")
+    check(cfg.param_count() == 162_826_560, f"smollm-135m has {cfg.param_count()} parameters")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    out = {"params": cfg.param_count(), "remat": cfg.remat}
+    try:
+        run_cfg = RunConfig(learning_rate=3e-3, checkpoint_every=100,
+                            checkpoint_dir=str(tmp / "main"), master_dtype="float32")
+        pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH))
+        step, opt_init = make_train_step(cfg, run_cfg, device=dev)
+
+        def init_fn():
+            return init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+
+        params = init_fn()
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(0).items()}
+        out["grads"] = grads_against_plain(
+            torch, cfg, params, batch, lm_paths()["smollm-135m"], GRAD_BF16_REL, True,
+            [("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo")])
+        log(f"smollm-135m first-step gradients: {json.dumps(out['grads'])}")
+        del params
+
+        losses = []
+
+        def recording_step(*a):
+            res = step(*a)
+            losses.append(res[2]["loss"])
+            return res
+
+        bwd_calls = []
+        reset_counts()
+        t0 = time.perf_counter()
+        with swapped([record_calls(fa_ops, "flash_attention_bwd_cuda", bwd_calls)]):
+            trainer = Trainer.resume_or_init(cfg, run_cfg, pipe, init_fn, recording_step,
+                                             opt_init, device=dev)
+            trainer.run(RESUME_STEPS)
+            at_resume = [x.clone() for x in tree_leaves(trainer.params)]
+            trainer.run(TRAIN_STEPS - RESUME_STEPS)
+        torch.cuda.synchronize()
+        out["run_s"] = time.perf_counter() - t0
+        counts = read_counts()
+        out["launches"] = {k: v for k, v in counts.items() if v}
+        expect_train_launches(counts, {"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
+                                       "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS},
+                              "smollm-135m's training")
+        out["losses"] = [float(x) for x in losses]
+        check(all(np.isfinite(out["losses"])), f"smollm-135m: losses {out['losses']}")
+        first, last = np.mean(out["losses"][:5]), np.mean(out["losses"][-5:])
+        check(last < first, f"smollm-135m: the loss did not fall ({first} -> {last})")
+        log(f"smollm-135m: {TRAIN_STEPS} steps in {out['run_s']:.2f} s (checkpoints at "
+            f"{RESUME_STEPS} and {TRAIN_STEPS} included), loss {out['losses'][0]:.4f} -> "
+            f"{out['losses'][-1]:.4f}; launches {out['launches']}")
+
+        # a crash at step 5, resumed from the async checkpoint of step 4
+        crash_cfg = dataclasses.replace(run_cfg, checkpoint_dir=str(tmp / "crash"),
+                                        checkpoint_every=CKPT_EVERY)
+        armed = {"on": True}
+
+        def fail_hook(s):
+            if armed["on"] and s == CRASH_AT:
+                armed["on"] = False
+                raise RuntimeError("simulated node failure")
+
+        crashed = Trainer.resume_or_init(cfg, crash_cfg, pipe, init_fn, step, opt_init,
+                                         device=dev)
+        crashed.run(RESUME_STEPS, fail_hook=fail_hook)
+        check(not armed["on"] and crashed.step == RESUME_STEPS, "the crash was not simulated")
+        diffs = [float((a.float() - b.float()).abs().max())
+                 for a, b in zip(at_resume, tree_leaves(crashed.params))]
+        out["resume"] = {"crash_at": CRASH_AT, "restored_from": CKPT_EVERY,
+                         "compared_at": RESUME_STEPS, "bitwise": all(map(
+                             torch.equal, at_resume, tree_leaves(crashed.params))),
+                         "max_abs_diff": max(diffs)}
+        check(out["resume"]["bitwise"], f"the resumed run's parameters differ from the "
+                                        f"uninterrupted run's: {out['resume']}")
+        log(f"smollm-135m crash recovery: {json.dumps(out['resume'])}")
+        del crashed, at_resume
+
+        out["flash_bwd"] = flash_bwd_row(torch, *bwd_calls[0])
+        del bwd_calls
+        long_pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=LONG_SEQ,
+                                        global_batch=LONG_BATCH))
+        reset_counts()
+        out["long"] = timed_train_stretch(torch, cfg, step, trainer.params, trainer.opt_state,
+                                          long_pipe, LONG_STEPS, trainer.step)
+        n_long = LONG_STEPS + 3  # two warm-up steps, the timed ones and the profiled one
+        expect_train_launches(read_counts(),
+                              {"flash_attention": 2 * cfg.n_layers * n_long,
+                               "flash_attention_bwd": cfg.n_layers * n_long},
+                              "the timed stretch")
+        flops = train_flops(cfg, LONG_SEQ, LONG_BATCH)
+        out["long"].update({"model_flops": flops,
+                            "mfu": flops / (out["long"]["step_ms"] / 1e3) / BF16_FLOPS_PER_S,
+                            "peak": "989 TFLOP/s dense bf16, H100 SXM data sheet",
+                            "card": info["nvidia_smi"]})
+        log(f"smollm-135m timed stretch: {json.dumps(out['long'])}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def train_falcon(torch, np, dev, info) -> dict:
+    """Phase 24: falcon-mamba-7b at full width cut to 8 of 64 layers:
+    first-step gradients of an f32 copy against the plain path; 10 steps
+    of ``make_train_step`` on ``Pipeline`` batches with bf16 parameters,
+    an f32 master and int8 moments (scan forward 2 x 8 and backward 8 a
+    step), loss falling; the scan backward at the main path's inputs.
+    (The Trainer would end with an 11 GB checkpoint: phase 23 drives it.)"""
+    from repro_torch import configs
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data import DataConfig, Pipeline
+    from repro_torch.kernels.ssm_scan import ops as ss_ops
+    from repro_torch.models import init_params
+    from repro_torch.optim import Quantized
+    from repro_torch.train import make_train_step
+
+    full = configs.get("falcon-mamba-7b")
+    cfg = dataclasses.replace(full, n_layers=FALCON_TRAIN_LAYERS)
+    out = {"params": cfg.param_count(), "full_params": full.param_count(),
+           "cut": f"n_layers 64 -> {FALCON_TRAIN_LAYERS}: the whole model ({full.param_count():,} "
+                  "parameters) with its AdamW state (2 + 4 + 2 bytes a parameter with int8 "
+                  "moments, 58 GB, before gradients and activations) does not fit one card "
+                  "beside the earlier phases' workspace"}
+    pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(0).items()}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = init_params(cfg32, torch.Generator(dev).manual_seed(0), device=dev)
+    out["grads"] = grads_against_plain(
+        torch, cfg32, params32, batch, lm_paths()["falcon-mamba-7b"], GRAD_F32_REL, False,
+        [("ssm", "in_proj"), ("ssm", "a_log"), ("ssm", "x_proj"), ("ssm", "dt_proj"),
+         ("ssm", "conv")])
+    log(f"falcon-mamba-7b (8 layers, f32) first-step gradients: {json.dumps(out['grads'])}")
+    del params32
+
+    run_cfg = RunConfig(learning_rate=3e-3, state_dtype="int8", master_dtype="float32")
+    step, opt_init = make_train_step(cfg, run_cfg, device=dev)
+    fresh_card(torch)
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    opt_state = opt_init(params)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(i).items()}
+               for i in range(FALCON_STEPS)]
+    losses, bwd_calls = [], []
+    reset_counts()
+    t0 = time.perf_counter()
+    with swapped([record_calls(ss_ops, "selective_scan_bwd_cuda", bwd_calls)]):
+        for i, b in enumerate(batches):
+            params, opt_state, metrics = step(params, opt_state, b, i)
+            losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - t0
+    out["step_ms"] = out["run_s"] * 1e3 / FALCON_STEPS
+    out["tokens_per_s"] = TRAIN_SEQ * TRAIN_BATCH / (out["run_s"] / FALCON_STEPS)
+    out["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    counts, by_kernel = read_counts(), read_kernel_counts("ssm_scan")
+    out["launches"] = {k: v for k, v in counts.items() if v}
+    prof = profile_once(torch, lambda: step(params, opt_state, batches[-1], FALCON_STEPS),
+                        "_bwd_", keys=TRAIN_PROFILE_KEYS)
+    out["profile"] = step_profile(prof, out["step_ms"])
+    expect_train_launches(counts, {"ssm_scan": 2 * cfg.n_layers * FALCON_STEPS,
+                                   "ssm_scan_bwd": cfg.n_layers * FALCON_STEPS},
+                          "falcon-mamba-7b's training")
+    check(by_kernel == {"decode": 0, "prefill": 2 * cfg.n_layers * FALCON_STEPS},
+          f"falcon-mamba-7b's training took the scan kernels {by_kernel}")
+    check(isinstance(opt_state.m["embed"], Quantized)
+          and opt_state.m["embed"].q.dtype == torch.int8, "the moments are not int8")
+    out["losses"] = losses
+    check(all(np.isfinite(out["losses"])), f"falcon-mamba-7b: losses {out['losses']}")
+    first, last = np.mean(out["losses"][:3]), np.mean(out["losses"][-3:])
+    check(last < first, f"falcon-mamba-7b: the loss did not fall ({first} -> {last})")
+    log(f"falcon-mamba-7b ({FALCON_TRAIN_LAYERS} layers, int8 moments): {FALCON_STEPS} steps "
+        f"in {out['run_s']:.2f} s, loss "
+        f"{out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}, peak "
+        f"{out['peak_allocated_gb']:.2f} GB; launches {out['launches']}")
+    del params, opt_state, batches
+    out["scan_bwd"] = scan_bwd_row(torch, bwd_calls[0][0], info)
+    return out
+
+
+def train_jet_tagger_phase(torch) -> dict:
+    """Phase 25: the paper's QAT workflow on the card through its example
+    entry point: 300 SGD steps with the STE ``fake_quant`` and the
+    ``collect_bits`` penalty, ``compile_model`` with both strategies,
+    float64 ``apply_model`` == the design's ``forward`` (checked inside),
+    and a burst served through ``ServeEngine`` on the adder-graph kernel
+    equal to ``forward_int``."""
+    from repro_torch.examples import train_jet_tagger
+
+    reset_counts()
+    out = train_jet_tagger.main(["--device", "cuda", "--steps", "300"])
+    counts = read_counts()
+    check(counts["adder_graph"] > 0, "the jet tagger was not served on the adder-graph kernel")
+    check_only(counts, "adder_graph", "the jet tagger's workflow")
+    check(out["accuracy"] > 0.9 and out["hw_accuracy"] > 0.9,
+          f"the jet tagger's accuracy {out['accuracy']}, on the design {out['hw_accuracy']}")
+    out["adder_graph_launches"] = counts["adder_graph"]
+    log("jet tagger: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2677,6 +3231,57 @@ def main() -> int:
 
     log(f"== 21. serve jamba-v0.1-52b at full width, cut to {JAMBA_LAYERS} layers (hybrid)")
     serve_phase(torch, np, dev, "jamba-v0.1-52b", flash_entry, scan_entry, info)
+
+    log("== 22. the backward kernels vs their plain versions")
+    fresh_card(torch)
+    bwd_err = bwd_cases(torch, dev)
+    log(f"backward kernels: largest relative error {bwd_err}")
+
+    log("== 23. train smollm-135m at full width (main path: Trainer, Pipeline)")
+    sm_train = train_smollm(torch, np, dev, info)
+    flash_entry["launches_train_smollm_135m"] = sm_train["launches"]["flash_attention"]
+    fb = sm_train["flash_bwd"]
+    kernels["kernels"].append({
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
+        "replaces_note": "the backward of the flash kernel: the JAX package differentiates "
+                         "attention_ref instead (it has no backward kernel)",
+        "launches": sm_train["launches"]["flash_attention_bwd"],
+        "max_abs_err": fb["max_abs_err"],
+        "rel_err": max(bwd_err, fb["rel_err"]),
+        **{k: fb[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "library")},
+        "shape": "one backward launch of smollm-135m's train step: " + fb["shape"],
+    })
+    log("smollm-135m training summary: " + json.dumps(sm_train))
+
+    log(f"== 24. train falcon-mamba-7b at full width, cut to {FALCON_TRAIN_LAYERS} layers")
+    fresh_card(torch)
+    fm_train = train_falcon(torch, np, dev, info)
+    scan_entry["launches_train_falcon_mamba_7b"] = fm_train["launches"]["ssm_scan"]
+    sb = fm_train["scan_bwd"]
+    kernels["kernels"].append({
+        "name": "ssm_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan_bwd.cu",
+        "replaces": "src/repro/kernels/ssm_scan/kernel.py:25",
+        "replaces_note": "the backward of the scan kernel: the JAX package differentiates the "
+                         "Mamba block's lax.scan instead (it has no backward kernel)",
+        "launches": fm_train["launches"]["ssm_scan_bwd"],
+        "max_abs_err": sb["max_abs_err"],
+        "rel_err": max(bwd_err, sb["rel_err"]),
+        **{k: sb[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "library")},
+        "shape": "one backward launch of falcon-mamba-7b's train step: " + sb["shape"],
+    })
+    log("falcon-mamba-7b training summary: " + json.dumps(fm_train))
+
+    log("== 25. the jet tagger's QAT workflow on the card")
+    fresh_card(torch)
+    jet = train_jet_tagger_phase(torch)
+    kernels["kernels"][0]["launches_jet_tagger"] = jet["adder_graph_launches"]
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(info["nvidia_smi"])

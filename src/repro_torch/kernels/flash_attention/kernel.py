@@ -8,6 +8,11 @@ checks what the kernel takes, picks one of the source's three kernels by
 ``torch.empty``, launches on the current stream, raises on a launch
 error, and counts its launches in ``launches``.  Nothing is built on
 import: the library is built and loaded on the first launch.
+
+``flash_attention_bwd_cuda`` launches the backward
+(``csrc/flash_attention_bwd.cu``, a library of its own: two kernels per
+call, dQ then dK and dV) and counts one launch per call in
+``bwd_launches``.
 """
 
 from __future__ import annotations
@@ -147,3 +152,91 @@ def flash_attention_cuda(
         raise KernelError(f"flash-attention kernel launch failed: {msg} (cudaError {err})")
     launches.add()
     return out
+
+
+# ----------------------------------------------------------------------
+# the backward (csrc/flash_attention_bwd.cu)
+# ----------------------------------------------------------------------
+bwd_launches = LaunchCounter("flash_attention_bwd")  # one per backward (its two kernels)
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = library("flash_attention_bwd")
+    if lib.da4ml_flash_attention_bwd.argtypes is None:
+        lib.da4ml_flash_attention_bwd.argtypes = [
+            _c_int, _c_int,  # dtype, head_dim
+            _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # q, k, v, o, dout
+            _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # dq, dk, dv, lse, delta
+            _c_int, _c_int, _c_int, _c_int, _c_int,  # B, Hq, Hkv, Sq, Sk
+            ctypes.c_float, _c_int, _c_int,  # scale, causal, offset
+            _c_ptr,  # stream
+        ]
+        lib.da4ml_flash_attention_bwd.restype = _c_int
+        lib.da4ml_cuda_error_string.argtypes = [_c_int]
+        lib.da4ml_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and starting on 16 bytes (a copy where it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def flash_attention_bwd_cuda(
+    q: torch.Tensor,  # [B, Hq, Sq, D]
+    k: torch.Tensor,  # [B, Hkv, Sk, D]
+    v: torch.Tensor,  # [B, Hkv, Sk, D]
+    o: torch.Tensor,  # [B, Hq, Sq, D]: the forward's output
+    dout: torch.Tensor,  # [B, Hq, Sq, D]: the gradient of o
+    causal: bool = True,
+    scale: float | None = None,
+    offset: int | None = None,
+):
+    """The gradient of ``flash_attention_cuda`` on the card: returns (dq,
+    dk, dv), contiguous, in q's dtype, dk and dv summed over each GQA
+    group's query heads.  Every tensor is a CUDA tensor of q's dtype
+    (float32 or bfloat16) on q's device; ``offset`` is an int (None means
+    ``Sk - Sq``).  Deterministic: two calls give the same bits."""
+    named = {"q": q, "k": k, "v": v, "o": o, "dout": dout}
+    for name, t in named.items():
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd_cuda takes CUDA tensors on one device, "
+                             f"got {name} on {t.device}")
+        if t.dtype != q.dtype or t.dtype not in _DTYPE_CODES:
+            raise TypeError(f"flash_attention_bwd_cuda takes float32 or bfloat16 tensors of one "
+                            f"dtype, got {name} {t.dtype} beside q {q.dtype}")
+        if t.dim() != 4:
+            raise ValueError(f"flash_attention_bwd_cuda takes 4-d tensors, got {name} "
+                             f"{tuple(t.shape)}")
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or hkv == 0 or hq % hkv
+            or o.shape != q.shape or dout.shape != q.shape):
+        raise ValueError(f"flash_attention_bwd_cuda: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, o {tuple(o.shape)}, dout {tuple(dout.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd_cuda supports head_dim {HEAD_DIMS}, got {d}")
+    if isinstance(offset, torch.Tensor):
+        raise ValueError("flash_attention_bwd_cuda takes an int offset, not a tensor")
+    off = sk - sq if offset is None else int(offset)
+    q, k, v, o, dout = (_dense(t) for t in (q, k, v, o, dout))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    scale = d**-0.5 if scale is None else scale
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        err = lib.da4ml_flash_attention_bwd(
+            _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), b, hq, hkv, sq, sk, scale, int(causal), off,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        msg = lib.da4ml_cuda_error_string(err).decode()
+        raise KernelError(f"flash-attention backward launch failed: {msg} (cudaError {err})")
+    bwd_launches.add()
+    return dq, dk, dv

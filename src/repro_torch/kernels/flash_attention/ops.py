@@ -5,14 +5,39 @@ tensor, the plain PyTorch version (``ref.py``) for a CPU tensor.
 means end-aligned (prefill without a cache, offset = Sk - Sq); decode
 into a preallocated cache passes the cache position, as an int32 tensor
 on the card, so unwritten cache slots are masked out.
+
+On the card, when grad is enabled and an input requires it (training),
+the call goes through ``_FlashAttention``: its forward launches the same
+kernel, and its backward the hand-written backward kernel
+(``csrc/flash_attention_bwd.cu``).  Otherwise (serving, under no_grad or
+with no input that requires grad) the launch is the plain kernel call.
+On the CPU autograd differentiates the plain version itself.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .kernel import flash_attention_cuda
+from .kernel import flash_attention_bwd_cuda, flash_attention_cuda
 from .ref import attention_ref
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, offset):
+        out = flash_attention_cuda(q, k, v, causal=causal, scale=scale, offset=offset)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.scale, ctx.offset = causal, scale, offset
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, causal=ctx.causal,
+                                              scale=ctx.scale, offset=ctx.offset)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -25,6 +50,10 @@ def flash_attention(
 ) -> torch.Tensor:
     """GQA attention. q: [B, Hq, Sq, D]; k/v: [B, Hkv, Sk, D] with Hq % Hkv == 0."""
     if q.device.type == "cuda":
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            if isinstance(offset, torch.Tensor):
+                raise ValueError("a gradient through flash_attention needs an int offset")
+            return _FlashAttention.apply(q, k, v, causal, scale, offset)
         return flash_attention_cuda(q, k, v, causal=causal, scale=scale, offset=offset)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, scale=scale, offset=offset)

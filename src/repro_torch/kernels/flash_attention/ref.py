@@ -81,3 +81,14 @@ def attention_ref(
             _attend(q[:, :, i0 : i0 + cq], k[:, :, :hi], v[:, :, :hi], scale, causal, start + i0)
         )
     return torch.cat(outs, dim=2).to(q.dtype)
+
+
+def attention_bwd_ref(q, k, v, dout, causal: bool = True, scale: float | None = None,
+                      offset=None):
+    """The plain backward: (dq, dk, dv) of ``attention_ref`` for the output
+    gradient ``dout``, by autograd through it (dk and dv summed over each
+    GQA group's query heads)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = attention_ref(*leaves, causal=causal, scale=scale, offset=offset)
+        return torch.autograd.grad(out, leaves, dout)

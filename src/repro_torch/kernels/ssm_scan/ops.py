@@ -5,14 +5,38 @@ The JAX op's ``use_pallas``, ``tile_d`` and ``interpret`` have no
 counterpart: the device of the tensors decides.  ``h_out``, where given,
 receives the final state, and may be ``h0`` itself: a decode cache is
 then updated in place.
+
+On the card, when grad is enabled and an input requires it (training),
+the call goes through ``_SelectiveScan``: its forward launches the same
+kernel, and its backward the hand-written backward kernel
+(``csrc/ssm_scan_bwd.cu``).  Otherwise the launch is the plain kernel
+call.  On the CPU autograd differentiates the plain version itself.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .kernel import selective_scan_cuda
+from .kernel import selective_scan_bwd_cuda, selective_scan_cuda
 from .ref import selective_scan_ref
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, dt, bmat, cmat, x, a, h0):
+        ctx.set_materialize_grads(False)
+        y, h = selective_scan_cuda(dt, bmat, cmat, x, a, h0)
+        ctx.save_for_backward(dt, bmat, cmat, x, a, h0)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        saved = ctx.saved_tensors
+        if dy is None:  # only the final state is used
+            dy = torch.zeros_like(saved[0])
+        return selective_scan_bwd_cuda(*saved, dy, dh)
 
 
 def selective_scan(
@@ -29,6 +53,10 @@ def selective_scan(
     # the scan's contract is f32, whatever the surrounding compute dtype
     dt, bmat, cmat, x, a, h0 = (u.float() for u in (dt, bmat, cmat, x, a, h0))
     if dt.device.type == "cuda":
+        if torch.is_grad_enabled() and any(u.requires_grad for u in (dt, bmat, cmat, x, a, h0)):
+            if h_out is not None:
+                raise ValueError("a gradient through selective_scan cannot write h_out in place")
+            return _SelectiveScan.apply(dt, bmat, cmat, x, a, h0)
         return selective_scan_cuda(dt, bmat, cmat, x, a, h0, h_out=h_out)
     if dt.device.type == "cpu":
         return selective_scan_ref(dt, bmat, cmat, x, a, h0, h_out=h_out)

@@ -36,3 +36,17 @@ def selective_scan_ref(
     if h_out is not None:
         return y, h_out.copy_(h)
     return y, h.clone() if s == 0 else h
+
+
+def selective_scan_bwd_ref(dt, bmat, cmat, x, a, h0, dy, dh=None):
+    """The plain backward: (ddt, dB, dC, dx, dA, dh0) of
+    ``selective_scan_ref`` for the gradients ``dy`` of y and ``dh`` of the
+    final state (None: zero), by autograd through it."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (dt, bmat, cmat, x, a, h0)]
+        y, h = selective_scan_ref(*leaves)
+        outs, grads = [y], [dy]
+        if dh is not None:
+            outs.append(h)
+            grads.append(dh)
+        return torch.autograd.grad(outs, leaves, grads, allow_unused=True)

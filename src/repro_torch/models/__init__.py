@@ -3,6 +3,7 @@ from .transformer import (
     forward,
     init_cache,
     init_params,
+    loss_fn,
     param_specs,
     params_from_numpy,
     prefill,
@@ -14,6 +15,7 @@ __all__ = [
     "forward",
     "init_cache",
     "init_params",
+    "loss_fn",
     "param_specs",
     "params_from_numpy",
     "prefill",

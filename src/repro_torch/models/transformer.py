@@ -14,20 +14,29 @@ before the tokens.
 Parameters keep the JAX package's period-stacked layout: every leaf of a
 block carries a leading ``n_periods`` dim, so a JAX parameter pytree
 carries across leaf for leaf (:func:`params_from_numpy`).  A Python loop
-over the periods takes the place of ``lax.scan``; remat, sharding and
-abstract parameters have no counterpart on one device.
+over the periods takes the place of ``lax.scan``; ``cfg.remat`` becomes
+``torch.utils.checkpoint`` around each period when a backward follows
+(``loss_fn`` under autograd).  Sharding and abstract parameters have no
+counterpart on one device.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from .._device import resolve_device
 from ..configs.base import ATTN, MLP, MOE, SSM, ArchConfig
+from ..tree import tree_map
 from .attention import attention_block, precompute_cross_cache
 from .layers import embed_tokens, rmsnorm, swiglu, unembed
 from .moe import moe_block
@@ -150,16 +159,6 @@ def param_specs(cfg: ArchConfig) -> dict:
 
 
 _STACKED = ("blocks", "enc_blocks")  # lists of period-stacked blocks
-
-
-def tree_map(fn, tree):
-    """``fn`` over the leaves of a tree of dicts and lists (parameters,
-    caches, specs)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
 
 
 def _zip_specs(fn, specs, tree, path=""):
@@ -295,14 +294,46 @@ def _apply_stack(cfg, blocks, pattern, x, positions, caches=None, pos=None, caus
     in place.  Returns (x, the summed MoE aux loss, f32)."""
     n_periods = blocks[0]["norm1"].shape[0]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for t in range(n_periods):
+
+    def period(t, x, aux):
         for i, (mixer, ffn) in enumerate(pattern):
             bp, c, cc = (None if tree is None else tree_map(lambda a: a[t], tree[i])
                          for tree in (blocks, caches, cross_caches))
             x, a = _apply_block(cfg, bp, mixer, ffn, x, positions, c, pos, causal, enc_out, cc)
             if a is not None:
                 aux = aux + a
+        return x, aux
+
+    # remat applies where a backward will follow: no cache is written
+    remat = cfg.remat if caches is None and torch.is_grad_enabled() else "none"
+    for t in range(n_periods):
+        x, aux = _remat(remat, period, t, x, aux)
     return x, aux
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of plain matrix products
+    (``x @ w``: ``mm``/``addmm``, as JAX's
+    ``dots_with_no_batch_dims_saveable`` keeps dots without batch dims),
+    recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(remat: str, fn, *args):
+    """``fn(*args)`` under ``cfg.remat``: ``"none"`` keeps every
+    activation for the backward; ``"full"`` keeps only the inputs of the
+    period and recomputes it in the backward; ``"dots"`` keeps the matrix
+    products' outputs too.  Remat changes memory, never a number."""
+    if remat == "none":
+        return fn(*args)
+    if remat == "dots":
+        context = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=context)
+    if remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    raise ValueError(f"unknown remat {remat!r}: not one of full, dots, none")
 
 
 def _encode(cfg, params, enc_frames):
@@ -366,6 +397,22 @@ def forward(cfg: ArchConfig, params: dict, batch: dict):
     x, aux = _apply_stack(cfg, params["blocks"], pattern, x, positions, enc_out=enc_out)
     x = rmsnorm(x, params["final_norm"])
     return _head(cfg, params, x[:, n_img:, :]), aux
+
+
+def loss_fn(cfg: ArchConfig, params: dict, batch: dict):
+    """Next-token cross-entropy in f32 (labels of -1 are masked), plus
+    0.01 times the MoE aux loss.  Returns (loss, {"nll", "aux"}); the
+    port of the JAX package's ``loss_fn``."""
+    logits, aux = forward(cfg, params, batch)
+    labels = batch["labels"]
+    mask = labels >= 0
+    safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = logits.gather(-1, safe[..., None])[..., 0]
+    nll = (lse - label_logit) * mask
+    loss = nll.sum() / mask.sum().clamp_min(1)
+    return loss + 0.01 * aux, {"nll": loss, "aux": aux}
 
 
 def kv_cache_heads(cfg: ArchConfig) -> int:

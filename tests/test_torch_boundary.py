@@ -26,6 +26,10 @@ from repro_torch.nn import init_params as nn_init_params
 from repro_torch.nn import models as nn_models
 from repro_torch.runtime import ServeEngine, design_from_arrays, load_design
 from repro_torch.serve import Engine
+from repro_torch.configs.base import RunConfig
+from repro_torch.examples import train_jet_tagger
+from repro_torch.launch import train as launch_train
+from repro_torch.train import Trainer, make_train_step
 
 ROOT = Path(__file__).resolve().parent.parent
 MIXER = ROOT / "src" / "repro_torch" / "assets" / "mixer_full"
@@ -67,6 +71,12 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
     # the facade, the co-sim gate and the MoE family
     assert {"repro_torch.flow.facade", "repro_torch.core.cosim",
             "repro_torch.models.moe"} <= set(mods)
+    # training: the optimizers, data, checkpoints, the train step, the
+    # launcher and the jet-tagger example
+    assert {"repro_torch.tree", "repro_torch.optim.adamw", "repro_torch.optim.adafactor",
+            "repro_torch.optim.quantized_state", "repro_torch.data.pipeline",
+            "repro_torch.train.checkpoint", "repro_torch.train.train_lib",
+            "repro_torch.launch.train", "repro_torch.examples.train_jet_tagger"} <= set(mods)
     res = _run(
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -93,10 +103,11 @@ def test_importing_the_kernel_wrapper_builds_nothing():
         "import repro_torch.kernels.flash_attention.kernel as fa\n"
         "import repro_torch.kernels.ssm_scan.kernel as ss\n"
         "import repro_torch.kernels.quant_matmul.kernel as qm\n"
-        "import repro_torch.serve\n"
+        "import repro_torch.serve, repro_torch.train, repro_torch.launch.train\n"
         "from repro_torch.kernels import _build\n"
         "print(json.dumps({'loaded': sorted(_build._loaded), 'launches': k.launches.value"
-        " + fa.launches.value + ss.launches.value + qm.launches.value}))\n"
+        " + fa.launches.value + ss.launches.value + qm.launches.value"
+        " + fa.bwd_launches.value + ss.bwd_launches.value}))\n"
     )
     assert res == {"loaded": [], "launches": 0}
 
@@ -154,6 +165,19 @@ def test_no_card_means_raise_not_cpu(no_card):
     assert ss_kernel.launches.value + qm_kernel.launches.value == n
     assert resolve_device("cpu") == torch.device("cpu")
     assert load_design(MIXER, device="cpu").device == torch.device("cpu")
+    # training: the train step, the Trainer, the launcher and the example
+    run_cfg = RunConfig()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step(cfg, run_cfg)
+    step, opt_init = make_train_step(cfg, run_cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, run_cfg, None, params, step, opt_init(params))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer.resume_or_init(cfg, run_cfg, None, lambda: params, step, opt_init)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_jet_tagger.main(["--steps", "1"])
 
 
 def test_unsupported_device_is_refused():

@@ -33,7 +33,14 @@ output, v1's graphs released once drained); the co-sim gate's device
 leg runs all 34 programs of ``default_grid()`` on the kernel, bit-exact
 and equal to its CPU run; ``moe_block`` on the card equals its CPU run
 (f32, atol 1e-5) and replays as a CUDA graph with no host sync, bit for
-bit.
+bit.  Training: the two backward kernels (flash attention, f32 and bf16,
+at the head dims and GQA groups of the forward; the selective scan)
+against their plain versions (tolerances at ``BWD_REL``), two launches
+bit-equal, a no-grad forward launching exactly as before (also inside a
+CUDA-graph capture), ``loss.backward()`` through the reduced smollm-135m
+and falcon-mamba reaching every attention and Mamba layer's backward
+kernel with the plain path's gradients, and the Trainer resuming from a
+crash to the same parameters bit for bit.
 
 Every test here needs a card and skips without one.  This file imports
 neither ``jax`` nor ``repro``, so it runs where only PyTorch is
@@ -60,13 +67,14 @@ from repro_torch.kernels.adder_graph import kernel as ag_kernel
 from repro_torch.kernels.adder_graph.ref import adder_graph_ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.quant_matmul import kernel as qm_kernel
 from repro_torch.kernels.quant_matmul import quant_matmul
 from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
 from repro_torch.kernels.ssm_scan import kernel as ss_kernel
 from repro_torch.kernels.ssm_scan import selective_scan
-from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
+from repro_torch.kernels.ssm_scan.ref import selective_scan_bwd_ref, selective_scan_ref
 from repro_torch.kernels.graphs import capture
 from repro_torch.models import decode_step, init_params, params_from_numpy, prefill, unflatten
 from repro_torch.models import moe
@@ -946,3 +954,242 @@ def test_moe_block_replays_as_a_graph_without_a_sync(card):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(graph.output, eager)
+
+
+# ----------------------------------------------------------------------
+# training: the two backward kernels and autograd through the model
+# ----------------------------------------------------------------------
+# f32: the kernels' sums run in another order than the plain backward's:
+# within 2e-5 of the largest gradient element.  bf16: the flash backward
+# rounds P and dS to bf16 as the operands of its second products (as
+# FA2); the plain bf16 backward computes in f32 and rounds at the end.
+# Both are held to the f32 gradient of the same bf16 inputs: within 2^-6
+# of its largest element (either lands about 2^-8 off).
+BWD_REL = {torch.float32: 2e-5, torch.bfloat16: 2**-6}
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max()) / max(float(want.abs().max()), 1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", [
+    (2, 9, 3, 128, 128, 64, True),   # smollm-135m's training shape, cut to batch 2
+    (2, 4, 4, 33, 33, 16, True),
+    (1, 8, 2, 40, 40, 80, True),
+    (2, 4, 1, 17, 40, 32, True),     # Sq < Sk, end-aligned
+    (2, 6, 2, 70, 70, 112, False),
+    (1, 4, 2, 100, 130, 128, False),
+    (1, 3, 3, 1, 33, 64, True),
+])
+def test_flash_backward_kernel_matches_plain_version(card, dtype, b, hq, hkv, sq, sk, d, causal):
+    gen = torch.Generator(card).manual_seed(sq * 7 + d)
+    q, k, v, do = (torch.randn(s, generator=gen, device=card).to(dtype)
+                   for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d), (b, hq, sq, d)))
+    o = fa_kernel.flash_attention_cuda(q, k, v, causal=causal)
+    before = fa_kernel.bwd_launches.value
+    got = fa_kernel.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal)
+    assert fa_kernel.bwd_launches.value == before + 1
+    want = fa_ref.attention_bwd_ref(q.float(), k.float(), v.float(), do.float(), causal=causal)
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape
+        assert _rel_err(g, w) <= BWD_REL[dtype]
+    if dtype == torch.float32:
+        for g, p in zip(got, fa_ref.attention_bwd_ref(q, k, v, do, causal=causal)):
+            assert _rel_err(g, p) <= BWD_REL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_is_deterministic(card, dtype):
+    gen = torch.Generator(card).manual_seed(11)
+    q = torch.randn((4, 9, 128, 64), generator=gen, device=card).to(dtype)
+    k, v = (torch.randn((4, 3, 128, 64), generator=gen, device=card).to(dtype) for _ in range(2))
+    do = torch.randn_like(q)
+    o = fa_kernel.flash_attention_cuda(q, k, v)
+    first = fa_kernel.flash_attention_bwd_cuda(q, k, v, o, do)
+    second = fa_kernel.flash_attention_bwd_cuda(q, k, v, o, do)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _scan_args(card, b, s, d, n, seed):
+    gen = torch.Generator(card).manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=gen, device=card)  # noqa: E731
+    return (torch.nn.functional.softplus(r(b, s, d) - 1), r(b, s, n), r(b, s, n), r(b, s, d),
+            -torch.exp(0.5 * r(d, n)), r(b, d, n))
+
+
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("b,s,d,n", [(2, 33, 129, 16), (1, 1, 64, 4), (2, 128, 256, 16),
+                                     (3, 17, 100, 5), (1, 8, 33, 1)])
+def test_scan_backward_kernel_matches_plain_version(card, b, s, d, n, with_dh):
+    args = _scan_args(card, b, s, d, n, seed=s + n)
+    gen = torch.Generator(card).manual_seed(5)
+    dy = torch.randn((b, s, d), generator=gen, device=card)
+    dh = torch.randn((b, d, n), generator=gen, device=card) if with_dh else None
+    before = ss_kernel.bwd_launches.value
+    got = ss_kernel.selective_scan_bwd_cuda(*args, dy, dh)
+    assert ss_kernel.bwd_launches.value == before + 1
+    want = selective_scan_bwd_ref(*args, dy, dh)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and _rel_err(g, w) <= 2e-5
+
+
+def test_scan_backward_is_deterministic(card):
+    args = _scan_args(card, 8, 128, 1024, 16, seed=3)
+    dy = torch.randn_like(args[0])
+    first = ss_kernel.selective_scan_bwd_cuda(*args, dy)
+    second = ss_kernel.selective_scan_bwd_cuda(*args, dy)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_forward_without_grad_launches_as_before(card):
+    """Under no_grad, or with no input that requires grad, the ops launch
+    the forward kernels exactly as serving does (no autograd node), also
+    inside a CUDA-graph capture; with grad they launch the same forward
+    (the same bits) and the backward kernels in the backward."""
+    gen = torch.Generator(card).manual_seed(2)
+    q = torch.randn((2, 9, 64, 64), generator=gen, device=card).to(torch.bfloat16)
+    k, v = (torch.randn((2, 3, 64, 64), generator=gen, device=card).to(torch.bfloat16)
+            for _ in range(2))
+    served = fa_kernel.flash_attention_cuda(q, k, v)
+    counts = (fa_kernel.launches.value, fa_kernel.bwd_launches.value)
+    plain = flash_attention(q, k, v)
+    qg = q.clone().requires_grad_(True)
+    with torch.no_grad():
+        no_grad = flash_attention(qg, k, v)
+    assert plain.grad_fn is None and no_grad.grad_fn is None
+    assert torch.equal(plain, served) and torch.equal(no_grad, served)
+    graph = capture(lambda: flash_attention(q, k, v))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(graph.output, served)
+    assert graph.launches_by_kernel() == {"flash_attention": 1}
+    with_grad = flash_attention(qg, k, v)
+    assert with_grad.grad_fn is not None and torch.equal(with_grad.detach(), served)
+    with_grad.float().sum().backward()
+    # two eager calls, the capture's warm-up and replay, the call with grad
+    assert fa_kernel.launches.value == counts[0] + 5
+    assert fa_kernel.bwd_launches.value == counts[1] + 1 and qg.grad is not None
+    # the scan: the same
+    args = _scan_args(card, 2, 16, 64, 16, seed=4)
+    y0, _ = ss_kernel.selective_scan_cuda(*args)
+    xg = args[3].clone().requires_grad_(True)
+    with torch.no_grad():
+        y1, _ = selective_scan(*args[:3], xg, *args[4:])
+    y2, _ = selective_scan(*args[:3], xg, *args[4:])
+    assert y1.grad_fn is None and y2.grad_fn is not None
+    assert torch.equal(y1, y0) and torch.equal(y2.detach(), y0)
+    n = ss_kernel.bwd_launches.value
+    y2.sum().backward()
+    assert ss_kernel.bwd_launches.value == n + 1 and xg.grad is not None
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "falcon-mamba-7b"])
+def test_backward_through_the_model_reaches_attention_and_the_scan(card, arch):
+    """``loss.backward()`` through the port's model on the card: every
+    attention and Mamba layer runs its backward kernel (with remat the
+    forward kernel twice), the projections before them get non-zero
+    gradients, and the gradients agree with the plain path's (f32)."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.models import loss_fn
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.tree import tree_leaves
+
+    cfg = configs.get_smoke(arch)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=card)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int64))
+             .to(card) for k in ("tokens", "labels")}
+    leaves = tree_leaves(params)
+
+    def grads():
+        for p in leaves:
+            p.grad = None
+            p.requires_grad_(True)
+        loss, _ = loss_fn(cfg, params, batch)
+        loss.backward()
+        out = [p.grad.clone() for p in leaves]
+        for p in leaves:
+            p.requires_grad_(False)
+        return out
+
+    before = {c: c.value for c in (fa_kernel.launches, fa_kernel.bwd_launches,
+                                   ss_kernel.launches, ss_kernel.bwd_launches)}
+    got = grads()
+    ran = {c.name: c.value - n for c, n in before.items()}
+    mixer = "ssm" if cfg.family == "ssm" else "attn"
+    kern = "ssm_scan" if mixer == "ssm" else "flash_attention"
+    assert ran[kern] == 2 * cfg.n_layers and ran[kern + "_bwd"] == cfg.n_layers, ran
+    block = params["blocks"][0][mixer]
+    names = ("in_proj", "a_log", "x_proj", "dt_proj", "conv") if mixer == "ssm" else (
+        "wq", "wk", "wv")
+    by_id = {id(p): g for p, g in zip(leaves, got)}
+    for name in names:
+        assert float(by_id[id(block[name])].abs().max()) > 0, name
+    saved = attention_mod.flash_attention, ssm_mod.selective_scan
+    attention_mod.flash_attention, ssm_mod.selective_scan = attention_ref, selective_scan_ref
+    try:
+        want = grads()
+    finally:
+        attention_mod.flash_attention, ssm_mod.selective_scan = saved
+    bound = 1e-4 * max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= bound
+
+
+def test_trainer_resumes_exactly_on_the_card(card, tmp_path):
+    """A crash at step 5, resumed from the async checkpoint, reaches the
+    parameters of an uninterrupted run bit for bit on the card."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data import DataConfig, Pipeline
+    from repro_torch.train import Trainer, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(configs.get_smoke("smollm-135m"), dtype="bfloat16")
+    pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4))
+
+    def run(ckpt, fail_at):
+        run_cfg = RunConfig(learning_rate=1e-3, warmup_steps=2, checkpoint_every=2,
+                            checkpoint_dir=str(ckpt))
+        step, opt_init = make_train_step(cfg, run_cfg, device=card)
+        t = Trainer.resume_or_init(
+            cfg, run_cfg, pipe,
+            lambda: init_params(cfg, torch.Generator().manual_seed(0), device=card),
+            step, opt_init, device=card)
+        armed = {"on": fail_at is not None}
+
+        def hook(s):
+            if armed["on"] and s == fail_at:
+                armed["on"] = False
+                raise RuntimeError("simulated node failure")
+
+        t.run(8, fail_hook=hook)
+        return [x.clone() for x in tree_leaves(t.params)]
+
+    want, got = run(tmp_path / "a", None), run(tmp_path / "b", 5)
+    assert all(torch.equal(a, b) for a, b in zip(want, got))
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_changes_no_gradient_on_the_card(card, remat):
+    """Remat around the kernels' autograd functions (checkpointed, or the
+    selective "dots" policy) recomputes the same forward: the gradients
+    equal those without remat bit for bit (the backward kernels are
+    deterministic)."""
+    from repro_torch.models import loss_fn
+    from repro_torch.tree import tree_leaves
+
+    grads = {}
+    for mode in ("none", remat):
+        cfg = dataclasses.replace(configs.get_smoke("jamba-v0.1-52b"), remat=mode)
+        params = init_params(cfg, torch.Generator().manual_seed(0), device=card)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        rng = np.random.default_rng(1)
+        batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32))).to(card)
+                 for k in ("tokens", "labels")}
+        loss, _ = loss_fn(cfg, params, batch)
+        grads[mode] = torch.autograd.grad(loss, leaves)
+    assert all(torch.equal(a, b) for a, b in zip(grads["none"], grads[remat]))
