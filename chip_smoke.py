@@ -580,14 +580,32 @@ def graph_ms(torch, fn, calls: int = 20, replays: int = 20) -> float:
     return start.elapsed_time(end) / (replays * calls)
 
 
+PROFILE_TRIES = 3  # a trace with no device time at all is taken again, up to this many times
+
+
 def profile_once(torch, fn, key: str, keys=()) -> dict:
     """One call of ``fn`` under the profiler (ending in a synchronise): the
     device time and launches of all kernels and of those whose profiler
     name contains ``key`` (and, under ``by_key``, each of ``keys``), device
     time by kernel, and the host ops by self CPU time.  Kernels launched
-    by a CUDA-graph replay are listed as kernels too."""
+    by a CUDA-graph replay are listed as kernels too.  Now and then the
+    profiler returns a trace with no device time in it (seen in a decode
+    replay and in a train step, not reproduced on demand): ``fn`` is then
+    called and profiled again, up to ``PROFILE_TRIES`` calls in all, and
+    ``tries`` says how many it took."""
+    for tries in range(1, PROFILE_TRIES + 1):
+        out = _profile_call(torch, fn, key, keys)
+        out["tries"] = tries
+        if out["all_ms"] is not None:
+            break
+        log(f"the profiler showed no device time (try {tries} of {PROFILE_TRIES})")
+    return out
+
+
+def _profile_call(torch, fn, key: str, keys) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -1575,6 +1593,7 @@ def decode_breakdown(torch, cfg, eng, prompts, dev, ops, per_replay: dict, extra
                 "profiler_launches": prof["launches"],
                 "profiler_by_kernel": by_key,
                 "kernel_rank": prof["rank"],
+                "profiler_tries": prof["tries"],
                 "idle_share": 1 - all_ms / step_ms if all_ms else None,
             }
     check(out["graph"]["profiler_all_kernels_ms"] is not None,
@@ -2439,6 +2458,25 @@ FALCON_TRAIN_LAYERS, FALCON_STEPS = 8, 10  # of 64: the whole 7.27 B with its st
 GRAD_BF16_REL = 2**-4
 GRAD_F32_REL = 1e-4  # f32 gradients, relative to the model's largest element
 BWD_REL = {"float32": 2e-5, "bfloat16": 2**-6}  # a backward kernel against the f32 gradient
+# the forward's stored log-sum-exp (base 2, f32) against attention_lse_ref:
+# another summation order and exp2.approx, within 1e-4 + 1e-5 |lse|
+LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
+BWD_FLASH_CASES = (  # (B, Hq, Hkv, Sq, Sk, D, causal)
+    (2, 9, 3, 128, 128, 64, True),  # smollm-135m's step, cut to batch 2
+    (2, 4, 4, 33, 33, 16, True),
+    (1, 8, 2, 40, 40, 80, True),
+    (2, 4, 1, 17, 40, 32, True),  # Sq < Sk, end-aligned
+    (2, 6, 2, 70, 70, 112, False),
+    (1, 4, 2, 100, 130, 128, False),
+)
+# the regimes the other families train in, drawn from a generator of their
+# own so that the cases above and the scan's keep their inputs
+BWD_FLASH_FAMILY_CASES = (
+    (1, 3, 3, 1, 33, 64, True),  # one query row: the decode kernel writes the lse
+    (2, 32, 4, 100, 100, 128, True),  # qwen3-moe's 32:4, group 8, head_dim 128
+    (1, 48, 8, 72, 72, 128, True),  # internvl2's 48:8, group 6
+    (2, 8, 8, 40, 1500, 64, False),  # whisper's cross-attention over 1,500 frames
+)
 # kernel names summed in a train step's profile: the backward kernels, the
 # forward kernels, cuBLAS's GEMMs (by their Hopper names) and PyTorch's
 # element-wise kernels
@@ -2451,34 +2489,64 @@ def rel_err(got, want) -> float:
                                                                   1e-6)
 
 
+def flash_fwd_lse(torch, q, k, v, causal=True):
+    """The forward as the training path launches it: (out, lse)."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    return flash_attention_cuda(q, k, v, causal=causal, lse=lse), lse
+
+
+def scan_fwd_states(torch, args):
+    """The scan forward as the training path launches it: its chunk states."""
+    from repro_torch.kernels.ssm_scan.kernel import chunk_states_shape, selective_scan_cuda
+
+    b, s, d = args[0].shape
+    hc = torch.empty(chunk_states_shape(b, s, d, args[4].shape[1]), device=args[0].device)
+    selective_scan_cuda(*args, chunk_states=hc)
+    return hc
+
+
 def bwd_cases(torch, dev) -> float:
     """Both backward kernels against their plain versions on the card: flash
-    in f32 and bf16 at the head dims and GQA groups of the forward, causal
-    and full, Sq < Sk, held to the f32 gradient of the same inputs; the
-    scan at ragged channels, N 1/5/16, S 1/33/128, with and without dh,
-    held to the plain backward; every case launched twice, bit-equal.
-    Returns the largest relative error."""
+    in f32 and bf16 at the head dims and GQA groups of the forward and of
+    the families that train (group 8 and 6 at head_dim 128, non-causal over
+    1,500 keys), causal and full, Sq < Sk, one query row, held to the f32
+    gradient of the same inputs, its forward's stored log-sum-exp to the
+    plain one; the scan at ragged channels, N 1/5/12/16, S 1/33/128, with
+    and without dh, held to the plain backward, its forward's chunk states
+    to the plain ones; every case launched twice, bit-equal, and the
+    forward with the training path's output equal to serving's.  Returns
+    the largest relative error."""
     from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_cuda,
                                                             flash_attention_cuda)
-    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
-    from repro_torch.kernels.ssm_scan.kernel import selective_scan_bwd_cuda
-    from repro_torch.kernels.ssm_scan.ref import selective_scan_bwd_ref
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_lse_ref
+    from repro_torch.kernels.ssm_scan.kernel import selective_scan_bwd_cuda, selective_scan_cuda
+    from repro_torch.kernels.ssm_scan.ref import (selective_scan_bwd_ref,
+                                                  selective_scan_chunk_states_ref)
 
     gen = torch.Generator(dev).manual_seed(9)
+    gen_family = torch.Generator(dev).manual_seed(10)
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for b, hq, hkv, sq, sk, d, causal in ((2, 9, 3, 128, 128, 64, True),
-                                              (2, 4, 4, 33, 33, 16, True),
-                                              (1, 8, 2, 40, 40, 80, True),
-                                              (2, 4, 1, 17, 40, 32, True),
-                                              (2, 6, 2, 70, 70, 112, False),
-                                              (1, 4, 2, 100, 130, 128, False)):
-            q, k, v, do = (torch.randn(s, generator=gen, device=dev).to(dtype)
+        for case in BWD_FLASH_CASES + BWD_FLASH_FAMILY_CASES:
+            b, hq, hkv, sq, sk, d, causal = case
+            g = gen if case in BWD_FLASH_CASES else gen_family
+            q, k, v, do = (torch.randn(s, generator=g, device=dev).to(dtype)
                            for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d),
                                      (b, hq, sq, d)))
-            o = flash_attention_cuda(q, k, v, causal=causal)
-            got = flash_attention_bwd_cuda(q, k, v, o, do, causal=causal)
-            again = flash_attention_bwd_cuda(q, k, v, o, do, causal=causal)
+            o, lse = flash_fwd_lse(torch, q, k, v, causal=causal)
+            want_lse = attention_lse_ref(q, k, causal=causal)
+            fin = torch.isfinite(want_lse)
+            lse_err = float(((lse - want_lse)[fin].abs()
+                             / (LSE_ATOL + LSE_RTOL * want_lse[fin].abs())).max())
+            check(torch.equal(o, flash_attention_cuda(q, k, v, causal=causal))
+                  and torch.equal(torch.isinf(lse), torch.isinf(want_lse)) and lse_err <= 1,
+                  f"flash forward {str(dtype)[6:]} q {[b, hq, sq, d]}: the training launch's "
+                  f"output differs from serving's, or its lse is off the plain one "
+                  f"({lse_err} of the tolerance)")
+            got = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal)
+            again = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal)
             want = attention_bwd_ref(q.float(), k.float(), v.float(), do.float(), causal=causal)
             err = max(rel_err(g, w) for g, w in zip(got, want))
             check(err <= BWD_REL[str(dtype)[6:]] and all(map(torch.equal, got, again)),
@@ -2486,14 +2554,21 @@ def bwd_cases(torch, dev) -> float:
                   f"causal={causal}: relative error {err}, or two launches differ")
             worst = max(worst, err)
     for b, s, d, n in ((2, 33, 129, 16), (1, 1, 64, 4), (2, 128, 256, 16), (3, 17, 100, 5),
-                       (1, 8, 33, 1)):
+                       (1, 8, 33, 1), (2, 40, 70, 12)):
         r = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
         args = (torch.nn.functional.softplus(r(b, s, d) - 1), r(b, s, n), r(b, s, n),
                 r(b, s, d), -torch.exp(0.5 * r(d, n)), r(b, d, n))
+        hc = scan_fwd_states(torch, args)
+        hc_err = rel_err(hc, selective_scan_chunk_states_ref(*args))
+        served = selective_scan_cuda(*args)
+        check(hc_err <= BWD_REL["float32"]
+              and all(map(torch.equal, selective_scan_cuda(*args, chunk_states=hc), served)),
+              f"scan forward {[b, s, d, n]}: chunk states {hc_err} off the plain ones, or the "
+              f"training launch's outputs differ from serving's")
         for dh in (None, r(b, d, n)):
             dy = r(b, s, d)
-            got = selective_scan_bwd_cuda(*args, dy, dh)
-            again = selective_scan_bwd_cuda(*args, dy, dh)
+            got = selective_scan_bwd_cuda(*args, dy, dh, hc)
+            again = selective_scan_bwd_cuda(*args, dy, dh, hc)
             want = selective_scan_bwd_ref(*args, dy, dh)
             err = max(rel_err(g, w) for g, w in zip(got, want))
             check(err <= BWD_REL["float32"] and all(map(torch.equal, got, again)),
@@ -2568,19 +2643,55 @@ def record_calls(module, attr: str, calls: list, keep: int = 1):
     return (module, attr, wrapper)
 
 
-def step_profile(prof: dict, step_ms: float) -> dict:
-    """A train step's device time by kernel from ``profile_once``, and the
-    device's idle share of the step's wall time (None where the profiler
-    showed no device time)."""
+def bwd_event_ms(torch, modules, fn) -> dict:
+    """Device ms per call of ``fn`` spent in each backward wrapper
+    (``modules``: (module, attr) of the ops' backward launches), by CUDA
+    events around every launch: where the profiler shows nothing."""
+    spans = {attr: [] for _, attr in modules}
+
+    def timed(attr, orig):
+        def call(*a, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = orig(*a, **kw)
+            end.record()
+            spans[attr].append((start, end))
+            return res
+        return call
+
+    with swapped([(m, attr, timed(attr, getattr(m, attr))) for m, attr in modules]):
+        fn()
+    torch.cuda.synchronize()
+    return {attr: {"ms": sum(a.elapsed_time(b) for a, b in ev), "launches": len(ev)}
+            for attr, ev in spans.items()}
+
+
+def train_profile(torch, fn, step_ms: float, modules) -> dict:
+    """A train step's device time by kernel (``profile_once`` of one more
+    step, which profiles another step where the trace shows no device
+    time) and the device's idle share of the step's wall time.  Where
+    every try shows none, the backward kernels are timed with CUDA events
+    around their launches in one more step (``bwd_events``), and the
+    output says so."""
+    prof = profile_once(torch, fn, "_bwd_", keys=TRAIN_PROFILE_KEYS)
     busy = prof["all_ms"]
-    return {"device_ms": busy, "launches": prof["launches"],
-            "idle_share": None if busy is None else 1 - busy / step_ms,
-            "by_key": prof["by_key"], "top": [(k, us / 1e3) for k, us in prof["ranked"][:10]]}
+    out = {"device_ms": busy, "launches": prof["launches"], "profiler_tries": prof["tries"],
+           "idle_share": None if busy is None else 1 - busy / step_ms,
+           "by_key": prof["by_key"], "top": [(k, us / 1e3) for k, us in prof["ranked"][:10]]}
+    if busy is None:
+        out["bwd_events"] = bwd_event_ms(torch, modules, fn)
+        out["note"] = (f"the profiler showed no device time {PROFILE_TRIES} times: the backward "
+                       "kernels are timed with CUDA events around their launches (bwd_events)")
+        log(out["note"] + ": " + json.dumps(out["bwd_events"]))
+    return out
 
 
-def timed_train_stretch(torch, cfg, step, params, opt_state, pipe, n_steps, first_step) -> dict:
+def timed_train_stretch(torch, cfg, step, params, opt_state, pipe, n_steps, first_step,
+                        modules) -> dict:
     """Device-synchronised wall time per train step over ``n_steps`` steps
-    (after two warm-up steps), tokens/s and the peak device memory."""
+    (after two warm-up steps), tokens/s and the peak device memory; the
+    profile of one more step (``train_profile`` over the backward wrappers
+    ``modules``)."""
     batches = [{k: torch.from_numpy(v).to(params["embed"].device)
                 for k, v in pipe.batch_at(first_step + i).items()} for i in range(n_steps + 2)]
     for b in batches[:2]:
@@ -2599,9 +2710,9 @@ def timed_train_stretch(torch, cfg, step, params, opt_state, pipe, n_steps, firs
            "seq": batches[0]["tokens"].shape[1], "batch": batches[0]["tokens"].shape[0],
            "loss": float(m["loss"])}
     # where one more step's device time goes, by kernel
-    prof = profile_once(torch, lambda: step(params, opt_state, batches[-1], first_step + n_steps),
-                        "_bwd_", keys=TRAIN_PROFILE_KEYS)
-    out["profile"] = step_profile(prof, out["step_ms"])
+    out["profile"] = train_profile(
+        torch, lambda: step(params, opt_state, batches[-1], first_step + n_steps),
+        out["step_ms"], modules)
     return out
 
 
@@ -2614,7 +2725,7 @@ def train_flops(cfg, seq: int, batch: int) -> float:
     return 6 * cfg.param_count() * seq * batch + attn
 
 
-def flash_bwd_row(torch, args, kw) -> dict:
+def flash_bwd_row(torch, args, kw, calls: int = 20) -> dict:
     """The flash backward at one of the main path's backward calls: held to
     the f32 gradient and the plain backward, then timed beside its bound
     and SDPA's backward (autograd through ``scaled_dot_product_attention``
@@ -2622,11 +2733,11 @@ def flash_bwd_row(torch, args, kw) -> dict:
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_cuda
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
 
-    q, k, v, o, do = (t.detach() for t in args)
+    q, k, v, o, do, lse = (t.detach() for t in args)
     causal = kw.get("causal", True)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    got = flash_attention_bwd_cuda(q, k, v, o, do, causal=causal)
+    got = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal)
     plain = attention_bwd_ref(q, k, v, do, causal=causal)
     want = attention_bwd_ref(q.float(), k.float(), v.float(), do.float(), causal=causal)
     err = max(float((g.float() - w).abs().max()) for g, w in zip(got, want))
@@ -2657,11 +2768,14 @@ def flash_bwd_row(torch, args, kw) -> dict:
     row = {
         "shape": f"q/o/dO {list(q.shape)}, k/v {list(k.shape)}, {str(q.dtype)[6:]}, "
                  f"causal={causal}",
-        "ms": graph_ms(torch, lambda: flash_attention_bwd_cuda(q, k, v, o, do, causal=causal)),
-        "eager_ms": time_ms(torch, lambda: flash_attention_bwd_cuda(q, k, v, o, do,
+        "ms": graph_ms(torch, lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse,
+                                                               causal=causal), calls=calls),
+        "eager_ms": time_ms(torch, lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse,
                                                                      causal=causal), iters=50),
-        "plain_ms": graph_ms(torch, lambda: attention_bwd_ref(q, k, v, do, causal=causal)),
-        "library_ms": graph_ms(torch, lib_fwd_bwd) - graph_ms(torch, lib),
+        "plain_ms": graph_ms(torch, lambda: attention_bwd_ref(q, k, v, do, causal=causal),
+                             calls=calls, replays=min(calls, 20)),
+        "library_ms": graph_ms(torch, lib_fwd_bwd, calls=calls)
+        - graph_ms(torch, lib, calls=calls),
         "library": "scaled_dot_product_attention's backward (fwd+bwd less fwd) on K/V repeated "
                    "to the query heads",
         "timed": "CUDA-graph replays (autograd's backward captured with the forward)",
@@ -2683,7 +2797,7 @@ def scan_bwd_row(torch, args, info) -> dict:
 
     args = [None if t is None else t.detach() for t in args]
     got = selective_scan_bwd_cuda(*args)
-    plain = selective_scan_bwd_ref(*args)
+    plain = selective_scan_bwd_ref(*args[:8])  # all but the forward's chunk states
     err = max(float((g - p).abs().max()) for g, p in zip(got, plain))
     rel = max(rel_err(g, p) for g, p in zip(got, plain))
     check(rel <= BWD_REL["float32"], f"scan backward at the main path's inputs: relative "
@@ -2703,7 +2817,8 @@ def scan_bwd_row(torch, args, info) -> dict:
         "shape": f"dt/x/dy [{b}, {s}, {d}], B/C [{b}, {s}, {n}], f32",
         "ms": graph_ms(torch, lambda: selective_scan_bwd_cuda(*args), calls=5, replays=5),
         "eager_ms": time_ms(torch, lambda: selective_scan_bwd_cuda(*args), iters=20),
-        "plain_ms": graph_ms(torch, lambda: selective_scan_bwd_ref(*args), calls=2, replays=3),
+        "plain_ms": graph_ms(torch, lambda: selective_scan_bwd_ref(*args[:8]), calls=2,
+                             replays=3),
         "timed": "CUDA-graph replays (autograd's backward captured with the forward)",
         "library_ms": None,
         "library": "none: no single PyTorch call computes the recurrence's gradient",
@@ -2823,8 +2938,11 @@ def train_smollm(torch, np, dev, info) -> dict:
         long_pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=LONG_SEQ,
                                         global_batch=LONG_BATCH))
         reset_counts()
-        out["long"] = timed_train_stretch(torch, cfg, step, trainer.params, trainer.opt_state,
-                                          long_pipe, LONG_STEPS, trainer.step)
+        long_calls = []  # one backward call of the timed stretch, for its own row
+        with swapped([record_calls(fa_ops, "flash_attention_bwd_cuda", long_calls)]):
+            out["long"] = timed_train_stretch(
+                torch, cfg, step, trainer.params, trainer.opt_state, long_pipe, LONG_STEPS,
+                trainer.step, [(fa_ops, "flash_attention_bwd_cuda")])
         n_long = LONG_STEPS + 3  # two warm-up steps, the timed ones and the profiled one
         expect_train_launches(read_counts(),
                               {"flash_attention": 2 * cfg.n_layers * n_long,
@@ -2836,6 +2954,8 @@ def train_smollm(torch, np, dev, info) -> dict:
                             "peak": "989 TFLOP/s dense bf16, H100 SXM data sheet",
                             "card": info["nvidia_smi"]})
         log(f"smollm-135m timed stretch: {json.dumps(out['long'])}")
+        out["flash_bwd_long"] = flash_bwd_row(torch, *long_calls[0], calls=4)
+        del long_calls
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
@@ -2896,9 +3016,9 @@ def train_falcon(torch, np, dev, info) -> dict:
     out["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     counts, by_kernel = read_counts(), read_kernel_counts("ssm_scan")
     out["launches"] = {k: v for k, v in counts.items() if v}
-    prof = profile_once(torch, lambda: step(params, opt_state, batches[-1], FALCON_STEPS),
-                        "_bwd_", keys=TRAIN_PROFILE_KEYS)
-    out["profile"] = step_profile(prof, out["step_ms"])
+    out["profile"] = train_profile(
+        torch, lambda: step(params, opt_state, batches[-1], FALCON_STEPS), out["step_ms"],
+        [(ss_ops, "selective_scan_bwd_cuda")])
     expect_train_launches(counts, {"ssm_scan": 2 * cfg.n_layers * FALCON_STEPS,
                                    "ssm_scan_bwd": cfg.n_layers * FALCON_STEPS},
                           "falcon-mamba-7b's training")
@@ -3254,6 +3374,9 @@ def main() -> int:
         **{k: fb[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms", "library")},
         "shape": "one backward launch of smollm-135m's train step: " + fb["shape"],
+        "timed_stretch": {k: sm_train["flash_bwd_long"][k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
+            "rel_err")},
     })
     log("smollm-135m training summary: " + json.dumps(sm_train))
 

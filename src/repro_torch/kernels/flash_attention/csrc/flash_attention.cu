@@ -56,6 +56,15 @@
 //    memory as f32, products in f32 on the CUDA cores (no TF32), q scaled
 //    before the QK product and p kept in f32 as in the Pallas kernel.
 //
+// Training.  On the autograd path the wrapper passes lse, and whichever
+// kernel flash_plan picks (decode included: training with one query row
+// takes it) also writes each row's log-sum-exp, f32 [B, Hq, Sq], base 2 of
+// the scaled logits: m + log2(l) of its own running statistics (times
+// log2 e where they are natural), +inf for a row that saw no key, so the
+// backward (flash_attention_bwd.cu) reads it and recomputes nothing.
+// Serving passes null: the same kernels, launch geometry and output bits;
+// the only change on its path is the untaken branch at the end.
+//
 // What bounds it on this card.  At decode (one query row per head, a
 // cache of a few hundred keys) the work is reading the live K/V prefix:
 // bytes, a fraction of a microsecond per layer at 3.35 TB/s, so latency
@@ -90,6 +99,7 @@ namespace {
 namespace cg = cooperative_groups;
 
 constexpr float kMasked = -1e30f;  // the Pallas kernel's NEG_INF
+constexpr float kLog2e = 1.44269504088896341f;
 constexpr int kMaxSmem = 232448;   // a Hopper block's shared memory, opt-in above 48 KB
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -198,7 +208,7 @@ struct DecLayout {
 template <typename T, int D, int ROWS>
 __global__ void __launch_bounds__(kDecThreads) flash_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int Hq, int Hkv, int Sq, int Sk,
+    T* __restrict__ o, float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
     long long qsb, long long qsh, long long qss,
     long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss,
@@ -374,6 +384,10 @@ __global__ void __launch_bounds__(kDecThreads) flash_decode_kernel(
     const int h = hk * G + r % G, qi = r / G;
     o[((static_cast<long long>(b) * Hq + h) * Sq + qi) * D + d] =
         from_f32<T>(sum_a / fmaxf(sum_l, 1e-30f));
+    if (lse != nullptr && d == 0) {  // the training path: base 2, +inf for a row with no key
+      lse[(static_cast<long long>(b) * Hq + h) * Sq + qi] =
+          mx > kMasked ? (mx + logf(sum_l)) * kLog2e : CUDART_INF_F;
+    }
   }
   cluster.sync();  // no block leaves while another still reads its shared memory
 }
@@ -427,9 +441,10 @@ __device__ __forceinline__ float quad_sum(float x) {
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Hq, int Hkv,
-    int Sq, int Sk, long long qsb, long long qsh, long long qss, long long ksb, long long ksh,
-    long long kss, long long vsb, long long vsh, long long vss, float scale, int causal,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+    int Hq, int Hkv, int Sq, int Sk, long long qsb, long long qsh, long long qss, long long ksb,
+    long long ksh, long long kss, long long vsb, long long vsh, long long vss, float scale,
+    int causal,
     const int32_t* __restrict__ offset_dev, int offset_host, bool aligned) {
   using L = MmaLayout<D>;
   constexpr int kLd = L::kLd;
@@ -616,8 +631,9 @@ __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(
   cp_async_wait<0>();  // with no key tile, Q's copies are still in flight
 
   // out = acc / l for rows a and b
-  const float inv_a = 1.f / fmaxf(quad_sum(l_a), 1e-30f);
-  const float inv_b = 1.f / fmaxf(quad_sum(l_b), 1e-30f);
+  const float sum_a = quad_sum(l_a), sum_b = quad_sum(l_b);
+  const float inv_a = 1.f / fmaxf(sum_a, 1e-30f);
+  const float inv_b = 1.f / fmaxf(sum_b, 1e-30f);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = half == 0 ? ra : rb;
@@ -630,6 +646,11 @@ __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(
       const __nv_bfloat162 val = __floats2bfloat162_rn(acc[dn][2 * half] * inv,
                                                        acc[dn][2 * half + 1] * inv);
       *reinterpret_cast<__nv_bfloat162*>(orow + dn * 8 + tig * 2) = val;
+    }
+    if (lse != nullptr && tig == 0) {  // the training path: base 2, +inf for a row with no key
+      const float m = half == 0 ? m_a : m_b, l = half == 0 ? sum_a : sum_b;
+      lse[(static_cast<long long>(b) * Hq + h) * Sq + qi] =
+          m > kMasked ? m + log2f(l) : CUDART_INF_F;
     }
   }
 }
@@ -669,7 +690,7 @@ __device__ __forceinline__ void stage_f32(float* dst, const float* src, long lon
 template <int D>
 __global__ void __launch_bounds__(kSimtThreads) flash_simt_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, int Hq, int Hkv, int Sq, int Sk,
+    float* __restrict__ o, float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
     long long qsb, long long qsh, long long qss,
     long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss,
@@ -796,6 +817,10 @@ __global__ void __launch_bounds__(kSimtThreads) flash_simt_kernel(
       const int d = lane + 32 * e;
       if (d < D) orow[d] = acc[r][e] / den;
     }
+    if (lse != nullptr && lane == 0) {  // the training path: base 2, +inf for a row with no key
+      lse[(static_cast<long long>(b) * Hq + h) * Sq + qi] =
+          m[r] > kMasked ? (m[r] + logf(l[r])) * kLog2e : CUDART_INF_F;
+    }
   }
 }
 
@@ -807,6 +832,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // the training path's log-sum-exp output, or null
   int B, Hq, Hkv, Sq, Sk;
   const long long* st;
   float scale;
@@ -850,9 +876,9 @@ cudaError_t launch_decode(const Args& a) {
   cfg.numAttrs = 1;
   const long long* st = a.st;
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-                           static_cast<const T*>(a.v), static_cast<T*>(a.o), a.Hq, a.Hkv, a.Sq,
-                           a.Sk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-                           a.scale, a.causal, a.offset_dev, a.offset_host, a.aligned);
+                           static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.Hq, a.Hkv,
+                           a.Sq, a.Sk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+                           st[8], a.scale, a.causal, a.offset_dev, a.offset_host, a.aligned);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -869,7 +895,7 @@ cudaError_t launch_mma(const Args& a) {
   const long long* st = a.st;
   kernel<<<grid, kMmaThreads, kBytes, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.o), a.Hq, a.Hkv,
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.o), a.lse, a.Hq, a.Hkv,
       a.Sq, a.Sk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], a.scale,
       a.causal, a.offset_dev, a.offset_host, a.aligned);
   return cudaGetLastError();
@@ -881,7 +907,7 @@ cudaError_t launch_simt(const Args& a) {
   const long long* st = a.st;
   flash_simt_kernel<D><<<grid, kSimtThreads, 0, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.Hq, a.Hkv, a.Sq, a.Sk,
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.Hq, a.Hkv, a.Sq, a.Sk,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], a.scale, a.causal,
       a.offset_dev, a.offset_host, a.aligned);
   return cudaGetLastError();
@@ -913,10 +939,14 @@ cudaError_t dispatch(int dtype, int kernel, const Args& a) {
 // [B, Hq, Sq, D].  offset_dev, when not null, points to the int32 absolute
 // position of q's first row on the device; otherwise offset_host is used.
 // aligned != 0 promises that q, k and v start on 16 bytes and that their
-// strides are multiples of 16 bytes, for 16-byte loads.  Launches on
-// `stream`; returns the cudaError_t of the launch (0 = success).
+// strides are multiples of 16 bytes, for 16-byte loads.  lse, when not null
+// (the training path), receives each row's log-sum-exp as f32 [B, Hq, Sq]:
+// base 2 of the scaled logits, +inf for a row that sees no key; serving
+// passes null.  Launches on `stream`; returns the cudaError_t of the launch
+// (0 = success).
 extern "C" int da4ml_flash_attention(int dtype, int kernel, int splits, int head_dim,
                                      const void* q, const void* k, const void* v, void* o,
+                                     float* lse,
                                      int B, int Hq, int Hkv, int Sq, int Sk,
                                      const long long* strides, float scale, int causal,
                                      const int32_t* offset_dev, int offset_host, int aligned,
@@ -929,7 +959,7 @@ extern "C" int da4ml_flash_attention(int dtype, int kernel, int splits, int head
                       splits > 8 || static_cast<long long>(B) * Hkv > 65535)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{q, k, v, o, B, Hq, Hkv, Sq, Sk, strides, scale, causal, offset_dev, offset_host,
+  const Args a{q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, strides, scale, causal, offset_dev, offset_host,
                aligned != 0, splits, static_cast<cudaStream_t>(stream)};
   switch (head_dim) {
     case 16:

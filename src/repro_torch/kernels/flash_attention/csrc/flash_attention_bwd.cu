@@ -17,46 +17,92 @@
 //     dQ = scale dS k, dK = scale dS^T q, dV = P^T dO,
 //     dK and dV summed over the query heads of a GQA group.
 //
-// FA2's split, two kernels per call, no float atomics: every sum is taken
-// by one thread in a fixed order, so two launches on the same inputs give
-// the same bits (crash recovery resumes to the same parameters).
+// The rows' log-sum-exp comes from the forward: on the autograd path the
+// forward kernel that flash_plan picks (decode, tensor-core or CUDA-core)
+// writes it, in base 2 of the scaled logits (+inf for a row that sees no
+// key, so every p of that row is 0), and _FlashAttention saves it.  No
+// kernel here recomputes it.
 //
-//  1. dQ (one block per 64 query rows of one query head, or 16 in f32):
-//     delta of its rows from dO and O, then a pass over the keys for the
-//     rows' log-sum-exp (the forward kernel does not store it: the
-//     serving path's launch stays as it was), written to `lse`, then a
-//     second pass for dQ.  Both passes stop at the block's causal frontier,
-//     and a warp skips the key tiles past its own rows.
-//  2. dK and dV (one block per 64 keys of one KV head, or 16 in f32):
-//     loops over the group's query heads and the query tiles from the first
-//     row that can see its keys, reading Q, dO, lse and delta, and keeps
-//     dK and dV in registers.
+// bf16 (the training path), two launches:
+//  1. delta (fa_bwd_delta): one warp per row, dO . O in f32.
+//  2. one grid of two kinds of blocks (fa_bwd_wgmma), each of one consumer
+//     warpgroup and one producer warp.  The first blocks each own 64 keys
+//     of one KV head and write their dK and dV; the others each own 64
+//     query rows of one query head and write their dQ (design (a): a dQ
+//     block streams the keys itself, so nothing is added across blocks and
+//     no scratch or semaphore is needed).  Every output element is written
+//     by one block, every sum is taken in a fixed order: two launches give
+//     the same bits (crash recovery resumes to the same parameters).
+//     - dK/dV block: K and V (64 keys) stay in shared memory; the group's
+//       query heads, and within each the query tiles from the first row
+//       that sees the block's keys, stream through a ring (4 stages at
+//       head dim 64, 2 at 128): Q and dO tiles by TMA (128-byte swizzle,
+//       zeros past the tensor's edges),
+//       the tile's lse and delta by the producer warp's lanes (+inf and 0
+//       past Sq, so a row past the end has p = 0), full and empty
+//       mbarriers between the producer and the warpgroup.  Per tile, four
+//       warpgroup products (wgmma.m64nNk16, f32 accumulation): S^T = K Q^T
+//       and dP^T = V dO^T with both operands in shared memory (K-major),
+//       then P^T and dS^T, rounded to bf16 as FA2 does (ROADMAP Queue 3
+//       "Flash in bf16"), stay in registers as the A operand of
+//       dV += P^T dO and dK += dS^T Q, whose B operands are the same Q and
+//       dO tiles read MN-major.  S^T and dP^T are two commit groups: P^T's
+//       exponentials run while dP^T is on the tensor cores, dS^T's while
+//       dV is; only the tiles on the causal diagonal are masked.  dK and
+//       dV stay in registers over the whole group, summed in the order of
+//       its heads.
+//     - dQ block: Q and dO (64 rows) stay in shared memory, its rows' lse
+//       and delta in registers; the keys up to its causal frontier stream
+//       through the same ring (K and V tiles of 64 keys by TMA); per tile
+//       three products: S = Q K^T, dP = dO V^T (P's exponentials overlap
+//       dP), then dQ += dS K with dS in registers and K read MN-major.
+//     The grid is flash_bwd_plan's (kernel.py): ceil(Sk / 64) Hkv B dK/dV
+//     blocks first (the longer ones start first), then ceil(Sq / 64) Hq B
+//     dQ blocks, so the dQ blocks fill the SMs the dK/dV blocks leave
+//     (smollm-135m's step at seq 128: 48 + 144 blocks, where dK/dV alone
+//     would be 48 on 132 SMs).  Head dims: D <= 64 runs padded to 64
+//     (the wrapper pads 16 and 32; the ring's query tiles are 64 rows),
+//     80 to 128 runs at 128 (TMA fills the columns past D with zeros;
+//     query tiles of 32 rows, so S^T, dP^T, dK and dV fit the registers).
+//     The tensor maps are 3-d (tma_load, encode): the model's q, k, v and
+//     dO, [B, S, H, D] viewed as [B, H, S, D], are read where they lie at
+//     small sizes (layout SEQ, a template parameter); kernel.py copies
+//     them to [B, H, S, D] first at large ones, where reading 128-byte rows
+//     a head apart made the kernel 1.6x as slow on the H100 (412 against
+//     260 us at seq 1024, batch 16).  Two bigger-tile variants were tried
+//     and dropped: two consumer warpgroups sharing each streamed tile
+//     (slower at head dim 64, 15% faster only at internvl2-26b's 384 rows
+//     at 128, and spilling there), and 4-d tensor maps (the same 1.6x).
 //
-// bf16 runs the products on the tensor cores (mma.sync.m16n8k16, f32
-// accumulation; the fragment loads are the forward kernel's): P and dS
-// are rounded to bf16 as the operands of the second products, as FA2
-// does.  f32 runs on the CUDA cores, all in f32.  Outputs take q's dtype.
+// f32 (the CUDA cores, left as PR 20 wrote them but for reading the
+// stored lse): fa_bwd_dq_simt (delta of its rows, then dQ) and
+// fa_bwd_dkdv_simt; all in f32, no TF32.
 //
-// What bounds it on this card.  At smollm-135m's training shape (q [8, 9,
-// 128, 64], k/v [8, 3, 128, 64], bf16, causal) the work is ~5 causal
-// products of 2 S^2 D flops per head plus one more for the log-sum-exp
-// pass: a few microseconds at the tensor cores' rate, and the bytes (q, k,
-// v, o, dO read, dq, dk, dv written) fewer still; latency and the few
-// blocks (48 for dK/dV) bound it.  A simple kernel that is right comes
-// first; PERF.md keeps its time beside its bound.
+// What bounds it on this card.  Five causal products of 2 S^2 D / 2 flops
+// per head (S^T, dP^T, dV, dK, and dQ's S, dP, dQ counted once each: the dQ
+// blocks recompute S and dP), against the bytes of q, k, v, o, dO, dq, dk,
+// dv once each.  At smollm-135m's training step (q [8, 9, 128, 64], bf16)
+// that is ~1.9 us of bytes and ~0.6 us of products: latency bounds it, and
+// the design keeps every SM busy and each tile's loads in flight while the
+// previous tile is computed.  At seq 1024, batch 16 the products bound it
+// (~48 GFLOP a call, ~49 us at 989 TFLOP/s): they run on wgmma, the only
+// way to the tensor cores' rate, from swizzled tiles that TMA brings in.
+// The softmax part (an exp2 per pair, in both kinds of blocks) runs on the
+// CUDA cores between the products; ptxas serialises the wgmma of a
+// warpgroup around the divergent paths (C7520), and overlapping one
+// warpgroup's softmax with another's products (FA3's ping-pong) is left
+// for later.  PERF.md keeps the times.
 
 #include <cstdint>
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps
+constexpr int kThreads = 128;  // the f32 kernels' block, and one warpgroup
 constexpr float kLog2e = 1.44269504088896341f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -64,65 +110,8 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, s));
-  return x;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-// Rows [row0, row0 + n_rows) of a contiguous [*, D] tensor into dst
-// [n_rows][LD]; rows at or past `limit` are zeros.  16-byte aligned rows
-// (the wrapper's promise); the caller waits for the copies.
-template <typename T, int D, int LD>
-__device__ __forceinline__ void stage_rows(T* dst, const T* src, long long row0,
-                                           long long limit, int n_rows) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = D / kVec;
-  for (int i = threadIdx.x; i < n_rows * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
-    const bool ok = row0 + r < limit;
-    cp_async16(dst + r * LD + c, ok ? src + (row0 + r) * D + c : src, ok);
-  }
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -130,70 +119,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The A fragment of rows [0, 16) and columns [kk * 16, kk * 16 + 16) of a
-// row-major bf16 tile with row stride LD (lane: group grp, thread tig).
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int kk,
-                                       int grp, int tig) {
-  const __nv_bfloat16* p = tile + grp * LD + kk * 16 + tig * 2;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * LD);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * LD + 8);
-}
-
-// acc[n] += A (16 x D, rows of `a_tile`) times B^T, where B is NT * 8 rows
-// of D values (`b_tile`, row-major): the logits of 16 rows against NT * 8
-// rows, both tiles with row stride LD.
-template <int D, int NT, int LD>
-__device__ __forceinline__ void rows_dot_rows(float (&acc)[NT][4], const __nv_bfloat16* a_tile,
-                                              const __nv_bfloat16* b_tile, int grp, int tig) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    load_a<LD>(a, a_tile, kk, grp, tig);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const __nv_bfloat16* bp = b_tile + (n * 8 + grp) * LD + kk * 16 + tig * 2;
-      mma_bf16(acc[n], a, ld32(bp), ld32(bp + 8));
-    }
-  }
-}
-
-// out[dn] += W (16 x NT * 8, in the accumulator layout of rows_dot_rows,
-// rounded to bf16) times M (NT * 8 rows of D values, row-major, stride LD).
-template <int D, int NT, int LD>
-__device__ __forceinline__ void weights_times_rows(float (&out)[D / 8][4], const float (&w)[NT][4],
-                                                   const __nv_bfloat16* m_tile, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    const uint32_t a[4] = {
-        pack_bf16(w[2 * kk][0], w[2 * kk][1]),
-        pack_bf16(w[2 * kk][2], w[2 * kk][3]),
-        pack_bf16(w[2 * kk + 1][0], w[2 * kk + 1][1]),
-        pack_bf16(w[2 * kk + 1][2], w[2 * kk + 1][3]),
-    };
-#pragma unroll
-    for (int dn = 0; dn < D / 8; dn += 2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, m_tile + (kk * 16 + (lane & 15)) * LD + dn * 8 + (lane >> 4) * 8);
-      mma_bf16(out[dn], a, b[0], b[1]);
-      mma_bf16(out[dn + 1], a, b[2], b[3]);
-    }
-  }
-}
-
 struct Args {
   const void *q, *k, *v, *o, *dout;
   void *dq, *dk, *dv;
-  float *lse, *delta;
-  int B, Hq, Hkv, Sq, Sk;
+  const float* lse;
+  float* delta;
+  int B, Hq, Hkv, Sq, Sk, head_dim;
+  const long long* strides;  // bf16: the element strides of q, k, v, dO (batch, head, row)
+  int seq;                   // bf16: the tensor maps merge rows with batches (tma_load)
   float scale;
   int causal, offset;
   cudaStream_t stream;
@@ -207,261 +140,594 @@ __device__ __forceinline__ long long keys_upto(long long last_pos, int Sk, int c
 }
 
 // ---------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16: mbarriers, TMA and wgmma
 // ---------------------------------------------------------------------
-constexpr int kRows = 64;  // query rows (dQ) or keys (dK, dV) per block: 16 per warp
-constexpr int kKeys = 64;  // keys per tile of the dQ kernel
-
-template <int D>
-struct DqLayout {
-  static constexpr int kLd = D + 8;  // padded by 16 bytes, as the forward kernel's tiles
-  static constexpr int kTile = kRows * kLd;
-  static constexpr int kBytes = 4 * kTile * 2 + kRows * 4;  // Q, dO, K, V; delta
-};
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) fa_bwd_dq_mma(Args g) {
-  using L = DqLayout<D>;
-  constexpr int kLd = L::kLd, NT = kKeys / 8, DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* dos = qs + L::kTile;
-  __nv_bfloat16* ks = dos + L::kTile;
-  __nv_bfloat16* vs = ks + L::kTile;
-  float* delta_s = reinterpret_cast<float*>(vs + L::kTile);
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / (g.Hq / g.Hkv);
-  const int q0 = blockIdx.x * kRows;
-  const long long qhead = (static_cast<long long>(b) * g.Hq + h) * g.Sq;  // row (b, h, 0)
-  const long long khead = (static_cast<long long>(b) * g.Hkv + hk) * g.Sk;
-  const auto* q = static_cast<const __nv_bfloat16*>(g.q) + qhead * D;
-  const auto* o = static_cast<const __nv_bfloat16*>(g.o) + qhead * D;
-  const auto* dout = static_cast<const __nv_bfloat16*>(g.dout) + qhead * D;
-  const auto* k = static_cast<const __nv_bfloat16*>(g.k) + khead * D;
-  const auto* v = static_cast<const __nv_bfloat16*>(g.v) + khead * D;
-
-  stage_rows<__nv_bfloat16, D, kLd>(qs, q, q0, g.Sq, kRows);
-  stage_rows<__nv_bfloat16, D, kLd>(dos, dout, q0, g.Sq, kRows);
-  cp_async_wait_all();
-  // delta of the warp's 16 rows
-  for (int r = warp * 16; r < warp * 16 + 16; ++r) {
-    const long long row = q0 + r;
-    float part = 0.f;
-    if (row < g.Sq) {
-      for (int d = lane; d < D; d += 32) part += to_f32(dout[row * D + d]) * to_f32(o[row * D + d]);
-    }
-    part = warp_sum(part);
-    if (lane == 0) {
-      delta_s[r] = part;
-      if (row < g.Sq) g.delta[qhead + row] = part;
-    }
-  }
-
-  const int ra = q0 + warp * 16 + grp, rb = ra + 8;  // this thread's two rows
-  const long long pos_a = static_cast<long long>(g.offset) + ra;
-  const long long pos_b = static_cast<long long>(g.offset) + rb;
-  const long long n_keys = keys_upto(g.offset + static_cast<long long>(min(g.Sq, q0 + kRows)) - 1,
-                                     g.Sk, g.causal);
-  const long long warp_last = g.offset + static_cast<long long>(min(g.Sq - 1, q0 + warp * 16 + 15));
-  const float scale_log2 = g.scale * kLog2e;
-  const __nv_bfloat16* qw = qs + warp * 16 * kLd;
-  const __nv_bfloat16* dow = dos + warp * 16 * kLd;
-
-  auto visible = [&](long long j, int row, long long pos) {
-    return row < g.Sq && j < g.Sk && (!g.causal || j <= pos);
-  };
-
-  // pass 1: the rows' log-sum-exp, in base 2 of the scaled logits
-  float m_a = -CUDART_INF_F, m_b = -CUDART_INF_F, l_a = 0.f, l_b = 0.f;
-  for (long long t0 = 0; t0 < n_keys; t0 += kKeys) {
-    __syncthreads();  // the previous tile is read
-    stage_rows<__nv_bfloat16, D, kLd>(ks, k, t0, g.Sk, kKeys);
-    cp_async_wait_all();
-    __syncthreads();
-    if (g.causal && t0 > warp_last) continue;
-    float s[NT][4];
-    rows_dot_rows<D, NT, kLd>(s, qw, ks, grp, tig);
-    float mx_a = -CUDART_INF_F, mx_b = -CUDART_INF_F;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const long long j = t0 + n * 8 + tig * 2 + e;
-        s[n][e] = visible(j, ra, pos_a) ? s[n][e] * scale_log2 : -CUDART_INF_F;
-        s[n][2 + e] = visible(j, rb, pos_b) ? s[n][2 + e] * scale_log2 : -CUDART_INF_F;
-        mx_a = fmaxf(mx_a, s[n][e]);
-        mx_b = fmaxf(mx_b, s[n][2 + e]);
-      }
-    }
-    const float mn_a = fmaxf(m_a, quad_max(mx_a)), mn_b = fmaxf(m_b, quad_max(mx_b));
-    // a row that has seen no key yet keeps l = 0 (no -inf - -inf)
-    const float ref_a = mn_a == -CUDART_INF_F ? 0.f : mn_a;
-    const float ref_b = mn_b == -CUDART_INF_F ? 0.f : mn_b;
-    float ps_a = 0.f, ps_b = 0.f;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      ps_a += exp2f(s[n][0] - ref_a) + exp2f(s[n][1] - ref_a);
-      ps_b += exp2f(s[n][2] - ref_b) + exp2f(s[n][3] - ref_b);
-    }
-    l_a = l_a * exp2f(m_a - ref_a) + ps_a;
-    l_b = l_b * exp2f(m_b - ref_b) + ps_b;
-    m_a = mn_a;
-    m_b = mn_b;
-  }
-  l_a = quad_sum(l_a);
-  l_b = quad_sum(l_b);
-  // a row with no key: lse +inf, so every p of it is 0
-  const float lse_a = l_a > 0.f ? m_a + log2f(l_a) : CUDART_INF_F;
-  const float lse_b = l_b > 0.f ? m_b + log2f(l_b) : CUDART_INF_F;
-  if (tig == 0) {
-    if (ra < g.Sq) g.lse[qhead + ra] = lse_a;
-    if (rb < g.Sq) g.lse[qhead + rb] = lse_b;
-  }
-  __syncthreads();  // delta_s and the staged Q and dO are visible to every warp
-  const float delta_a = delta_s[warp * 16 + grp], delta_b = delta_s[warp * 16 + grp + 8];
-
-  // pass 2: dQ = scale dS K
-  float dq[DT][4];
-#pragma unroll
-  for (int t = 0; t < DT; ++t) dq[t][0] = dq[t][1] = dq[t][2] = dq[t][3] = 0.f;
-  for (long long t0 = 0; t0 < n_keys; t0 += kKeys) {
-    __syncthreads();
-    stage_rows<__nv_bfloat16, D, kLd>(ks, k, t0, g.Sk, kKeys);
-    stage_rows<__nv_bfloat16, D, kLd>(vs, v, t0, g.Sk, kKeys);
-    cp_async_wait_all();
-    __syncthreads();
-    if (g.causal && t0 > warp_last) continue;
-    float p[NT][4], dp[NT][4];
-    rows_dot_rows<D, NT, kLd>(p, qw, ks, grp, tig);
-    rows_dot_rows<D, NT, kLd>(dp, dow, vs, grp, tig);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const long long j = t0 + n * 8 + tig * 2 + e;
-        const float pa = visible(j, ra, pos_a) ? exp2f(p[n][e] * scale_log2 - lse_a) : 0.f;
-        const float pb = visible(j, rb, pos_b) ? exp2f(p[n][2 + e] * scale_log2 - lse_b) : 0.f;
-        p[n][e] = pa * (dp[n][e] - delta_a);  // dS
-        p[n][2 + e] = pb * (dp[n][2 + e] - delta_b);
-      }
-    }
-    weights_times_rows<D, NT, kLd>(dq, p, ks, lane);
-  }
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = half == 0 ? ra : rb;
-    if (row >= g.Sq) continue;
-    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(g.dq) + (qhead + row) * D;
-#pragma unroll
-    for (int dn = 0; dn < DT; ++dn) {
-      *reinterpret_cast<__nv_bfloat162*>(out + dn * 8 + tig * 2) = __floats2bfloat162_rn(
-          dq[dn][2 * half] * g.scale, dq[dn][2 * half + 1] * g.scale);
-    }
-  }
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-template <int D>
-struct DkvLayout {
-  static constexpr int BQ = D <= 64 ? 64 : 32;  // query rows per tile: registers bound it
-  static constexpr int kLd = D + 8;
-  static constexpr int kBytes = (2 * kRows + 2 * BQ) * kLd * 2 + 2 * BQ * 4;  // K, V, Q, dO; lse, delta
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// One box (columns c0 .. c0 + 63 of rows row .. of head h of batch b) of a
+// [B, H, S, D] tensor into shared memory, through a 3-d tensor map that
+// merges two of its dims (encode, below): heads with batches, coordinates
+// (column, row, b H + h); or (SEQ), where a batch's rows are evenly
+// strided across its heads (the model's [B, S, H, D] viewed as
+// [B, H, S, D]), rows with batches, (column, h, b S + row).  The layout is
+// a template parameter: on the H100 a 4-d map over the same tiles, and a
+// layout chosen at run time, each made the kernel take ~1.55x as long.
+template <bool SEQ>
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int H, int S,
+                                         int c0, int row, int h, int b, uint32_t bar) {
+  int c1, c2;
+  if constexpr (SEQ) {
+    c1 = h, c2 = b * S + row;
+  } else {
+    c1 = row, c2 = b * H + h;
+  }
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// A wgmma operand descriptor: 128-byte swizzle, offsets in bytes.
+__device__ __forceinline__ uint64_t desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+// A tile of `rows` rows and 64 (or 128) bf16 columns as TMA writes it:
+// column block c (64 columns, 128 bytes a row) at c * rows * 128 bytes,
+// row r at r * 128 within it, 16-byte chunks swizzled in 8-row atoms.
+// K-major (the product's depth runs along the columns): k-step kk is 16
+// columns, 32 bytes into its column block; 8-row groups 1,024 bytes apart.
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int rows, int kk) {
+  return desc(tile + (kk >> 2) * rows * 128 + (kk & 3) * 32, 16, 1024);
+}
+// MN-major (the depth runs along the rows): k-step kk is rows 16 kk ..
+// 16 kk + 15, 2,048 bytes on; 8-row groups 1,024 bytes apart (SBO), column
+// blocks rows * 128 bytes apart (LBO).
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int kk) {
+  return desc(tile + kk * 2048, rows * 128, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float fast_exp2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// keeps the compiler from moving accumulator registers across wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x N, f32) = or += A (64 x 16, shared) B (16 x N, shared), both
+// K-major; N = 32 or 64 (N / 2 accumulators a thread).
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x N, f32) = or += A (64 x 16, registers: bf16 pairs in the mma
+// fragment layout) B (16 x N, shared, MN-major); N = 64 or 128.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// delta_i = sum_d dO_id O_id, one warp per row (D even; o contiguous, dO
+// with the element strides dsb, dsh, dss of its batch, head and sequence
+// dims); block (x, h, b) takes rows 4 x .. 4 x + 3 of head h of batch b.
+__global__ void __launch_bounds__(kThreads) fa_bwd_delta(const __nv_bfloat16* __restrict__ o,
+                                                          const __nv_bfloat16* __restrict__ dout,
+                                                          float* __restrict__ delta, int S,
+                                                          int D, long long dsb, long long dsh,
+                                                          long long dss) {
+  const int i = blockIdx.x * (kThreads / 32) + threadIdx.x / 32, h = blockIdx.y, b = blockIdx.z;
+  if (i >= S) return;
+  const int lane = threadIdx.x % 32;
+  const long long row = (static_cast<long long>(b) * gridDim.y + h) * S + i;
+  const auto* o2 = reinterpret_cast<const __nv_bfloat162*>(o + row * D);
+  const auto* d2 = reinterpret_cast<const __nv_bfloat162*>(dout + b * dsb + h * dsh + i * dss);
+  float s = 0.f;
+  for (int c = lane; c < D / 2; c += 32) {
+    const float2 a = __bfloat1622float2(o2[c]), b = __bfloat1622float2(d2[c]);
+    s = fmaf(a.x, b.x, s);
+    s = fmaf(a.y, b.y, s);
+  }
+  s = warp_sum(s);
+  if (lane == 0) delta[row] = s;
+}
+
+constexpr int kTileRows = 64;  // keys (dK/dV) or query rows (dQ) of a block; keys of a dQ step
+constexpr int kWgThreads = kThreads + 32;  // one consumer warpgroup and the producer warp
+
+// The fused kernel's shared memory; DP the padded head dim (64 or 128).
+template <int DP>
+struct Wg {
+  static constexpr int BQ = DP == 64 ? 64 : 32;     // query rows of a dK/dV step
+  static constexpr int kTile = kTileRows * DP * 2;  // bytes of a 64-row tile
+  static constexpr int kQTile = BQ * DP * 2;
+  static constexpr int kDkdvStage = 2 * kQTile + 2 * BQ * 4;  // Q, dO; lse, delta
+  static constexpr int kDqStage = 2 * kTile;                  // K, V
+  static constexpr int kStage =
+      ((kDkdvStage > kDqStage ? kDkdvStage : kDqStage) + 1023) / 1024 * 1024;
+  // the ring: 4 stages at 64 (87 KB, two blocks an SM), 2 at 128 (99 KB);
+  // measured on the H100 at seq 1024, batch 16, 2 or 3 stages at 64 were
+  // within 2% of 4
+  static constexpr int kStages = DP == 64 ? 4 : 2;
+  // + up to 1,023 bytes to align the tiles on the swizzle's 1,024-byte atom; barriers
+  static constexpr int kBytes = 1024 + 2 * kTile + kStages * kStage + (2 * kStages + 1) * 8;
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) fa_bwd_dkdv_mma(Args g) {
-  using L = DkvLayout<D>;
-  constexpr int kLd = L::kLd, BQ = L::BQ, NT = BQ / 8, DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + kRows * kLd;
-  __nv_bfloat16* qs = vs + kRows * kLd;
-  __nv_bfloat16* dos = qs + BQ * kLd;
-  float* lse_s = reinterpret_cast<float*>(dos + BQ * kLd);
-  float* delta_s = lse_s + BQ;
+struct WgArgs {
+  __nv_bfloat16 *dq, *dk, *dv;
+  const float *lse, *delta;
+  int B, Hq, Hkv, Sq, Sk, D;
+  float scale;
+  int causal, offset;
+  int n_dkdv;  // blocks [0, n_dkdv) own keys, the rest own query rows
+};
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int hk = blockIdx.y, b = blockIdx.z, G = g.Hq / g.Hkv;
-  const int k0 = blockIdx.x * kRows;
-  const long long khead = (static_cast<long long>(b) * g.Hkv + hk) * g.Sk;
-  stage_rows<__nv_bfloat16, D, kLd>(ks, static_cast<const __nv_bfloat16*>(g.k) + khead * D, k0,
-                                    g.Sk, kRows);
-  stage_rows<__nv_bfloat16, D, kLd>(vs, static_cast<const __nv_bfloat16*>(g.v) + khead * D, k0,
-                                    g.Sk, kRows);
+template <int DP, bool SEQ>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    fa_bwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap dmap,
+                 const WgArgs g) {
+  using C = Wg<DP>;
+  constexpr int BQ = C::BQ, KB = DP / 64, kStages = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t res0 = base, res1 = base + C::kTile;  // K, V (dK/dV) or Q, dO (dQ)
+  const uint32_t ring = base + 2 * C::kTile;
+  const uint32_t full0 = ring + kStages * C::kStage, empty0 = full0 + 8 * kStages;
+  const uint32_t res_bar = empty0 + 8 * kStages;
 
-  const long long ja = k0 + warp * 16 + grp, jb = ja + 8;  // this thread's two keys
-  const long long warp_first = k0 + warp * 16;             // the warp's first key
-  // the first query row that sees any of the block's keys
-  long long first_row = g.causal ? static_cast<long long>(k0) - g.offset : 0;
-  first_row = first_row < 0 ? 0 : first_row;
-  const int qt0 = static_cast<int>(min(first_row, static_cast<long long>(g.Sq)) / BQ * BQ);
-  const float scale_log2 = g.scale * kLog2e;
-  const __nv_bfloat16* kw = ks + warp * 16 * kLd;
-  const __nv_bfloat16* vw = vs + warp * 16 * kLd;
-
-  float dk[DT][4], dv[DT][4];
-#pragma unroll
-  for (int t = 0; t < DT; ++t) {
-    dk[t][0] = dk[t][1] = dk[t][2] = dk[t][3] = 0.f;
-    dv[t][0] = dv[t][1] = dv[t][2] = dv[t][3] = 0.f;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 32);  // the producer's 32 lanes (lane 0's with the bytes)
+      mbar_init(empty0 + 8 * s, 4);  // one arrival per consumer warp
+    }
+    mbar_init(res_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int hh = 0; hh < G; ++hh) {
-    const long long qhead = (static_cast<long long>(b) * g.Hq + hk * G + hh) * g.Sq;
-    for (int q0 = qt0; q0 < g.Sq; q0 += BQ) {
-      __syncthreads();  // the previous tile is read
-      stage_rows<__nv_bfloat16, D, kLd>(qs, static_cast<const __nv_bfloat16*>(g.q) + qhead * D,
-                                        q0, g.Sq, BQ);
-      stage_rows<__nv_bfloat16, D, kLd>(dos,
-                                        static_cast<const __nv_bfloat16*>(g.dout) + qhead * D,
-                                        q0, g.Sq, BQ);
-      for (int i = tid; i < BQ; i += kThreads) {
-        const bool ok = q0 + i < g.Sq;
-        lse_s[i] = ok ? g.lse[qhead + q0 + i] : 0.f;
-        delta_s[i] = ok ? g.delta[qhead + q0 + i] : 0.f;
-      }
-      cp_async_wait_all();
-      __syncthreads();
-      // no row of the tile sees the warp's keys
-      if (g.causal && g.offset + static_cast<long long>(min(g.Sq - 1, q0 + BQ - 1)) < warp_first)
-        continue;
-      float p[NT][4], dp[NT][4];
-      rows_dot_rows<D, NT, kLd>(p, kw, qs, grp, tig);   // S^T: keys x queries
-      rows_dot_rows<D, NT, kLd>(dp, vw, dos, grp, tig);  // dP^T
+  __syncthreads();
+
+  const int G = g.Hq / g.Hkv;
+  const float sl2 = g.scale * kLog2e;
+  const int grp = lane >> 2, tig = lane & 3;  // accumulator fragment: row group, thread in group
+  const bool producer = warp == 4;
+
+  if (static_cast<int>(blockIdx.x) < g.n_dkdv) {
+    // ---------------- dK and dV of 64 keys of one KV head ----------------
+    const int n_kt = (g.Sk + kTileRows - 1) / kTileRows;
+    const int kt = blockIdx.x % n_kt, hk = (blockIdx.x / n_kt) % g.Hkv;
+    const int b = blockIdx.x / n_kt / g.Hkv;
+    const int k0 = kt * kTileRows, khead = b * g.Hkv + hk;
+    // the first query row that sees any of the block's keys, its tile, and
+    // the tiles per query head
+    long long first = g.causal ? static_cast<long long>(k0) - g.offset : 0;
+    first = first < 0 ? 0 : first;
+    const int n_qt = (g.Sq + BQ - 1) / BQ;
+    const int qt0 = first < g.Sq ? static_cast<int>(first / BQ) : n_qt;
+    const int per_head = n_qt - qt0, total = G * per_head;
+
+    if (producer) {
+      if (lane == 0) {
+        mbar_expect_tx(res_bar, 2 * C::kTile);
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = n * 8 + tig * 2 + e;  // the query row in the tile
-          const long long row = q0 + c, pos = g.offset + row;
-          const bool row_ok = row < g.Sq;
-          const bool va = row_ok && ja < g.Sk && (!g.causal || ja <= pos);
-          const bool vb = row_ok && jb < g.Sk && (!g.causal || jb <= pos);
-          p[n][e] = va ? exp2f(p[n][e] * scale_log2 - lse_s[c]) : 0.f;
-          p[n][2 + e] = vb ? exp2f(p[n][2 + e] * scale_log2 - lse_s[c]) : 0.f;
-          dp[n][e] = p[n][e] * (dp[n][e] - delta_s[c]);  // dS^T
-          dp[n][2 + e] = p[n][2 + e] * (dp[n][2 + e] - delta_s[c]);
+        for (int c = 0; c < KB; ++c) {
+          const uint32_t at = c * kTileRows * 128;
+          tma_load<SEQ>(res0 + at, &kmap, g.Hkv, g.Sk, 64 * c, k0, hk, b, res_bar);
+          tma_load<SEQ>(res1 + at, &vmap, g.Hkv, g.Sk, 64 * c, k0, hk, b, res_bar);
         }
       }
-      weights_times_rows<D, NT, kLd>(dv, p, dos, lane);
-      weights_times_rows<D, NT, kLd>(dk, dp, qs, lane);
+      // each step's lse and delta, read one step ahead into registers
+      constexpr int kPer = BQ / 32;
+      float pl[kPer], pd[kPer];
+      auto fetch = [&](int i) {
+        const int q0 = (qt0 + i % per_head) * BQ, qhead = b * g.Hq + hk * G + i / per_head;
+#pragma unroll
+        for (int m = 0; m < kPer; ++m) {
+          const int r = q0 + lane + 32 * m;
+          const long long at = static_cast<long long>(qhead) * g.Sq + r;
+          pl[m] = r < g.Sq ? g.lse[at] : CUDART_INF_F;  // a row past Sq: p = 0
+          pd[m] = r < g.Sq ? g.delta[at] : 0.f;
+        }
+      };
+      if (total > 0) fetch(0);
+      for (int i = 0; i < total; ++i) {
+        const int s = i % kStages, ph = (i / kStages) & 1;
+        const int q0 = (qt0 + i % per_head) * BQ, h = hk * G + i / per_head;
+        const uint32_t st = ring + s * C::kStage, full = full0 + 8 * s;
+        float* lse_s =
+            reinterpret_cast<float*>(smem + 2 * C::kTile + s * C::kStage + 2 * C::kQTile);
+        mbar_wait(empty0 + 8 * s, ph ^ 1);
+#pragma unroll
+        for (int m = 0; m < kPer; ++m) {
+          lse_s[lane + 32 * m] = pl[m];
+          lse_s[BQ + lane + 32 * m] = pd[m];
+        }
+        if (lane == 0) {
+          mbar_expect_tx(full, 2 * C::kQTile);
+#pragma unroll
+          for (int c = 0; c < KB; ++c) {
+            tma_load<SEQ>(st + c * BQ * 128, &qmap, g.Hq, g.Sq, 64 * c, q0, h, b, full);
+            tma_load<SEQ>(st + C::kQTile + c * BQ * 128, &dmap, g.Hq, g.Sq, 64 * c, q0, h, b,
+                          full);
+          }
+        } else {
+          mbar_arrive(full);
+        }
+        if (i + 1 < total) fetch(i + 1);
+      }
+      return;
     }
+
+    // the consumer warpgroup: rows 16 warp + grp (+ 8) of the 64 keys
+    const long long key_a = k0 + 16 * warp + grp, key_b = key_a + 8;
+    float dk[DP / 2], dv[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+    mbar_wait(res_bar, 0);
+    for (int i = 0; i < total; ++i) {
+      const int s = i % kStages, ph = (i / kStages) & 1;
+      const int q0 = (qt0 + i % per_head) * BQ;
+      const uint32_t qs = ring + s * C::kStage, dos = qs + C::kQTile;
+      const float* lse_s =
+          reinterpret_cast<const float*>(smem + 2 * C::kTile + s * C::kStage + 2 * C::kQTile);
+      const float* delta_s = lse_s + BQ;
+      mbar_wait(full0 + 8 * s, ph);
+      // a step whose rows all see every key of the block needs no mask (the
+      // first step is the first whose last row sees one)
+      const long long seen = static_cast<long long>(g.offset) + q0 - k0;  // row 0's last key
+      const bool masked = g.causal && seen < kTileRows - 1;
+      const int sn = masked ? static_cast<int>(seen) : 0;  // in [1 - BQ, 62] when masked
+      float st[BQ / 2], dpt[BQ / 2];  // S^T and dP^T: 64 keys x BQ query rows
+      // S^T, then dP^T, as two groups: P^T's exponentials overlap dP^T
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        wgmma_ss(st, desc_k(res0, kTileRows, kk), desc_k(qs, BQ, kk), kk);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        wgmma_ss(dpt, desc_k(res1, kTileRows, kk), desc_k(dos, BQ, kk), kk);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(st);
+
+      // P^T: register 4 j + 2 h + e holds key row grp + 8 h and query
+      // column 8 j + 2 tig + e; row c sees key row r when r - c <= seen
+      const int ra = 16 * warp + grp;
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * tig + e;
+          const float lse = lse_s[c];
+          const float pa = fast_exp2(st[4 * j + e] * sl2 - lse);
+          const float pb = fast_exp2(st[4 * j + 2 + e] * sl2 - lse);
+          st[4 * j + e] = masked && ra - c > sn ? 0.f : pa;
+          st[4 * j + 2 + e] = masked && ra + 8 - c > sn ? 0.f : pb;
+        }
+      }
+      // dV += P^T dO, issued while dS^T is computed: the accumulator
+      // layout of 16 query columns is the A fragment of a k-step, rounded
+      // to bf16
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        const uint32_t a[4] = {pack_bf16(st[8 * kk], st[8 * kk + 1]),
+                               pack_bf16(st[8 * kk + 2], st[8 * kk + 3]),
+                               pack_bf16(st[8 * kk + 4], st[8 * kk + 5]),
+                               pack_bf16(st[8 * kk + 6], st[8 * kk + 7])};
+        wgmma_rs(dv, a, desc_mn(dos, BQ, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // dP^T (the groups complete in order)
+      fence_regs(dpt);
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float dl = delta_s[8 * j + 2 * tig + e];
+          dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - dl);  // dS^T
+          dpt[4 * j + 2 + e] = st[4 * j + 2 + e] * (dpt[4 * j + 2 + e] - dl);
+        }
+      }
+      // dK += dS^T Q
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        const uint32_t a[4] = {pack_bf16(dpt[8 * kk], dpt[8 * kk + 1]),
+                               pack_bf16(dpt[8 * kk + 2], dpt[8 * kk + 3]),
+                               pack_bf16(dpt[8 * kk + 4], dpt[8 * kk + 5]),
+                               pack_bf16(dpt[8 * kk + 6], dpt[8 * kk + 7])};
+        wgmma_rs(dk, a, desc_mn(qs, BQ, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dk);
+      fence_regs(dv);
+      if (lane == 0) mbar_arrive(empty0 + 8 * s);  // this warp is done with the stage
+    }
+
+    // dK (times scale) and dV: register 4 j + 2 h + e is key row grp + 8 h,
+    // column 8 j + 2 tig + e
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long key = h == 0 ? key_a : key_b;
+      if (key >= g.Sk) continue;
+      const long long at = (static_cast<long long>(khead) * g.Sk + key) * g.D;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + 2 * tig;
+        if (col < g.D) {
+          *reinterpret_cast<__nv_bfloat162*>(g.dk + at + col) = __floats2bfloat162_rn(
+              dk[4 * j + 2 * h] * g.scale, dk[4 * j + 2 * h + 1] * g.scale);
+          *reinterpret_cast<__nv_bfloat162*>(g.dv + at + col) =
+              __floats2bfloat162_rn(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---------------- dQ of 64 query rows of one query head ----------------
+  const int idx = blockIdx.x - g.n_dkdv;
+  const int n_qt = (g.Sq + kTileRows - 1) / kTileRows;
+  const int qt = idx % n_qt, h = (idx / n_qt) % g.Hq, b = idx / n_qt / g.Hq;
+  const int q0 = qt * kTileRows, qhead = b * g.Hq + h;
+  const long long n_keys =
+      keys_upto(g.offset + static_cast<long long>(min(g.Sq, q0 + kTileRows)) - 1, g.Sk,
+                g.causal);
+  const int n_kt = static_cast<int>((n_keys + kTileRows - 1) / kTileRows);
+
+  if (producer) {
+    if (lane == 0) {
+      mbar_expect_tx(res_bar, 2 * C::kTile);
+#pragma unroll
+      for (int c = 0; c < KB; ++c) {
+#pragma unroll
+        for (int r = 0; r < kTileRows; r += BQ) {  // the Q and dO maps' boxes are BQ rows
+          const uint32_t at = (c * kTileRows + r) * 128;
+          tma_load<SEQ>(res0 + at, &qmap, g.Hq, g.Sq, 64 * c, q0 + r, h, b, res_bar);
+          tma_load<SEQ>(res1 + at, &dmap, g.Hq, g.Sq, 64 * c, q0 + r, h, b, res_bar);
+        }
+      }
+    }
+    for (int i = 0; i < n_kt; ++i) {
+      const int s = i % kStages, ph = (i / kStages) & 1;
+      const uint32_t st = ring + s * C::kStage, full = full0 + 8 * s;
+      mbar_wait(empty0 + 8 * s, ph ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(full, 2 * C::kTile);
+#pragma unroll
+        for (int c = 0; c < KB; ++c) {
+          tma_load<SEQ>(st + c * kTileRows * 128, &kmap, g.Hkv, g.Sk, 64 * c, i * kTileRows,
+                        h / G, b, full);
+          tma_load<SEQ>(st + C::kTile + c * kTileRows * 128, &vmap, g.Hkv, g.Sk, 64 * c,
+                        i * kTileRows, h / G, b, full);
+        }
+      } else {
+        mbar_arrive(full);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: rows 16 warp + grp (+ 8) of the 64
+  const int r16 = 16 * warp + grp;  // row a within the 64
+  const int ra = q0 + r16, rb = ra + 8;
+  const long long at_a = static_cast<long long>(qhead) * g.Sq + ra, at_b = at_a + 8;
+  const float lse_a = ra < g.Sq ? g.lse[at_a] : CUDART_INF_F;
+  const float lse_b = rb < g.Sq ? g.lse[at_b] : CUDART_INF_F;
+  const float dl_a = ra < g.Sq ? g.delta[at_a] : 0.f;
+  const float dl_b = rb < g.Sq ? g.delta[at_b] : 0.f;
+  float dq[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+  mbar_wait(res_bar, 0);
+  for (int i = 0; i < n_kt; ++i) {
+    const int s = i % kStages, ph = (i / kStages) & 1;
+    const uint32_t kst = ring + s * C::kStage, vst = kst + C::kTile;
+    const long long t0 = static_cast<long long>(i) * kTileRows;
+    mbar_wait(full0 + 8 * s, ph);
+    // a tile whose keys every row of the warpgroup sees needs no mask;
+    // else key column kc counts for row r when kc < kmax and kc - r <= lim
+    const long long lim_ll = g.causal ? static_cast<long long>(g.offset) + q0 - t0 : 1 << 20;
+    const bool masked = lim_ll < kTileRows - 1 || t0 + kTileRows > g.Sk;
+    const int lim = static_cast<int>(lim_ll < kTileRows ? lim_ll : kTileRows);
+    const int kmax = static_cast<int>(g.Sk - t0 < kTileRows ? g.Sk - t0 : kTileRows);
+    float sc[kTileRows / 2], dp[kTileRows / 2];  // S and dP: 64 rows x 64 keys
+    // S, then dP, as two groups: P's exponentials overlap dP
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      wgmma_ss(sc, desc_k(res0, kTileRows, kk), desc_k(kst, kTileRows, kk), kk);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      wgmma_ss(dp, desc_k(res1, kTileRows, kk), desc_k(vst, kTileRows, kk), kk);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sc);
+#pragma unroll
+    for (int j = 0; j < kTileRows / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kc = 8 * j + 2 * tig + e;
+        const float pa = fast_exp2(sc[4 * j + e] * sl2 - lse_a);
+        const float pb = fast_exp2(sc[4 * j + 2 + e] * sl2 - lse_b);
+        sc[4 * j + e] = masked && (kc >= kmax || kc - r16 > lim) ? 0.f : pa;
+        sc[4 * j + 2 + e] = masked && (kc >= kmax || kc - r16 - 8 > lim) ? 0.f : pb;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < kTileRows / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - dl_a);  // dS
+        dp[4 * j + 2 + e] = sc[4 * j + 2 + e] * (dp[4 * j + 2 + e] - dl_b);
+      }
+    }
+
+    // dQ += dS K: K read MN-major (the keys are the depth)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTileRows / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(dp[8 * kk], dp[8 * kk + 1]),
+                             pack_bf16(dp[8 * kk + 2], dp[8 * kk + 3]),
+                             pack_bf16(dp[8 * kk + 4], dp[8 * kk + 5]),
+                             pack_bf16(dp[8 * kk + 6], dp[8 * kk + 7])};
+      wgmma_rs(dq, a, desc_mn(kst, kTileRows, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
   }
 
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const long long key = half == 0 ? ja : jb;
-    if (key >= g.Sk) continue;
-    __nv_bfloat16* dk_row = static_cast<__nv_bfloat16*>(g.dk) + (khead + key) * D;
-    __nv_bfloat16* dv_row = static_cast<__nv_bfloat16*>(g.dv) + (khead + key) * D;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = hh == 0 ? ra : rb;
+    if (row >= g.Sq) continue;
+    __nv_bfloat16* out = g.dq + (static_cast<long long>(qhead) * g.Sq + row) * g.D;
 #pragma unroll
-    for (int dn = 0; dn < DT; ++dn) {
-      *reinterpret_cast<__nv_bfloat162*>(dk_row + dn * 8 + tig * 2) = __floats2bfloat162_rn(
-          dk[dn][2 * half] * g.scale, dk[dn][2 * half + 1] * g.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv_row + dn * 8 + tig * 2) =
-          __floats2bfloat162_rn(dv[dn][2 * half], dv[dn][2 * half + 1]);
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * tig;
+      if (col < g.D) {
+        *reinterpret_cast<__nv_bfloat162*>(out + col) = __floats2bfloat162_rn(
+            dq[4 * j + 2 * hh] * g.scale, dq[4 * j + 2 * hh + 1] * g.scale);
+      }
     }
   }
 }
@@ -511,7 +777,7 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dq_simt(Args g) {
     dos[r][d] = ok ? dout[(q0 + r) * static_cast<long long>(D) + d] : 0.f;
   }
   const int r0 = warp * kPerWarp;
-  float delta[kPerWarp], m[kPerWarp], l[kPerWarp];
+  float delta[kPerWarp], lse[kPerWarp];
   long long pos[kPerWarp];
 #pragma unroll
   for (int r = 0; r < kPerWarp; ++r) {
@@ -521,14 +787,15 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dq_simt(Args g) {
       for (int d = lane; d < D; d += 32) part += dout[row * D + d] * o[row * D + d];
     }
     delta[r] = warp_sum(part);
-    m[r] = -CUDART_INF_F;
-    l[r] = 0.f;
+    lse[r] = row < g.Sq ? g.lse[qhead + row] : CUDART_INF_F;  // base 2, from the forward
     pos[r] = g.offset + row;
+    if (lane == 0 && row < g.Sq) g.delta[qhead + row] = delta[r];
   }
   const long long n_keys =
       keys_upto(g.offset + static_cast<long long>(min(g.Sq, q0 + kSimtRows)) - 1, g.Sk, g.causal);
+  const float sl2 = g.scale * kLog2e;
 
-  auto logits = [&](float (&s)[kPerWarp], float (&dp)[kPerWarp], bool with_dp) {
+  auto logits = [&](float (&s)[kPerWarp], float (&dp)[kPerWarp]) {
 #pragma unroll
     for (int r = 0; r < kPerWarp; ++r) s[r] = dp[r] = 0.f;
 #pragma unroll 8
@@ -537,44 +804,12 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dq_simt(Args g) {
 #pragma unroll
       for (int r = 0; r < kPerWarp; ++r) {
         s[r] = fmaf(qs[r0 + r][d], kd, s[r]);
-        if (with_dp) dp[r] = fmaf(dos[r0 + r][d], vd, dp[r]);
+        dp[r] = fmaf(dos[r0 + r][d], vd, dp[r]);
       }
     }
   };
 
-  // pass 1: the rows' log-sum-exp (natural base, of the scaled logits)
-  for (long long t0 = 0; t0 < n_keys; t0 += kLaneTile) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kLaneTile * D; i += kThreads) {
-      const int r = i / D, d = i % D;
-      ks[r][d] = t0 + r < g.Sk ? k[(t0 + r) * D + d] : 0.f;
-    }
-    __syncthreads();
-    float s[kPerWarp], unused[kPerWarp];
-    logits(s, unused, false);
-    const long long j = t0 + lane;
-#pragma unroll
-    for (int r = 0; r < kPerWarp; ++r) {
-      const bool vis = q0 + r0 + r < g.Sq && j < g.Sk && (!g.causal || j <= pos[r]);
-      const float x = vis ? s[r] * g.scale : -CUDART_INF_F;
-      const float mn = fmaxf(m[r], warp_max(x));
-      const float ref = mn == -CUDART_INF_F ? 0.f : mn;
-      l[r] = l[r] * expf(m[r] - ref) + warp_sum(expf(x - ref));
-      m[r] = mn;
-    }
-  }
-  float lse[kPerWarp];
-#pragma unroll
-  for (int r = 0; r < kPerWarp; ++r) {
-    lse[r] = l[r] > 0.f ? m[r] + logf(l[r]) : CUDART_INF_F;
-    const long long row = q0 + r0 + r;
-    if (lane == 0 && row < g.Sq) {
-      g.lse[qhead + row] = lse[r];
-      g.delta[qhead + row] = delta[r];
-    }
-  }
-
-  // pass 2: dQ
+  // dQ
   float acc[kPerWarp][DPL];
 #pragma unroll
   for (int r = 0; r < kPerWarp; ++r)
@@ -590,13 +825,13 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dq_simt(Args g) {
     }
     __syncthreads();
     float s[kPerWarp], dp[kPerWarp];
-    logits(s, dp, true);
+    logits(s, dp);
     const long long j = t0 + lane;
     float ds[kPerWarp];
 #pragma unroll
     for (int r = 0; r < kPerWarp; ++r) {
       const bool vis = q0 + r0 + r < g.Sq && j < g.Sk && (!g.causal || j <= pos[r]);
-      const float p = vis ? expf(s[r] * g.scale - lse[r]) : 0.f;
+      const float p = vis ? exp2f(s[r] * sl2 - lse[r]) : 0.f;
       ds[r] = p * (dp[r] - delta[r]);
     }
 #pragma unroll 4
@@ -657,6 +892,7 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dkdv_simt(Args g) {
   first_row = first_row < 0 ? 0 : first_row;
   const int qt0 = static_cast<int>(min(first_row, static_cast<long long>(g.Sq)) / kLaneTile *
                                    kLaneTile);
+  const float sl2 = g.scale * kLog2e;
 
   float acc_k[kPerWarp][DPL], acc_v[kPerWarp][DPL];
 #pragma unroll
@@ -701,7 +937,7 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dkdv_simt(Args g) {
       for (int r = 0; r < kPerWarp; ++r) {
         const long long j = k0 + r0 + r;
         const bool vis = row < g.Sq && j < g.Sk && (!g.causal || j <= pos);
-        p[r] = vis ? expf(s[r] * g.scale - lse_s[lane]) : 0.f;
+        p[r] = vis ? exp2f(s[r] * sl2 - lse_s[lane]) : 0.f;
         ds[r] = p[r] * (dp[r] - delta_s[lane]);
       }
 #pragma unroll 4
@@ -758,54 +994,160 @@ cudaError_t launch_smem(Kernel kernel, dim3 grid, int bytes, const Args& a) {
 }
 
 template <int D>
-cudaError_t launch(int dtype, const Args& a) {
-  cudaError_t err;
-  if (dtype == 1) {
-    err = launch_smem(fa_bwd_dq_mma<D>, dim3((a.Sq + kRows - 1) / kRows, a.Hq, a.B),
-                      DqLayout<D>::kBytes, a);
-    if (err != cudaSuccess) return err;
-    return launch_smem(fa_bwd_dkdv_mma<D>, dim3((a.Sk + kRows - 1) / kRows, a.Hkv, a.B),
-                       DkvLayout<D>::kBytes, a);
-  }
-  err = launch_smem(fa_bwd_dq_simt<D>, dim3((a.Sq + kSimtRows - 1) / kSimtRows, a.Hq, a.B),
-                    SimtLayout<D>::kBytes, a);
+cudaError_t launch_simt(const Args& a) {
+  const cudaError_t err =
+      launch_smem(fa_bwd_dq_simt<D>, dim3((a.Sq + kSimtRows - 1) / kSimtRows, a.Hq, a.B),
+                  SimtLayout<D>::kBytes, a);
   if (err != cudaSuccess) return err;
   return launch_smem(fa_bwd_dkdv_simt<D>, dim3((a.Sk + kSimtRows - 1) / kSimtRows, a.Hkv, a.B),
                      SimtLayout<D>::kBytes, a);
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// A bf16 [B, H, rows, D] tensor with a unit stride on D and the element
+// strides st (batch, head, row; multiples of 8) read in boxes of 64
+// columns (128 bytes, the swizzle's span) by box_rows rows of one head,
+// 128-byte swizzle, zeros past the edges; the two layouts of tma_load.
+// Heads merged with batches (st[0] = H st[1] unless B = 1): dims (D, rows,
+// B H), so rows past the end of a head read as zeros.  Rows merged with
+// batches (seq; st[0] = rows st[2], rows % 64 == 0, so no box crosses a
+// batch element): dims (D, H, B rows), the model's transposed views read
+// where they lie.  Either way a box lands as box_rows rows of 128 bytes.
+cudaError_t encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B, int H, int rows,
+                   int D, const long long* st, int box_rows, bool seq) {
+  if (seq ? (B > 1 && st[0] != rows * st[2]) || rows % kTileRows != 0
+          : B > 1 && st[0] != H * st[1]) {
+    return cudaErrorInvalidValue;
+  }
+  const cuuint64_t d = static_cast<cuuint64_t>(D), h = static_cast<cuuint64_t>(H);
+  const cuuint64_t s = static_cast<cuuint64_t>(rows), bb = static_cast<cuuint64_t>(B);
+  const cuuint64_t dims[3] = {d, seq ? h : s, seq ? bb * s : bb * h};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(seq ? st[1] : st[2]) * 2,
+                                 static_cast<cuuint64_t>(seq ? st[2] : st[1]) * 2};
+  const cuuint32_t r = static_cast<cuuint32_t>(box_rows);
+  const cuuint32_t box[3] = {64, seq ? 1u : r, seq ? r : 1u};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                          strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+cudaError_t encoder(EncodeTiled* out) {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+    if (e != cudaSuccess) return e;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  *out = fn;
+  return cudaSuccess;
+}
+
+template <int DP, bool SEQ>
+cudaError_t launch_wgmma(const Args& a, int n_dkdv, int n_dq) {
+  using C = Wg<DP>;
+  static bool opted = false;
+  if (!opted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(fa_bwd_wgmma<DP, SEQ>),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
+    if (e != cudaSuccess) return e;
+    opted = true;
+  }
+  EncodeTiled fn;
+  cudaError_t e = encoder(&fn);
+  CUtensorMap qmap, kmap, vmap, dmap;
+  const long long* st = a.strides;  // q, k, v, dO: (batch, head, row) each
+  const int D = a.head_dim;
+  const int kr = kTileRows;
+  if (e == cudaSuccess) e = encode(fn, &qmap, a.q, a.B, a.Hq, a.Sq, D, st, C::BQ, SEQ);
+  if (e == cudaSuccess) e = encode(fn, &kmap, a.k, a.B, a.Hkv, a.Sk, D, st + 3, kr, SEQ);
+  if (e == cudaSuccess) e = encode(fn, &vmap, a.v, a.B, a.Hkv, a.Sk, D, st + 6, kr, SEQ);
+  if (e == cudaSuccess) e = encode(fn, &dmap, a.dout, a.B, a.Hq, a.Sq, D, st + 9, C::BQ, SEQ);
+  if (e != cudaSuccess) return e;
+  fa_bwd_delta<<<dim3((a.Sq + 3) / 4, a.Hq, a.B), kThreads, 0, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.o), static_cast<const __nv_bfloat16*>(a.dout), a.delta,
+      a.Sq, a.head_dim, st[9], st[10], st[11]);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const WgArgs w{static_cast<__nv_bfloat16*>(a.dq), static_cast<__nv_bfloat16*>(a.dk),
+                 static_cast<__nv_bfloat16*>(a.dv), a.lse, a.delta, a.B, a.Hq, a.Hkv, a.Sq, a.Sk,
+                 a.head_dim, a.scale, a.causal, a.offset, n_dkdv};
+  fa_bwd_wgmma<DP, SEQ><<<n_dkdv + n_dq, kWgThreads, C::kBytes, a.stream>>>(
+      qmap, kmap, vmap, dmap, w);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  q, o,
-// dout, dq: contiguous [B, Hq, Sq, D]; k, v, dk, dv: contiguous
-// [B, Hkv, Sk, D]; all 16-byte aligned.  lse, delta: f32 scratch
-// [B, Hq, Sq], written by the first kernel and read by the second.
-// offset: the absolute position of q's first row.  Launches both kernels
-// on `stream`; returns the cudaError_t of the launches (0 = success).
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (wgmma).  q, o, dout, dq:
+// [B, Hq, Sq, D]; k, v, dk, dv: [B, Hkv, Sk, D]; all 16-byte aligned; o and
+// the outputs contiguous.  f32: q, k, v and dout contiguous too.  bf16:
+// strides holds the element strides of q, k, v and dout (batch, head,
+// sequence each; 12 values, multiples of 8), whose head dim is
+// unit-strided; seq != 0: the four are read with rows merged with batches
+// (encode says when that is allowed).  bf16 takes D = 64, 80, 112 or 128
+// (the wrapper pads 16 and 32 to 64), f32 any of 16, 32, 64, 80, 112, 128.
+// lse: the forward's f32 [B, Hq, Sq], base 2 of the scaled logits; delta:
+// f32 scratch [B, Hq, Sq].  offset: the absolute position of q's first
+// row.  n_dkdv, n_dq: the blocks of flash_bwd_plan (kernel.py), checked
+// against the tiles compiled here.  Launches the kernels on `stream`;
+// returns the cudaError_t of the launches (0 = success).
 extern "C" int da4ml_flash_attention_bwd(int dtype, int head_dim, const void* q, const void* k,
                                          const void* v, const void* o, const void* dout,
-                                         void* dq, void* dk, void* dv, float* lse, float* delta,
-                                         int B, int Hq, int Hkv, int Sq, int Sk, float scale,
-                                         int causal, int offset, void* stream) {
+                                         void* dq, void* dk, void* dv, const float* lse,
+                                         float* delta, int B, int Hq, int Hkv, int Sq, int Sk,
+                                         const long long* strides, int seq, float scale,
+                                         int causal, int offset, int n_dkdv, int n_dq,
+                                         void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 || Hq > 65535 ||
       B > 65535 || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{q, k, v, o, dout, dq, dk, dv, lse, delta, B, Hq, Hkv, Sq, Sk, scale, causal,
-               offset, static_cast<cudaStream_t>(stream)};
+  const Args a{q, k, v, o, dout, dq, dk, dv, lse, delta, B, Hq, Hkv, Sq, Sk, head_dim, strides,
+               seq, scale, causal, offset, static_cast<cudaStream_t>(stream)};
+  if (dtype == 1) {
+    const long long want_dkdv = static_cast<long long>((Sk + kTileRows - 1) / kTileRows) * Hkv * B;
+    const long long want_dq = static_cast<long long>((Sq + kTileRows - 1) / kTileRows) * Hq * B;
+    if (n_dkdv != want_dkdv || n_dq != want_dq || want_dkdv + want_dq > 0x7fffffffLL) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (head_dim != 64 && head_dim != 80 && head_dim != 112 && head_dim != 128) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (head_dim == 64) {
+      return static_cast<int>(seq ? launch_wgmma<64, true>(a, n_dkdv, n_dq)
+                                  : launch_wgmma<64, false>(a, n_dkdv, n_dq));
+    }
+    return static_cast<int>(seq ? launch_wgmma<128, true>(a, n_dkdv, n_dq)
+                                : launch_wgmma<128, false>(a, n_dkdv, n_dq));
+  }
+  const long long want_dkdv = static_cast<long long>((Sk + kSimtRows - 1) / kSimtRows) * Hkv * B;
+  const long long want_dq = static_cast<long long>((Sq + kSimtRows - 1) / kSimtRows) * Hq * B;
+  if (n_dkdv != want_dkdv || n_dq != want_dq) return static_cast<int>(cudaErrorInvalidValue);
   switch (head_dim) {
     case 16:
-      return static_cast<int>(launch<16>(dtype, a));
+      return static_cast<int>(launch_simt<16>(a));
     case 32:
-      return static_cast<int>(launch<32>(dtype, a));
+      return static_cast<int>(launch_simt<32>(a));
     case 64:
-      return static_cast<int>(launch<64>(dtype, a));
+      return static_cast<int>(launch_simt<64>(a));
     case 80:
-      return static_cast<int>(launch<80>(dtype, a));
+      return static_cast<int>(launch_simt<80>(a));
     case 112:
-      return static_cast<int>(launch<112>(dtype, a));
+      return static_cast<int>(launch_simt<112>(a));
     case 128:
-      return static_cast<int>(launch<128>(dtype, a));
+      return static_cast<int>(launch_simt<128>(a));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -8,10 +8,12 @@ on the card, so unwritten cache slots are masked out.
 
 On the card, when grad is enabled and an input requires it (training),
 the call goes through ``_FlashAttention``: its forward launches the same
-kernel, and its backward the hand-written backward kernel
-(``csrc/flash_attention_bwd.cu``).  Otherwise (serving, under no_grad or
-with no input that requires grad) the launch is the plain kernel call.
-On the CPU autograd differentiates the plain version itself.
+kernel with an ``lse`` output (each row's log-sum-exp, saved for the
+backward), and its backward the hand-written backward kernel
+(``csrc/flash_attention_bwd.cu``) from it.  Otherwise (serving, under
+no_grad or with no input that requires grad) the launch is the plain
+kernel call, with no lse.  On the CPU autograd differentiates the plain
+version itself.
 """
 
 from __future__ import annotations
@@ -27,15 +29,16 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, offset):
-        out = flash_attention_cuda(q, k, v, causal=causal, scale=scale, offset=offset)
-        ctx.save_for_backward(q, k, v, out)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        out = flash_attention_cuda(q, k, v, causal=causal, scale=scale, offset=offset, lse=lse)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale, ctx.offset = causal, scale, offset
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, causal=ctx.causal,
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, lse, causal=ctx.causal,
                                               scale=ctx.scale, offset=ctx.offset)
         return dq, dk, dv, None, None, None
 

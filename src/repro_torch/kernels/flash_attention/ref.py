@@ -83,6 +83,25 @@ def attention_ref(
     return torch.cat(outs, dim=2).to(q.dtype)
 
 
+def attention_lse_ref(q, k, causal: bool = True, scale: float | None = None, offset=None):
+    """The plain row statistic the forward kernel stores for the backward:
+    f32 [B, Hq, Sq], the log-sum-exp of each row's scaled, masked logits in
+    base 2 (log2 of sum_j 2^(scale q.k_j log2 e)), +inf for a row that sees
+    no key."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    scale = d**-0.5 if scale is None else scale
+    start = (sk - sq) if offset is None else offset
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", q.reshape(b, hkv, hq // hkv, sq, d).float(),
+                          k.float()) * scale
+    if causal:
+        qi = torch.arange(sq, device=q.device)[:, None] + start
+        logits = logits.masked_fill(~(torch.arange(sk, device=q.device)[None, :] <= qi),
+                                    float("-inf"))
+    lse = torch.logsumexp(logits, dim=-1) * 1.4426950408889634
+    return lse.masked_fill(lse == float("-inf"), float("inf")).reshape(b, hq, sq)
+
+
 def attention_bwd_ref(q, k, v, dout, causal: bool = True, scale: float | None = None,
                       offset=None):
     """The plain backward: (dq, dk, dv) of ``attention_ref`` for the output

@@ -50,6 +50,13 @@
 // path's batch, and a chunked scan would add a second pass over the
 // states.
 //
+// Training.  On the autograd path the wrapper passes hc, and both kernels
+// also write the state at the start of every 8 steps (16-byte stores, each
+// lane its slice) for the backward (ssm_scan_bwd.cu); the prefill kernel
+// then walks each chunk in runs of 8 steps.  These are separate template
+// instances (kHc): serving passes null and runs the instances it ran
+// before, with the same outputs bit for bit.
+//
 // What bounds it on this card.  Per (b, t, d) the work is one element of
 // dt, x and y (12 bytes) and N exponentials, plus per (b, d) the 2 N
 // floats of h0 and h_out.  At the serving path's prefill (B 8, S 128,
@@ -69,6 +76,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxState = 16;
 constexpr int kSlice = 4;  // states per lane
+constexpr int kHcChunk = 8;  // steps between the chunk-start states the training path keeps
 
 // lanes per channel: the 4-state slices of N, rounded up to a power of two
 __host__ __device__ constexpr int lanes_for(int n) { return n <= 4 ? 1 : (n <= 8 ? 2 : 4); }
@@ -78,12 +86,13 @@ __device__ __forceinline__ float sum_over_lanes(float v, int lanes) {
   return v;
 }
 
-template <int N, bool kVec>
+template <int N, bool kVec, bool kHc>
 __global__ void __launch_bounds__(kThreads)
     ssm_decode_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
                       const float* __restrict__ cm, const float* __restrict__ x,
                       const float* __restrict__ a, const float* h0, float* __restrict__ y,
-                      float* h_out, int D, long long sb_b, long long sc_b) {
+                      float* h_out, float* __restrict__ hc, int D, long long sb_b,
+                      long long sc_b) {
   constexpr int L = lanes_for(N);
   const int b = blockIdx.y;
   const int gid = blockIdx.x * kThreads + threadIdx.x;
@@ -117,6 +126,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < kSlice; ++j) {
       if (n0 + j < N) bv[j] = bm[b * sb_b + n0 + j], cv[j] = cm[b * sc_b + n0 + j];
+    }
+    if constexpr (kHc) {  // training: the one chunk's start state is h0 ([B, 1, D, N])
+#pragma unroll
+      for (int j = 0; j < kSlice; ++j) {
+        if (n0 + j < N) hc[row * N + n0 + j] = hv[j];
+      }
     }
   }
   float yv = 0.f;
@@ -171,13 +186,13 @@ struct Prefill {
   };
 };
 
-template <int N>
+template <int N, bool kHc>
 __global__ void __launch_bounds__(kThreads)
     ssm_prefill_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
                        const float* __restrict__ cm, const float* __restrict__ x,
                        const float* __restrict__ a, const float* h0, float* __restrict__ y,
-                       float* h_out, int S, int D, long long sb_b, long long sb_s,
-                       long long sc_b, long long sc_s) {
+                       float* h_out, float* __restrict__ hc, int S, int D, long long sb_b,
+                       long long sb_s, long long sc_b, long long sc_s) {
   using P = Prefill<N>;
   constexpr int L = P::L, kSPL = P::kSPL, kCh = P::kCh, kT = P::kT, kSP = P::kSP;
   constexpr float kLog2e = 1.4426950408889634f;
@@ -223,6 +238,7 @@ __global__ void __launch_bounds__(kThreads)
 
   // chunk k + 1 is requested while chunk k is computed
   const int chunks = (S + kT - 1) / kT;
+  const int n_hc = (S + kHcChunk - 1) / kHcChunk;
   if (chunks > 0) stage(0, 0);
   for (int k = 0; k < chunks; ++k) {
     const int buf = k & 1, t0 = k * kT;
@@ -233,8 +249,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     if (k + 1 < chunks) stage(buf ^ 1, t0 + kT);
     const int len = min(kT, S - t0);
-#pragma unroll 4
-    for (int t = 0; t < len; ++t) {
+    auto step = [&](int t) {
       const float dtv = sm.dt[buf][t][ch];
       const float xv = sm.x[buf][t][ch];
       float yv = 0.f;
@@ -252,6 +267,33 @@ __global__ void __launch_bounds__(kThreads)
       }
       yv = sum_over_lanes(yv, L);
       if (live && n0 == 0) y[(seq0 + t0 + t) * D + d] = yv;
+    };
+    if constexpr (!kHc) {  // serving
+#pragma unroll 4
+      for (int t = 0; t < len; ++t) step(t);
+    } else {  // training: the state at the start of every kHcChunk steps, for the backward
+      for (int t8 = 0; t8 < len; t8 += kHcChunk) {  // t0 is a multiple of kHcChunk
+        if (live) {
+          float* p = hc + ((static_cast<long long>(b) * n_hc + (t0 + t8) / kHcChunk) * D + d) * N;
+#pragma unroll
+          for (int q = 0; q < kSPL; q += 4) {
+            if (N % 4 == 0) {  // 16-byte aligned: hc is contiguous
+              if (n0 + q < N) {
+                *reinterpret_cast<float4*>(p + n0 + q) =
+                    make_float4(hv[q], hv[q + 1], hv[q + 2], hv[q + 3]);
+              }
+            } else {
+#pragma unroll
+              for (int j = q; j < q + 4; ++j) {
+                if (n0 + j < N) p[n0 + j] = hv[j];
+              }
+            }
+          }
+        }
+        const int end = min(len, t8 + kHcChunk);
+#pragma unroll 4
+        for (int t = t8; t < end; ++t) step(t);
+      }
     }
   }
   if (live) {
@@ -264,7 +306,7 @@ __global__ void __launch_bounds__(kThreads)
 
 struct Args {
   const float *dt, *bm, *cm, *x, *a, *h0;
-  float *y, *h_out;
+  float *y, *h_out, *hc;
   int B, S, D;
   long long sb_b, sb_s, sc_b, sc_s;
   cudaStream_t stream;
@@ -278,18 +320,18 @@ cudaError_t launch(int kernel, const Args& g) {
     const bool vec = N % kSlice == 0 && reinterpret_cast<uintptr_t>(g.a) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(g.h0) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(g.h_out) % 16 == 0;
-    if (vec) {
-      ssm_decode_kernel<N, true><<<grid, kThreads, 0, g.stream>>>(
-          g.dt, g.bm, g.cm, g.x, g.a, g.h0, g.y, g.h_out, g.D, g.sb_b, g.sc_b);
-    } else {
-      ssm_decode_kernel<N, false><<<grid, kThreads, 0, g.stream>>>(
-          g.dt, g.bm, g.cm, g.x, g.a, g.h0, g.y, g.h_out, g.D, g.sb_b, g.sc_b);
-    }
+    // the training path's instances (kHc) are separate: serving's compile as before
+    auto kern = vec ? (g.hc ? ssm_decode_kernel<N, true, true>
+                            : ssm_decode_kernel<N, true, false>)
+                    : (g.hc ? ssm_decode_kernel<N, false, true>
+                            : ssm_decode_kernel<N, false, false>);
+    kern<<<grid, kThreads, 0, g.stream>>>(g.dt, g.bm, g.cm, g.x, g.a, g.h0, g.y, g.h_out, g.hc,
+                                          g.D, g.sb_b, g.sc_b);
   } else {
     const dim3 grid((g.D + Prefill<N>::kCh - 1) / Prefill<N>::kCh, g.B);
-    ssm_prefill_kernel<N><<<grid, kThreads, 0, g.stream>>>(
-        g.dt, g.bm, g.cm, g.x, g.a, g.h0, g.y, g.h_out, g.S, g.D, g.sb_b, g.sb_s, g.sc_b,
-        g.sc_s);
+    auto kern = g.hc ? ssm_prefill_kernel<N, true> : ssm_prefill_kernel<N, false>;
+    kern<<<grid, kThreads, 0, g.stream>>>(g.dt, g.bm, g.cm, g.x, g.a, g.h0, g.y, g.h_out, g.hc,
+                                          g.S, g.D, g.sb_b, g.sb_s, g.sc_b, g.sc_s);
   }
   return cudaGetLastError();
 }
@@ -310,17 +352,20 @@ constexpr LaunchFn kLaunch[kMaxState] = {
 // contiguous [B, D, N] (h_out may equal h0); bm, cm: [B, S, N] with a unit
 // stride on N and element strides (sb_b, sb_s), (sc_b, sc_s) on B and S.
 // All float32 on the current device.  1 <= N <= 16, 1 <= B <= 65535,
-// D >= 1.  Launches on `stream`; returns the cudaError_t of the launch
-// (0 = success).
+// D >= 1.  hc, when not null (the training path), receives the state at
+// the start of every 8 steps, contiguous [B, ceil(S / 8), D, N] (chunk 0's
+// is h0), for the backward (ssm_scan_bwd.cu); serving passes null.
+// Launches on `stream`; returns the cudaError_t of the launch (0 =
+// success).
 extern "C" int da4ml_ssm_scan(int kernel, const float* dt, const float* bm, const float* cm,
                               const float* x, const float* a, const float* h0, float* y,
-                              float* h_out, int B, int S, int D, int N, long long sb_b,
+                              float* h_out, float* hc, int B, int S, int D, int N, long long sb_b,
                               long long sb_s, long long sc_b, long long sc_s, void* stream) {
   if (B <= 0 || B > 65535 || S < 0 || D <= 0 || N < 1 || N > kMaxState ||
       (kernel != 0 && kernel != 1) || (kernel == 0 && S != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args g{dt, bm, cm, x, a, h0, y, h_out, B, S, D, sb_b, sb_s, sc_b, sc_s,
+  const Args g{dt, bm, cm, x, a, h0, y, h_out, hc, B, S, D, sb_b, sb_s, sc_b, sc_s,
                static_cast<cudaStream_t>(stream)};
   return static_cast<int>(kLaunch[N - 1](kernel, g));
 }

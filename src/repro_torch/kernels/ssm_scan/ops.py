@@ -7,17 +7,19 @@ receives the final state, and may be ``h0`` itself: a decode cache is
 then updated in place.
 
 On the card, when grad is enabled and an input requires it (training),
-the call goes through ``_SelectiveScan``: its forward launches the same
-kernel, and its backward the hand-written backward kernel
-(``csrc/ssm_scan_bwd.cu``).  Otherwise the launch is the plain kernel
-call.  On the CPU autograd differentiates the plain version itself.
+the call goes through ``_SelectiveScan``: its forward launches the
+same kernel with a ``chunk_states`` output (the state every 8 steps,
+saved for the backward), and its backward the hand-written backward
+kernel (``csrc/ssm_scan_bwd.cu``) from them.  Otherwise the launch is the
+plain kernel call, with no chunk states.  On the CPU autograd
+differentiates the plain version itself.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .kernel import selective_scan_bwd_cuda, selective_scan_cuda
+from .kernel import chunk_states_shape, selective_scan_bwd_cuda, selective_scan_cuda
 from .ref import selective_scan_ref
 
 
@@ -27,16 +29,18 @@ class _SelectiveScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dt, bmat, cmat, x, a, h0):
         ctx.set_materialize_grads(False)
-        y, h = selective_scan_cuda(dt, bmat, cmat, x, a, h0)
-        ctx.save_for_backward(dt, bmat, cmat, x, a, h0)
+        hc = torch.empty(chunk_states_shape(*dt.shape, a.shape[1]), dtype=torch.float32,
+                         device=dt.device)
+        y, h = selective_scan_cuda(dt, bmat, cmat, x, a, h0, chunk_states=hc)
+        ctx.save_for_backward(dt, bmat, cmat, x, a, h0, hc)
         return y, h
 
     @staticmethod
     def backward(ctx, dy, dh):
-        saved = ctx.saved_tensors
+        *saved, hc = ctx.saved_tensors
         if dy is None:  # only the final state is used
             dy = torch.zeros_like(saved[0])
-        return selective_scan_bwd_cuda(*saved, dy, dh)
+        return selective_scan_bwd_cuda(*saved, dy, dh, hc)
 
 
 def selective_scan(

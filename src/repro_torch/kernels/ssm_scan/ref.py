@@ -38,6 +38,21 @@ def selective_scan_ref(
     return y, h.clone() if s == 0 else h
 
 
+def selective_scan_chunk_states_ref(dt, bmat, cmat, x, a, h0, chunk: int = 8):
+    """The plain chunk-start states the forward kernel keeps for the
+    backward: [B, ceil(S / chunk), D, N], entry c the state before step
+    chunk c (entry 0 is h0), by the recurrence of ``selective_scan_ref``."""
+    b, s, d = dt.shape
+    states = [h0]
+    h = h0
+    for t in range(s):
+        dt_t = dt[:, t, :, None]
+        h = torch.exp(dt_t * a) * h + dt_t * bmat[:, t, None, :] * x[:, t, :, None]
+        if (t + 1) % chunk == 0 and t + 1 < s:
+            states.append(h)
+    return torch.stack(states, dim=1)
+
+
 def selective_scan_bwd_ref(dt, bmat, cmat, x, a, h0, dy, dh=None):
     """The plain backward: (ddt, dB, dC, dx, dA, dh0) of
     ``selective_scan_ref`` for the gradients ``dy`` of y and ``dh`` of the

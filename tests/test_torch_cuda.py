@@ -34,13 +34,17 @@ leg runs all 34 programs of ``default_grid()`` on the kernel, bit-exact
 and equal to its CPU run; ``moe_block`` on the card equals its CPU run
 (f32, atol 1e-5) and replays as a CUDA graph with no host sync, bit for
 bit.  Training: the two backward kernels (flash attention, f32 and bf16,
-at the head dims and GQA groups of the forward; the selective scan)
-against their plain versions (tolerances at ``BWD_REL``), two launches
-bit-equal, a no-grad forward launching exactly as before (also inside a
-CUDA-graph capture), ``loss.backward()`` through the reduced smollm-135m
-and falcon-mamba reaching every attention and Mamba layer's backward
-kernel with the plain path's gradients, and the Trainer resuming from a
-crash to the same parameters bit for bit.
+at the head dims and GQA groups of the forward and of the families that
+train, GQA group 8 and 6 at head_dim 128, non-causal over 1,500 keys;
+the selective scan) against their plain versions (tolerances at
+``BWD_REL``), two launches bit-equal, the forward's stored log-sum-exp
+against ``attention_lse_ref`` and chunk states against
+``selective_scan_chunk_states_ref``, a no-grad forward launching exactly
+as before (also inside a CUDA-graph capture), ``loss.backward()``
+through the reduced smollm-135m, falcon-mamba, qwen3-moe, jamba, whisper
+and internvl2 reaching every attention and Mamba call's backward kernel
+with the plain path's gradients, and the Trainer resuming from a crash
+to the same parameters bit for bit.
 
 Every test here needs a card and skips without one.  This file imports
 neither ``jax`` nor ``repro``, so it runs where only PyTorch is
@@ -74,7 +78,8 @@ from repro_torch.kernels.quant_matmul import quant_matmul
 from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
 from repro_torch.kernels.ssm_scan import kernel as ss_kernel
 from repro_torch.kernels.ssm_scan import selective_scan
-from repro_torch.kernels.ssm_scan.ref import selective_scan_bwd_ref, selective_scan_ref
+from repro_torch.kernels.ssm_scan.ref import (selective_scan_bwd_ref,
+                                              selective_scan_chunk_states_ref, selective_scan_ref)
 from repro_torch.kernels.graphs import capture
 from repro_torch.models import decode_step, init_params, params_from_numpy, prefill, unflatten
 from repro_torch.models import moe
@@ -968,8 +973,20 @@ def test_moe_block_replays_as_a_graph_without_a_sync(card):
 BWD_REL = {torch.float32: 2e-5, torch.bfloat16: 2**-6}
 
 
+# The forward's stored log-sum-exp (base 2, f32) against the plain one:
+# the kernels sum the exponentials in another order and by exp2.approx,
+# within 1e-4 + 1e-5 |lse|; +inf (a row that sees no key) exactly.
+LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
+
+
 def _rel_err(got, want):
     return float((got.float() - want.float()).abs().max()) / max(float(want.abs().max()), 1e-6)
+
+
+def _flash_fwd(q, k, v, causal=True):
+    """The forward as the training path launches it: (out, lse)."""
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    return fa_kernel.flash_attention_cuda(q, k, v, causal=causal, lse=lse), lse
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -980,15 +997,23 @@ def _rel_err(got, want):
     (2, 4, 1, 17, 40, 32, True),     # Sq < Sk, end-aligned
     (2, 6, 2, 70, 70, 112, False),
     (1, 4, 2, 100, 130, 128, False),
-    (1, 3, 3, 1, 33, 64, True),
+    (1, 3, 3, 1, 33, 64, True),      # one query row: the decode kernel writes the lse
+    (2, 32, 4, 100, 100, 128, True),  # qwen3-moe's 32:4, group 8, head_dim 128
+    (1, 48, 8, 72, 72, 128, True),   # internvl2's 48:8, group 6
+    (2, 8, 8, 40, 1500, 64, False),  # whisper's cross-attention over 1,500 frames
 ])
 def test_flash_backward_kernel_matches_plain_version(card, dtype, b, hq, hkv, sq, sk, d, causal):
     gen = torch.Generator(card).manual_seed(sq * 7 + d)
     q, k, v, do = (torch.randn(s, generator=gen, device=card).to(dtype)
                    for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d), (b, hq, sq, d)))
-    o = fa_kernel.flash_attention_cuda(q, k, v, causal=causal)
+    o, lse = _flash_fwd(q, k, v, causal=causal)
+    assert torch.equal(o, fa_kernel.flash_attention_cuda(q, k, v, causal=causal))
+    want_lse = fa_ref.attention_lse_ref(q, k, causal=causal)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+    fin = torch.isfinite(want_lse)
+    assert bool(((lse - want_lse)[fin].abs() <= LSE_ATOL + LSE_RTOL * want_lse[fin].abs()).all())
     before = fa_kernel.bwd_launches.value
-    got = fa_kernel.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal)
+    got = fa_kernel.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal)
     assert fa_kernel.bwd_launches.value == before + 1
     want = fa_ref.attention_bwd_ref(q.float(), k.float(), v.float(), do.float(), causal=causal)
     for g, w, x in zip(got, want, (q, k, v)):
@@ -1005,10 +1030,30 @@ def test_flash_backward_is_deterministic(card, dtype):
     q = torch.randn((4, 9, 128, 64), generator=gen, device=card).to(dtype)
     k, v = (torch.randn((4, 3, 128, 64), generator=gen, device=card).to(dtype) for _ in range(2))
     do = torch.randn_like(q)
-    o = fa_kernel.flash_attention_cuda(q, k, v)
-    first = fa_kernel.flash_attention_bwd_cuda(q, k, v, o, do)
-    second = fa_kernel.flash_attention_bwd_cuda(q, k, v, o, do)
+    o, lse = _flash_fwd(q, k, v)
+    first = fa_kernel.flash_attention_bwd_cuda(q, k, v, o, do, lse)
+    second = fa_kernel.flash_attention_bwd_cuda(q, k, v, o, do, lse)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("s", [128, 100])
+def test_flash_backward_reads_the_models_views(card, s):
+    """The model's q, k, v and dO are [B, S, H, D] viewed as [B, H, S, D]:
+    the bf16 backward reads them in place (S a multiple of 64) or copies
+    them (S = 100), with the bits of contiguous copies."""
+    gen = torch.Generator(card).manual_seed(s)
+    q, do = (torch.randn((2, s, 9, 64), generator=gen, device=card).bfloat16().transpose(1, 2)
+             for _ in range(2))
+    k, v = (torch.randn((2, s, 3, 64), generator=gen, device=card).bfloat16().transpose(1, 2)
+            for _ in range(2))
+    assert fa_kernel.tma_layout(q) == (1 if s % 64 == 0 else None)
+    o, lse = _flash_fwd(q, k, v)
+    got = fa_kernel.flash_attention_bwd_cuda(q, k, v, o, do, lse)
+    dense = fa_kernel.flash_attention_bwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(), o,
+                                               do.contiguous(), lse)
+    assert all(torch.equal(a, b) for a, b in zip(got, dense))
+    want = fa_ref.attention_bwd_ref(q.float(), k.float(), v.float(), do.float())
+    assert max(_rel_err(g, w) for g, w in zip(got, want)) <= BWD_REL[torch.bfloat16]
 
 
 def _scan_args(card, b, s, d, n, seed):
@@ -1016,6 +1061,16 @@ def _scan_args(card, b, s, d, n, seed):
     r = lambda *shape: torch.randn(shape, generator=gen, device=card)  # noqa: E731
     return (torch.nn.functional.softplus(r(b, s, d) - 1), r(b, s, n), r(b, s, n), r(b, s, d),
             -torch.exp(0.5 * r(d, n)), r(b, d, n))
+
+
+def _chunk_states(args):
+    """The chunk-start states the training path's forward writes."""
+    b, s, d = args[0].shape
+    hc = torch.empty(ss_kernel.chunk_states_shape(b, s, d, args[4].shape[1]), device=args[0].device)
+    y, h = ss_kernel.selective_scan_cuda(*args, chunk_states=hc)
+    y0, h0 = ss_kernel.selective_scan_cuda(*args)
+    assert torch.equal(y, y0) and torch.equal(h, h0)  # the same forward as serving's
+    return hc
 
 
 @pytest.mark.parametrize("with_dh", [False, True])
@@ -1026,8 +1081,10 @@ def test_scan_backward_kernel_matches_plain_version(card, b, s, d, n, with_dh):
     gen = torch.Generator(card).manual_seed(5)
     dy = torch.randn((b, s, d), generator=gen, device=card)
     dh = torch.randn((b, d, n), generator=gen, device=card) if with_dh else None
+    hc = _chunk_states(args)
+    assert _rel_err(hc, selective_scan_chunk_states_ref(*args)) <= 2e-5
     before = ss_kernel.bwd_launches.value
-    got = ss_kernel.selective_scan_bwd_cuda(*args, dy, dh)
+    got = ss_kernel.selective_scan_bwd_cuda(*args, dy, dh, hc)
     assert ss_kernel.bwd_launches.value == before + 1
     want = selective_scan_bwd_ref(*args, dy, dh)
     for g, w in zip(got, want):
@@ -1037,8 +1094,9 @@ def test_scan_backward_kernel_matches_plain_version(card, b, s, d, n, with_dh):
 def test_scan_backward_is_deterministic(card):
     args = _scan_args(card, 8, 128, 1024, 16, seed=3)
     dy = torch.randn_like(args[0])
-    first = ss_kernel.selective_scan_bwd_cuda(*args, dy)
-    second = ss_kernel.selective_scan_bwd_cuda(*args, dy)
+    hc = _chunk_states(args)
+    first = ss_kernel.selective_scan_bwd_cuda(*args, dy, None, hc)
+    second = ss_kernel.selective_scan_bwd_cuda(*args, dy, None, hc)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
@@ -1084,10 +1142,11 @@ def test_forward_without_grad_launches_as_before(card):
     assert ss_kernel.bwd_launches.value == n + 1 and xg.grad is not None
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "falcon-mamba-7b", "qwen3-moe-30b-a3b",
+                                  "jamba-v0.1-52b", "whisper-base", "internvl2-26b"])
 def test_backward_through_the_model_reaches_attention_and_the_scan(card, arch):
     """``loss.backward()`` through the port's model on the card: every
-    attention and Mamba layer runs its backward kernel (with remat the
+    attention and Mamba call runs its backward kernel (with remat the
     forward kernel twice), the projections before them get non-zero
     gradients, and the gradients agree with the plain path's (f32)."""
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -1101,6 +1160,12 @@ def test_backward_through_the_model_reaches_attention_and_the_scan(card, arch):
     rng = np.random.default_rng(0)
     batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int64))
              .to(card) for k in ("tokens", "labels")}
+    if cfg.family == "encdec":
+        batch["enc_frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model), dtype=np.float32)).to(card)
+    if cfg.family == "vlm":
+        batch["img_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.vision_tokens, cfg.d_model), dtype=np.float32)).to(card)
     leaves = tree_leaves(params)
 
     def grads():
@@ -1114,19 +1179,32 @@ def test_backward_through_the_model_reaches_attention_and_the_scan(card, arch):
             p.requires_grad_(False)
         return out
 
-    before = {c: c.value for c in (fa_kernel.launches, fa_kernel.bwd_launches,
-                                   ss_kernel.launches, ss_kernel.bwd_launches)}
+    counters = (fa_kernel.launches, fa_kernel.bwd_launches, ss_kernel.launches,
+                ss_kernel.bwd_launches)
+    before = {c: c.value for c in counters}
+    with torch.no_grad():  # the forward's calls of each op, launched as serving launches them
+        loss_fn(cfg, params, batch)
+    calls = {c.name: c.value - before[c] for c in counters}
+    before = {c: c.value for c in counters}
     got = grads()
     ran = {c.name: c.value - n for c, n in before.items()}
-    mixer = "ssm" if cfg.family == "ssm" else "attn"
-    kern = "ssm_scan" if mixer == "ssm" else "flash_attention"
-    assert ran[kern] == 2 * cfg.n_layers and ran[kern + "_bwd"] == cfg.n_layers, ran
-    block = params["blocks"][0][mixer]
-    names = ("in_proj", "a_log", "x_proj", "dt_proj", "conv") if mixer == "ssm" else (
-        "wq", "wk", "wv")
+    for kern in ("flash_attention", "ssm_scan"):
+        # each call's backward once; its forward once, or twice where remat recomputes it
+        assert ran[kern + "_bwd"] == calls[kern], (kern, ran, calls)
+        assert calls[kern] <= ran[kern] <= 2 * calls[kern], (kern, ran, calls)
+    if cfg.family in ("dense", "ssm"):  # one op a layer, every layer rematerialised
+        kern = "ssm_scan" if cfg.family == "ssm" else "flash_attention"
+        assert ran[kern] == 2 * cfg.n_layers and ran[kern + "_bwd"] == cfg.n_layers, ran
     by_id = {id(p): g for p, g in zip(leaves, got)}
-    for name in names:
-        assert float(by_id[id(block[name])].abs().max()) > 0, name
+    for mixer, names in (("ssm", ("in_proj", "a_log", "x_proj", "dt_proj", "conv")),
+                         ("attn", ("wq", "wk", "wv"))):
+        for period in params["blocks"]:
+            if mixer in period:
+                for name in names:
+                    assert float(by_id[id(period[mixer][name])].abs().max()) > 0, name
+                break
+        else:
+            assert calls["ssm_scan" if mixer == "ssm" else "flash_attention"] == 0
     saved = attention_mod.flash_attention, ssm_mod.selective_scan
     attention_mod.flash_attention, ssm_mod.selective_scan = attention_ref, selective_scan_ref
     try:
