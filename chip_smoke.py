@@ -4,7 +4,7 @@
     python3 chip_smoke.py            (from the repository root)
 
 Builds every CUDA kernel of the port from the sources in the checkout,
-then runs twenty-five phases, each of which must pass:
+then runs twenty-seven phases, each of which must pass:
 
 1. probe    the card (``nvidia-smi`` name and power limit), CUDA and nvcc
             versions, ptxas resource usage of each kernel, and that
@@ -248,10 +248,45 @@ then runs twenty-five phases, each of which must pass:
             (``python -m repro_torch.examples.train_jet_tagger``): 300
             steps, both compile strategies, the design bit-exact to the
             float model, served through ``ServeEngine`` on the adder-graph
-            kernel.
+            kernel;
+26. shard   the sharded path on the card: a one-rank NCCL group (a
+            ``FileStore`` in a temporary directory) and a 1x1 ("data",
+            "model") mesh.  smollm-135m at full width: one train step under
+            the sharding rules (parameters, optimizer state and batch as
+            DTensors; the flash forward and backward kernels on each rank's
+            shard through ``local_map``) bit for bit with the unsharded
+            step, parameters and optimizer state leaf by leaf, with the same
+            launches (30 x 2 flash forward, 30 backward); prefill and 32
+            greedy ``decode_step``s under the rules, tokens and logits bit
+            for bit with the unsharded loop (30 x 33 flash launches); the
+            committed ``jamba_smoke`` asset's prefill and 7 greedy decode
+            steps under the rules (the scan and the MoE dispatch inside
+            ``local_map``) bit for bit with the unsharded loop and equal to
+            the JAX engine's golden tokens; a checkpoint written sharded,
+            restored with ``shardings=`` and without, exactly; the process
+            group destroyed;
+27. launch  ``launch.hlo_analysis.analyze`` on phase 23's smollm-135m train
+            step (seq 1024, batch 16): its FLOPs within 1% of what the
+            model's matrix products come to (the layers' 8N a token under
+            remat "full" but the last product of each period, which the
+            checkpoint's early stop does not run again, the tied head's
+            6N, and no attention: the flash kernels are no aten ops),
+            printed beside ``train_flops``; the three H100 roofline terms
+            (data-sheet peaks) beside phase 23's measured step, as shares
+            of it; the dry-run CLI (``--arch smollm-135m,qwen3-moe-30b-a3b
+            --shape train_4k,decode_32k``, one process for each production
+            mesh, the fake process group, CPU only) started in the
+            background before phase 26 (after every phase that times the
+            host), awaited here within its time limit, its eight rows
+            printed, each "ok".  Phases 26-27 must leave allocated memory within
+            1 MiB of its level before phase 26.
 Phases 17-21 each start on an emptied card (what stays allocated is
 printed) and print the decode step's device time by kernel, launches,
-idle share and bytes bound.
+idle share and bytes bound.  Around phase 19 the allocator's snapshot
+names what stays allocated: each active block, the live tensor that owns
+it and what refers to that tensor, and the blocks phase 19 left; then
+the cuBLAS workspaces (one per stream a product ran on, kept by PyTorch)
+are cleared, and the snapshot taken again shows which blocks they were.
 
 The line before the last is the ``kernels`` JSON object, with each
 source's kernels under ``entry_points``; the last line is ``{"ok": true,
@@ -261,6 +296,7 @@ repository beside it, the script fails before printing any result.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import itertools
@@ -3060,6 +3096,436 @@ def train_jet_tagger_phase(torch) -> dict:
     return out
 
 
+
+# ----------------------------------------------------------------------
+# 19. what stays allocated between phases
+# ----------------------------------------------------------------------
+def left_on_card(torch, tag: str) -> dict:
+    """What stays allocated on the card after a phase: every active block
+    of the caching allocator's snapshot, matched to the live tensors whose
+    storage starts there and, for each, the chain of objects that refer to
+    it (two levels up); blocks no Python tensor owns are listed by pool
+    (a CUDA graph's private pool) and stream.  Returns the blocks by
+    address, to diff two phases."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    snap = torch.cuda.memory._snapshot()
+    blocks = {}
+    for seg in snap["segments"]:
+        addr = seg["address"]
+        for blk in seg["blocks"]:
+            if blk["state"] == "active_allocated":
+                blocks[addr] = {"size": blk["size"], "pool": str(seg.get("segment_pool_id")),
+                                "stream": seg.get("stream")}
+            addr += blk["size"]
+    owners = {}
+    for obj in gc.get_objects():
+        if isinstance(obj, torch.Tensor) and obj.is_cuda:
+            ptr = obj.untyped_storage().data_ptr()
+            if ptr in blocks:
+                owners.setdefault(ptr, []).append(obj)
+
+    skip = {id(lst) for lst in owners.values()}
+
+    def describe(obj, depth=2):
+        """Up to two objects referring to ``obj``, each with its own referrer."""
+        out = []
+        for ref in gc.get_referrers(obj):
+            if id(ref) in skip or type(ref).__name__ == "frame":
+                continue
+            if isinstance(ref, dict):
+                keys = [k for k, v in ref.items() if v is obj][:1]
+                name = f"dict[{keys[0]!r}]" if keys else "dict"
+            else:
+                name = type(ref).__name__
+            if depth > 1:
+                up = describe(ref, depth - 1)
+                name += " <- " + (up[0] if up else "?")
+            out.append(name)
+            if len(out) >= 2:
+                break
+        return out
+
+    for ptr, blk in blocks.items():
+        ts = owners.get(ptr)
+        if ts:
+            t = ts[0]
+            blk["tensor"] = f"{tuple(t.shape)} {str(t.dtype).removeprefix('torch.')}"
+            blk["held_by"] = describe(t)
+    total = sum(b["size"] for b in blocks.values())
+    owned = sum(b["size"] for b in blocks.values() if "tensor" in b)
+    log(f"{tag}: {total / 1e9:.4f} GB in {len(blocks)} active blocks, {owned / 1e9:.4f} GB "
+        f"owned by live tensors")
+    return blocks
+
+
+def diff_left(before: dict, after: dict) -> dict:
+    """The blocks active after a phase that were not before it, largest
+    first, with their owners; and the total."""
+    new = {a: b for a, b in after.items() if before.get(a, {}).get("size") != b["size"]}
+    rows = sorted(new.values(), key=lambda b: -b["size"])
+    out = {"new_bytes": sum(b["size"] for b in rows), "n_blocks": len(rows),
+           "largest": rows[:12]}
+    log("left after the phase: " + json.dumps(out))
+    return out
+
+
+def cublas_share(torch, blocks: dict) -> dict:
+    """How much of ``blocks`` (active, no live tensor owns them) are
+    cuBLAS workspaces: PyTorch keeps one per (cuBLAS handle, stream) a
+    product ran on, for the process's life.  Clearing them (no graph is
+    alive here to read them; the next product allocates its own again)
+    and taking the snapshot again shows which blocks they were."""
+    import gc
+
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is None:
+        log("cuBLAS workspaces: this PyTorch cannot clear them; not told apart")
+        return {}
+    clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    still = set()
+    for seg in torch.cuda.memory._snapshot()["segments"]:
+        addr = seg["address"]
+        for blk in seg["blocks"]:
+            if blk["state"] == "active_allocated":
+                still.add(addr)
+            addr += blk["size"]
+    unowned = {a: b for a, b in blocks.items() if "tensor" not in b}
+    freed = {a: b for a, b in unowned.items() if a not in still}
+    out = {"unowned_bytes": sum(b["size"] for b in unowned.values()),
+           "freed_as_cublas_workspaces": sum(b["size"] for b in freed.values()),
+           "workspaces": len(freed), "sizes": sorted({b["size"] for b in freed.values()}),
+           "streams": len({b["stream"] for b in freed.values()}),
+           "allocated_after": torch.cuda.memory_allocated()}
+    log("cuBLAS workspaces among them: " + json.dumps(out))
+    return out
+
+
+# ----------------------------------------------------------------------
+# 26. the sharded path on the card; 27. the launch tools
+# ----------------------------------------------------------------------
+SHARD_DECODE_STEPS = 32
+SHARD_LEFT_BYTES = 1 << 20  # what phases 26-27 may leave allocated
+
+
+def _same(a, b) -> bool:
+    """Bit-equal values: ``b`` a DTensor (its local shard: the whole tensor
+    on a one-rank mesh) or a plain tensor."""
+    from torch.distributed.tensor import DTensor
+
+    b = b.to_local() if isinstance(b, DTensor) else b
+    return a.dtype == b.dtype and a.shape == b.shape and a.equal(b)
+
+
+def sharded_on_card(torch, np, dev, cfg=None, jamba_asset: str = "jamba_smoke") -> dict:
+    """Phase 26: the sharded path on a one-rank NCCL group (a ``FileStore``
+    in a temporary directory) and a 1x1 ("data", "model") mesh, through the
+    hand-written kernels (the flash forward and backward and the scan run
+    on each rank's shard, inside ``local_map``): smollm-135m at full width
+    -- one sharded train step against the unsharded one, and prefill plus
+    32 greedy ``decode_step``s under the rules against the unsharded loop,
+    each bit for bit, the kernels' launches counted under the rules; the
+    committed jamba asset's prefill and greedy decode under the rules (the
+    scan and the MoE dispatch inside ``local_map``) against the unsharded
+    loop and the JAX engine's golden tokens; a checkpoint written sharded,
+    restored with and without ``shardings=``, exactly.  The process group
+    is destroyed at the end."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data import DataConfig, Pipeline
+    from repro_torch.distributed import MeshRules, use_rules
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import (decode_step, init_params, param_shardings, params_from_numpy,
+                                    prefill, shard_params, unflatten)
+    from repro_torch.train import checkpoint, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = cfg or configs.get("smollm-135m")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_shard_"))
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{tmp / 'store'}", rank=0,
+                            world_size=1, **({"device_id": dev} if dev.type == "cuda" else {}))
+    out = {"backend": backend, "arch": cfg.name}
+    try:
+        rules = MeshRules(make_test_mesh(1, 1, device_type=dev.type))
+        out["mesh"] = {"shape": list(rules.mesh.shape), "dims": list(rules.names)}
+
+        def fresh():
+            return init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+
+        # one train step, unsharded and sharded, from the same parameters
+        run_cfg = RunConfig(learning_rate=3e-3, master_dtype="float32")
+        step, opt_init = make_train_step(cfg, run_cfg, device=dev)
+        pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(0).items()}
+        p1 = fresh()
+        o1 = opt_init(p1)
+        reset_counts()
+        p1, o1, m1 = step(p1, o1, batch, 0)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        plain_counts = read_counts()
+        with use_rules(rules):
+            shardings = param_shardings(cfg, rules)
+            p2 = shard_params(fresh(), shardings)
+            o2 = opt_init(p2)
+            b2 = {k: rules.distribute(v, "batch", None) for k, v in batch.items()}
+            reset_counts()
+            p2, o2, m2 = step(p2, o2, b2, 0)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            counts = read_counts()
+        leaves = [("params", a, b) for a, b in zip(tree_leaves(p1), tree_leaves(p2))] + \
+            [("opt", a, b) for a, b in zip(tree_leaves(o1), tree_leaves(o2))]
+        differ = [(w, i) for i, (w, a, b) in enumerate(leaves) if not _same(a, b)]
+        out["train"] = {
+            "loss": float(m1["loss"]), "loss_sharded": float(m2["loss"]),
+            "loss_bitwise": _same(m1["loss"], m2["loss"]),
+            "grad_norm_bitwise": _same(m1["grad_norm"], m2["grad_norm"]),
+            "leaves": len(leaves), "leaves_differing": len(differ),
+            "max_abs_diff": max(float((a.float() - (b.to_local() if hasattr(b, "to_local")
+                                                   else b).float()).abs().max())
+                                for _, a, b in leaves),
+            "launches": {k: v for k, v in counts.items() if v},
+            "launches_unsharded": {k: v for k, v in plain_counts.items() if v},
+        }
+        log(f"sharded train step: {json.dumps(out['train'])}")
+        check(not differ and out["train"]["loss_bitwise"],
+              f"the sharded train step differs from the unsharded one: {out['train']}")
+        if dev.type == "cuda":
+            check(counts["flash_attention"] > 0 and counts["flash_attention_bwd"] > 0,
+                  f"the sharded train step did not run the flash kernels: {counts}")
+            check(counts == plain_counts, f"launches {counts} sharded, {plain_counts} unsharded")
+
+        # a checkpoint written sharded, restored with and without shardings=
+        ck = str(tmp / "ckpt")
+        checkpoint.save(ck, 1, {"p": p2})
+        back = checkpoint.restore(ck, 1, {"p": p2}, shardings=checkpoint.shardings_of({"p": p2}))
+        whole = checkpoint.restore(ck, 1, {"p": p1})
+        out["checkpoint"] = {
+            "resharded_exact": all(_same(a.to_local(), b) and tuple(a.placements) ==
+                                   tuple(b.placements)
+                                   for a, b in zip(tree_leaves(p2), tree_leaves(back["p"]))),
+            "unsharded_exact": all(_same(a, b) for a, b in zip(tree_leaves(whole["p"]),
+                                                               tree_leaves(p2))),
+        }
+        log(f"checkpoint written sharded: {json.dumps(out['checkpoint'])}")
+        check(all(out["checkpoint"].values()), f"checkpoint round trip: {out['checkpoint']}")
+        del p1, o1, p2, o2, back, whole, leaves
+
+        # prefill and greedy decode_step under the rules, against the plain loop
+        g = torch.Generator(dev).manual_seed(1)
+        prompts = torch.randint(2, cfg.vocab_size, (SERVE_BATCH, PROMPT_LEN), generator=g,
+                                device=dev)
+        out["decode"] = greedy_pair(torch, cfg, fresh(), {"tokens": prompts}, SERVE_MAX_SEQ,
+                                    SHARD_DECODE_STEPS, rules, shardings, param_shardings)
+        out["decode"].pop("tokens")
+        if dev.type == "cuda":
+            want = cfg.n_layers * (1 + SHARD_DECODE_STEPS)
+            check(out["decode"]["launches"].get("flash_attention") == want,
+                  f"sharded decode: launches {out['decode']['launches']}, flash {want}")
+
+        # the committed jamba asset under the rules against its golden tokens
+        asset = ASSETS / jamba_asset
+        manifest = json.loads((asset / "manifest.json").read_text())
+        cfg_j = configs.get_smoke(manifest["arch"], **manifest["smoke_kwargs"])
+        with np.load(asset / "weights.npz") as w:
+            pj = params_from_numpy(cfg_j, unflatten(dict(w)), device=dev)
+        with np.load(asset / "golden.npz") as gz:
+            golden = dict(gz)
+        # the engine's batch: the prompts, padded with the first one (a done request)
+        pad = [*golden["prompts"]] + [golden["prompts"][0]] * (
+            manifest["batch_size"] - len(golden["prompts"]))
+        tokens = torch.from_numpy(np.stack(pad).astype(np.int64)).to(dev)
+        jam = greedy_pair(torch, cfg_j, pj, {"tokens": tokens}, manifest["max_seq"],
+                          manifest["decode_steps"], rules, None, param_shardings)
+        picked = jam.pop("tokens")
+        for i, want_tok in enumerate(golden["tokens"][:len(golden["prompts"])]):
+            want_tok = [int(t) for t in want_tok if t >= 0]
+            check(picked[i][:len(want_tok)] == want_tok,
+                  f"sharded jamba: request {i} tokens {picked[i]} != JAX {want_tok}")
+        jam["golden_tokens_equal"] = True
+        out["jamba"] = jam
+        if dev.type == "cuda":
+            check(jam["launches"].get("ssm_scan", 0) > 0 and
+                  jam["launches"].get("flash_attention", 0) > 0,
+                  f"sharded jamba did not run the kernels: {jam['launches']}")
+        log(f"sharded jamba asset: {json.dumps(jam)}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def greedy_pair(torch, cfg, params, batch, max_seq, steps, rules, shardings,
+                param_shardings) -> dict:
+    """Prefill then ``steps`` greedy ``decode_step``s, unsharded and under
+    ``rules`` (the parameters laid out by ``param_shardings``, the batch on
+    the batch dims), counted: tokens and logits bit for bit."""
+    from repro_torch.distributed import use_rules
+    from repro_torch.models import decode_step, prefill, shard_params
+
+    def loop(p, b):
+        logits, cache = prefill(cfg, p, b, max_seq)
+        toks, lgs = [], [logits]
+        for _ in range(steps):
+            tok = logits.argmax(-1)
+            toks.append(tok)
+            logits, cache = decode_step(cfg, p, tok[:, None], cache)
+            lgs.append(logits)
+        toks.append(logits.argmax(-1))
+        return toks, lgs
+
+    with torch.no_grad():
+        t1, l1 = loop(params, batch)
+        with use_rules(rules):
+            p2 = shard_params(params, param_shardings(cfg, rules))
+            b2 = {k: rules.distribute(v, "batch", *([None] * (v.ndim - 1)))
+                  for k, v in batch.items()}
+            reset_counts()
+            t2, l2 = loop(p2, b2)
+            counts = read_counts()
+    toks = torch.stack(t1, dim=1).tolist()
+    out = {"steps": steps, "tokens_equal": all(_same(a, b) for a, b in zip(t1, t2)),
+           "logits_bitwise": all(_same(a, b) for a, b in zip(l1, l2)),
+           "max_abs_logit_diff": max(float((a.float() - b.to_local().float()).abs().max())
+                                     for a, b in zip(l1, l2)),
+           "launches": {k: v for k, v in counts.items() if v}, "tokens": toks}
+    check(out["tokens_equal"] and out["logits_bitwise"],
+          f"sharded greedy decode of {cfg.name} differs: "
+          f"{ {k: v for k, v in out.items() if k != 'tokens'} }")
+    return out
+
+
+def launch_tools_phase(torch, np, dev, info, sm_train: dict, cfg=None,
+                       seq: int = LONG_SEQ, batch_size: int = LONG_BATCH) -> dict:
+    """Phase 27: ``launch.hlo_analysis.analyze`` on phase 23's smollm-135m
+    train step (seq 1024, batch 16), its FLOPs held to what the model's
+    matrix products must come to (``train_flops`` counts 6N per token and
+    the causal attention; the count sees the forward twice under remat
+    "full", the tied head once, and not the flash kernels, which are no
+    aten ops); the three H100 roofline terms beside phase 23's measured
+    step, as shares of it (a reading, not a claim).  (The phase's dry-run
+    is awaited by ``finish_dryrun``.)"""
+    from repro_torch import configs
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data import DataConfig, Pipeline
+    from repro_torch.launch import roofline
+    from repro_torch.launch.hlo_analysis import analyze
+    from repro_torch.models import init_params
+    from repro_torch.train import make_train_step
+
+    cfg = cfg or configs.get("smollm-135m")
+    run_cfg = RunConfig(learning_rate=3e-3, master_dtype="float32")
+    step, opt_init = make_train_step(cfg, run_cfg, device=dev)
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    opt = opt_init(params)
+    pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch_size))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(0).items()}
+    costs = analyze(step, params, opt, batch, 0, n_devices=1)
+    tokens = seq * batch_size
+    head = cfg.d_model * cfg.padded_vocab
+    layer_mm = sum(v.numel() for blk in params["blocks"] for part in blk.values()
+                   if isinstance(part, dict) for v in part.values() if v.dim() == 3)
+    # remat "full" recomputes a period's forward in the backward, up to the
+    # last tensor the backward needs: the period's last product (w_down),
+    # whose output no backward reads, is not run again (checkpoint's early stop)
+    remat = 2 if cfg.remat == "full" else 0
+    down = params["blocks"][-1]["mlp"]["w_down"].numel() if remat else 0
+    expect = tokens * ((6 + remat) * layer_mm - remat * down + 6 * head)
+    model = train_flops(cfg, seq, batch_size)
+    out = {"shape": f"seq {seq}, batch {batch_size}", "flops": costs.flops,
+           "hbm_bytes": costs.hbm_bytes, "coll_bytes": costs.coll_wire_bytes,
+           "train_flops": model, "matmul_flops_expected": expect,
+           "counted_over_expected": costs.flops / expect,
+           "counted_over_train_flops": costs.flops / model,
+           "why": f"train_flops = 6N per token + causal attention; the count sees every "
+                  f"aten matrix product: the layers' {6 + remat}N (remat {cfg.remat!r} "
+                  f"recomputes the forward but its last product, w_down), the tied head's "
+                  f"6N, and no attention (the flash kernels are ctypes calls, not aten ops)"}
+    if dev.type == "cuda":  # on the CPU the plain attention's products are aten ops too
+        check(abs(out["counted_over_expected"] - 1) < 0.01,
+              f"the counted FLOPs are {out['counted_over_expected']:.4f}x the matrix products'")
+    terms = {"t_compute_ms": costs.flops / roofline.PEAK_FLOPS * 1e3,
+             "t_memory_ms": costs.hbm_bytes / roofline.HBM_BW * 1e3, "t_collective_ms": 0.0}
+    long = (sm_train or {}).get("long", {})
+    step_ms = long.get("step_ms")
+    device_ms = long.get("profile", {}).get("device_ms")
+    out["roofline"] = {**terms, "measured_step_ms": step_ms, "measured_device_ms": device_ms,
+                       "card": info.get("nvidia_smi"),
+                       "peaks": "989e12 FLOP/s bf16, 3.35e12 B/s, 450e9 B/s NVLink: H100 SXM "
+                                "data sheet",
+                       "share_of_step": None if not step_ms else
+                       {k: v / step_ms for k, v in terms.items()}}
+    log(f"hlo_analysis of the train step: {json.dumps(out)}")
+    return out
+
+
+DRYRUN_ARGS = ["--arch", "smollm-135m,qwen3-moe-30b-a3b", "--shape", "train_4k,decode_32k"]
+DRYRUN_MESHES = ("single", "multi")  # one process each
+DRYRUN_TIMEOUT_S = 900
+
+
+def start_dryrun() -> list:
+    """Start the dry-run CLI (CPU only, the fake process group) in the
+    background at low priority, one process per production mesh: a list
+    of (process, output path)."""
+    import os
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    runs = []
+    for mesh in DRYRUN_MESHES:
+        fd, path = tempfile.mkstemp(prefix=f"chip_smoke_dryrun_{mesh}_", suffix=".json")
+        os.close(fd)
+        os.unlink(path)
+        proc = subprocess.Popen(["nice", "-n", "19", sys.executable, "-m",
+                                 "repro_torch.launch.dryrun", *DRYRUN_ARGS, "--mesh", mesh,
+                                 "--out", path], env=env, cwd=str(ROOT),
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        runs.append((proc, path))
+    return runs
+
+
+def finish_dryrun(runs: list, started: float) -> dict:
+    """Wait for the dry-run (within its time limit from ``started``), print
+    its rows and check that every cell is ok."""
+    import os
+
+    rows = []
+    for proc, path in runs:
+        left = max(DRYRUN_TIMEOUT_S - (time.perf_counter() - started), 1)
+        try:
+            text, _ = proc.communicate(timeout=left)
+        except subprocess.TimeoutExpired:
+            for p, _ in runs:
+                p.kill()
+                p.communicate()
+            raise SmokeFailure(f"the dry-run did not end within {DRYRUN_TIMEOUT_S} s")
+        check(proc.returncode == 0, f"the dry-run exited {proc.returncode}: {text[-2000:]}")
+        rows += json.loads(Path(path).read_text())
+        os.unlink(path)
+    keys = ("arch", "shape", "mesh", "status", "params_gb", "opt_gb", "cache_gb",
+            "memory_per_chip_gb", "t_compute_s", "t_memory_s", "t_collective_s", "bottleneck",
+            "microbatch", "optimizer", "run_s")
+    for r in rows:
+        log("dry-run row: " + json.dumps({k: r.get(k) for k in keys}))
+    bad = [(r["arch"], r["shape"], r["mesh"], r["status"]) for r in rows if r["status"] != "ok"]
+    check(len(rows) == 8 and not bad, f"dry-run: {len(rows)} rows, failing {bad}")
+    return {"cells": len(rows), "ok": len(rows) - len(bad),
+            "wall_s": time.perf_counter() - started}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3343,8 +3809,13 @@ def main() -> int:
         for kern, n in got.items():
             (flash_entry if kern == "flash_attention" else scan_entry)[f"launches_{name}"] = n
 
+    left_18 = left_on_card(torch, "after phase 18")
     log("== 19. serve whisper-base at full width (encoder-decoder)")
     serve_phase(torch, np, dev, "whisper-base", flash_entry, scan_entry, info)
+    left_19 = left_on_card(torch, "after phase 19")
+    diff_left(left_18, left_19)
+    cublas_share(torch, left_19)
+    del left_18, left_19
 
     log("== 20. serve internvl2-26b at full width (VLM)")
     serve_phase(torch, np, dev, "internvl2-26b", flash_entry, scan_entry, info)
@@ -3405,6 +3876,38 @@ def main() -> int:
     fresh_card(torch)
     jet = train_jet_tagger_phase(torch)
     kernels["kernels"][0]["launches_jet_tagger"] = jet["adder_graph_launches"]
+
+    # phase 27's dry-run (CPU only) runs in the background from here on,
+    # after every phase that times the host or holds a profile to a capture
+    dry_runs = start_dryrun()
+    dry_started = time.perf_counter()
+    atexit.register(lambda: [p.kill() for p, _ in dry_runs if p.poll() is None])
+
+    log("== 26. the sharded path on the card (one-rank NCCL group, 1x1 mesh)")
+    fresh_card(torch)
+    base = torch.cuda.memory_allocated()
+    t26 = time.perf_counter()
+    sh = sharded_on_card(torch, np, dev)
+    flash_entry["launches_sharded_train_smollm_135m"] = sh["train"]["launches"]["flash_attention"]
+    flash_entry["launches_sharded_decode_smollm_135m"] = sh["decode"]["launches"][
+        "flash_attention"]
+    scan_entry["launches_sharded_jamba_smoke"] = sh["jamba"]["launches"]["ssm_scan"]
+    log("sharded path summary: " + json.dumps(sh))
+
+    log("== 27. the launch tools: step analysis, H100 roofline, dry-run")
+    lt = launch_tools_phase(torch, np, dev, info, sm_train)
+    lt["dryrun"] = finish_dryrun(dry_runs, dry_started)
+    log("launch tools summary: " + json.dumps(lt))
+    del sh, lt
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - base
+    log(f"phases 26-27: {time.perf_counter() - t26:.1f} s; allocated {left} bytes more than "
+        f"before phase 26")
+    check(abs(left) <= SHARD_LEFT_BYTES,
+          f"phases 26-27 left {left} bytes allocated (at most {SHARD_LEFT_BYTES})")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(info["nvidia_smi"])

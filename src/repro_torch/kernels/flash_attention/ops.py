@@ -19,7 +19,9 @@ version itself.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from .. import abstract
 from .kernel import flash_attention_bwd_cuda, flash_attention_cuda
 from .ref import attention_ref
 
@@ -52,6 +54,11 @@ def flash_attention(
     offset: int | torch.Tensor | None = None,
 ) -> torch.Tensor:
     """GQA attention. q: [B, Hq, Sq, D]; k/v: [B, Hkv, Sk, D] with Hq % Hkv == 0."""
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        raise TypeError("flash_attention takes local tensors: call it on a DTensor's shards "
+                        "through local_map (models.attention._attend)")
+    if abstract.is_abstract(q):  # the dry-run's fake tensors: the kernel's shapes
+        return abstract.flash_attention(q, k, v, causal)
     if q.device.type == "cuda":
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
             if isinstance(offset, torch.Tensor):

@@ -12,13 +12,17 @@ same kernel with a ``chunk_states`` output (the state every 8 steps,
 saved for the backward), and its backward the hand-written backward
 kernel (``csrc/ssm_scan_bwd.cu``) from them.  Otherwise the launch is the
 plain kernel call, with no chunk states.  On the CPU autograd
-differentiates the plain version itself.
+differentiates the plain version itself.  Fake tensors (the dry-run's)
+take the kernel's abstract form (``kernels.abstract``): its outputs'
+shapes.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from .. import abstract
 from .kernel import chunk_states_shape, selective_scan_bwd_cuda, selective_scan_cuda
 from .ref import selective_scan_ref
 
@@ -54,8 +58,14 @@ def selective_scan(
 ):
     """Mamba-1 recurrence. Returns (y [B,S,D], h_final [B,D,N]), both f32;
     ``h_final`` is ``h_out`` when one is given."""
+    if any(isinstance(t, DTensor) for t in (dt, bmat, cmat, x, a, h0)):
+        raise TypeError("selective_scan takes local tensors: call it on a DTensor's shards "
+                        "through local_map (models.ssm._scan)")
     # the scan's contract is f32, whatever the surrounding compute dtype
     dt, bmat, cmat, x, a, h0 = (u.float() for u in (dt, bmat, cmat, x, a, h0))
+    if abstract.is_abstract(dt):  # the dry-run's fake tensors: the kernel's shapes
+        y, h = abstract.selective_scan(dt, bmat, cmat, x, a, h0)
+        return y, (h if h_out is None else h_out.copy_(h))
     if dt.device.type == "cuda":
         if torch.is_grad_enabled() and any(u.requires_grad for u in (dt, bmat, cmat, x, a, h0)):
             if h_out is not None:

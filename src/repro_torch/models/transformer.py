@@ -16,8 +16,15 @@ block carries a leading ``n_periods`` dim, so a JAX parameter pytree
 carries across leaf for leaf (:func:`params_from_numpy`).  A Python loop
 over the periods takes the place of ``lax.scan``; ``cfg.remat`` becomes
 ``torch.utils.checkpoint`` around each period when a backward follows
-(``loss_fn`` under autograd).  Sharding and abstract parameters have no
-counterpart on one device.
+(``loss_fn`` under autograd).
+
+Sharding: :func:`param_shardings` and :func:`cache_shardings` resolve
+each leaf's logical axes under :class:`~repro_torch.distributed.MeshRules`
+to DTensor placements, :func:`shard_params` lays a tree out by them, and
+under active rules (``use_rules``) the same functions run on DTensors,
+with the reference's ``constrain`` calls as redistributions.
+:func:`abstract_params` gives meta-device parameters, which allocate
+nothing (the dry-run's stand-ins for ``ShapeDtypeStruct``).
 """
 
 from __future__ import annotations
@@ -34,8 +41,13 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor import zeros as dtensor_zeros
+
 from .._device import resolve_device
 from ..configs.base import ATTN, MLP, MOE, SSM, ArchConfig
+from ..distributed import MeshRules, constrain, current_rules, use_rules
+from ..distributed.sharding import axis_size, like, run_local
 from ..tree import tree_map
 from .attention import attention_block, precompute_cross_cache
 from .layers import embed_tokens, rmsnorm, swiglu, unembed
@@ -47,10 +59,12 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 @dataclass(frozen=True)
 class PSpec:
-    """A parameter's shape and initialiser (the JAX package's ``PSpec``
-    without its sharding axes, which mean nothing on one device)."""
+    """A parameter's shape, logical sharding tokens (one per dim, resolved
+    by :class:`~repro_torch.distributed.MeshRules`) and initialiser, as
+    the JAX package's ``PSpec``."""
 
     shape: tuple
+    axes: tuple  # logical sharding tokens per dim
     init: str = "normal"  # normal | embed | ones | zeros | ssm_a
     fan_in_axis: int | None = None  # for 1/sqrt(fan_in) scaling
 
@@ -75,14 +89,14 @@ def _attn_specs(cfg: ArchConfig, periods: int) -> dict:
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     p = (periods,)
     s = {
-        "wq": PSpec(p + (d, hq * hd), fan_in_axis=1),
-        "wk": PSpec(p + (d, hkv * hd), fan_in_axis=1),
-        "wv": PSpec(p + (d, hkv * hd), fan_in_axis=1),
-        "wo": PSpec(p + (hq * hd, d), fan_in_axis=1),
+        "wq": PSpec(p + (d, hq * hd), (None, "fsdp", "model"), fan_in_axis=1),
+        "wk": PSpec(p + (d, hkv * hd), (None, "fsdp", "model"), fan_in_axis=1),
+        "wv": PSpec(p + (d, hkv * hd), (None, "fsdp", "model"), fan_in_axis=1),
+        "wo": PSpec(p + (hq * hd, d), (None, "model", "fsdp"), fan_in_axis=1),
     }
     if cfg.qk_norm:
-        s["q_norm"] = PSpec(p + (hd,), "ones")
-        s["k_norm"] = PSpec(p + (hd,), "ones")
+        s["q_norm"] = PSpec(p + (hd,), (None, None), "ones")
+        s["k_norm"] = PSpec(p + (hd,), (None, None), "ones")
     return s
 
 
@@ -90,9 +104,9 @@ def _mlp_specs(cfg: ArchConfig, periods: int) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     p = (periods,)
     return {
-        "w_gate": PSpec(p + (d, f), fan_in_axis=1),
-        "w_up": PSpec(p + (d, f), fan_in_axis=1),
-        "w_down": PSpec(p + (f, d), fan_in_axis=1),
+        "w_gate": PSpec(p + (d, f), (None, "fsdp", "model"), fan_in_axis=1),
+        "w_up": PSpec(p + (d, f), (None, "fsdp", "model"), fan_in_axis=1),
+        "w_down": PSpec(p + (f, d), (None, "model", "fsdp"), fan_in_axis=1),
     }
 
 
@@ -100,14 +114,14 @@ def _ssm_specs(cfg: ArchConfig, periods: int) -> dict:
     d, di, st, k, dtr = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv, cfg.dt_rank
     p = (periods,)
     return {
-        "in_proj": PSpec(p + (d, 2 * di), fan_in_axis=1),
-        "conv": PSpec(p + (di, k), fan_in_axis=2),
-        "x_proj": PSpec(p + (di, dtr + 2 * st), fan_in_axis=1),
-        "dt_proj": PSpec(p + (dtr, di), fan_in_axis=1),
-        "dt_bias": PSpec(p + (di,), "zeros"),
-        "a_log": PSpec(p + (di, st), "ssm_a"),
-        "d": PSpec(p + (di,), "ones"),
-        "out_proj": PSpec(p + (di, d), fan_in_axis=1),
+        "in_proj": PSpec(p + (d, 2 * di), (None, "fsdp", "model"), fan_in_axis=1),
+        "conv": PSpec(p + (di, k), (None, "model", None), fan_in_axis=2),
+        "x_proj": PSpec(p + (di, dtr + 2 * st), (None, "model", None), fan_in_axis=1),
+        "dt_proj": PSpec(p + (dtr, di), (None, None, "model"), fan_in_axis=1),
+        "dt_bias": PSpec(p + (di,), (None, "model"), "zeros"),
+        "a_log": PSpec(p + (di, st), (None, "model", None), "ssm_a"),
+        "d": PSpec(p + (di,), (None, "model"), "ones"),
+        "out_proj": PSpec(p + (di, d), (None, "model", "fsdp"), fan_in_axis=1),
     }
 
 
@@ -115,10 +129,10 @@ def _moe_specs(cfg: ArchConfig, periods: int) -> dict:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     p = (periods,)
     return {
-        "router": PSpec(p + (d, e), fan_in_axis=1),
-        "w_gate": PSpec(p + (e, d, f), fan_in_axis=2),
-        "w_up": PSpec(p + (e, d, f), fan_in_axis=2),
-        "w_down": PSpec(p + (e, f, d), fan_in_axis=2),
+        "router": PSpec(p + (d, e), (None, "fsdp", None), fan_in_axis=1),
+        "w_gate": PSpec(p + (e, d, f), (None, "model", "fsdp", None), fan_in_axis=2),
+        "w_up": PSpec(p + (e, d, f), (None, "model", "fsdp", None), fan_in_axis=2),
+        "w_down": PSpec(p + (e, f, d), (None, "model", None, "fsdp"), fan_in_axis=2),
     }
 
 
@@ -126,16 +140,16 @@ def _block_specs(cfg: ArchConfig, mixer: str, ffn: str | None, periods: int,
                  cross: bool = False) -> dict:
     d = cfg.d_model
     p = (periods,)
-    s: dict = {"norm1": PSpec(p + (d,), "ones")}
+    s: dict = {"norm1": PSpec(p + (d,), (None, None), "ones")}
     if mixer == ATTN:
         s[ATTN] = _attn_specs(cfg, periods)
     else:
         s[SSM] = _ssm_specs(cfg, periods)
     if cross:  # an encoder-decoder's decoder block
-        s["norm_x"] = PSpec(p + (d,), "ones")
+        s["norm_x"] = PSpec(p + (d,), (None, None), "ones")
         s["cross"] = _attn_specs(cfg, periods)
     if ffn is not None:  # a block without an FFN (the SSM family's) has no norm2
-        s["norm2"] = PSpec(p + (d,), "ones")
+        s["norm2"] = PSpec(p + (d,), (None, None), "ones")
         s[ffn] = _mlp_specs(cfg, periods) if ffn == MLP else _moe_specs(cfg, periods)
     return s
 
@@ -146,15 +160,15 @@ def param_specs(cfg: ArchConfig) -> dict:
     period, n_periods = cfg.layer_pattern()
     cross = cfg.family == "encdec"
     specs: dict = {
-        "embed": PSpec((v, d), "embed"),
-        "final_norm": PSpec((d,), "ones"),
+        "embed": PSpec((v, d), ("model", "fsdp"), "embed"),
+        "final_norm": PSpec((d,), (None,), "ones"),
         "blocks": [_block_specs(cfg, mixer, ffn, n_periods, cross) for mixer, ffn in period],
     }
     if not cfg.tie_embeddings:
-        specs["head"] = PSpec((d, v), fan_in_axis=0)
+        specs["head"] = PSpec((d, v), ("fsdp", "model"), fan_in_axis=0)
     if cross:
         specs["enc_blocks"] = [_block_specs(cfg, ATTN, MLP, cfg.encoder_layers)]
-        specs["enc_final_norm"] = PSpec((d,), "ones")
+        specs["enc_final_norm"] = PSpec((d,), (None,), "ones")
     return specs
 
 
@@ -231,6 +245,37 @@ def params_from_numpy(cfg: ArchConfig, tree, device=None) -> dict:
     return _zip_specs(convert, param_specs(cfg), tree)
 
 
+def _map_specs(fn, cfg: ArchConfig) -> dict:
+    """``fn(spec)`` over every leaf of :func:`param_specs`."""
+    return tree_map(fn, param_specs(cfg))
+
+
+def abstract_params(cfg: ArchConfig) -> dict:
+    """Parameters as meta-device tensors of ``cfg.dtype``: shapes and
+    dtypes, no storage (the reference's ``ShapeDtypeStruct`` tree)."""
+    dtype = torch_dtype(cfg)
+    return _map_specs(lambda spec: torch.empty(spec.shape, dtype=dtype, device="meta"), cfg)
+
+
+def param_shardings(cfg: ArchConfig, rules: MeshRules) -> dict:
+    """Each parameter's (mesh, placements) under ``rules``."""
+    return _map_specs(lambda spec: rules.sharding(spec.axes, spec.shape), cfg)
+
+
+def shard_params(params, shardings):
+    """Lay a tree of tensors out by a tree of (mesh, placements) of the
+    same structure (:func:`param_shardings`, or a state's): a plain leaf
+    -- the same on every rank -- is distributed, a DTensor leaf
+    redistributed.  The reference's ``jax.device_put(params, shardings)``."""
+    def place(x, sh):
+        mesh, placements = sh
+        if isinstance(x, DTensor):
+            return x.redistribute(mesh, placements)
+        return distribute_tensor(x, mesh, list(placements), src_data_rank=None)
+
+    return tree_map(place, params, shardings)
+
+
 def unflatten(flat) -> dict:
     """A nested tree from a mapping of ``"/"``-joined paths to leaves (the
     layout of a committed ``weights.npz``); a path part made of digits is
@@ -283,7 +328,7 @@ def _apply_block(cfg, bp, mixer, ffn, x, positions, cache, pos, causal=True, enc
     elif ffn == MOE:
         h, aux = moe_block(cfg, bp[MOE], rmsnorm(x, bp["norm2"]))
         x = x + h
-    return x, aux
+    return constrain(x, "batch", "seq", None), aux
 
 
 def _apply_stack(cfg, blocks, pattern, x, positions, caches=None, pos=None, causal=True,
@@ -293,7 +338,7 @@ def _apply_stack(cfg, blocks, pattern, x, positions, caches=None, pos=None, caus
     one period-stacked tree per period position; the caches are updated
     in place.  Returns (x, the summed MoE aux loss, f32)."""
     n_periods = blocks[0]["norm1"].shape[0]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = like(torch.zeros((), dtype=torch.float32, device=x.device), x)
 
     def period(t, x, aux):
         for i, (mixer, ffn) in enumerate(pattern):
@@ -339,9 +384,9 @@ def _remat(remat: str, fn, *args):
 def _encode(cfg, params, enc_frames):
     """The whisper-style encoder over stub frame embeddings [B, T, D]:
     full self-attention blocks, then the encoder's final norm."""
-    positions = torch.arange(enc_frames.shape[1], device=enc_frames.device)
-    x, _ = _apply_stack(cfg, params["enc_blocks"], [(ATTN, MLP)], enc_frames, positions,
-                        causal=False)
+    x = constrain(enc_frames, "batch", "seq", None)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _ = _apply_stack(cfg, params["enc_blocks"], [(ATTN, MLP)], x, positions, causal=False)
     return rmsnorm(x, params["enc_final_norm"])
 
 
@@ -407,49 +452,136 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict):
     labels = batch["labels"]
     mask = labels >= 0
     safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    label_logit = logits.gather(-1, safe[..., None])[..., 0]
-    nll = (lse - label_logit) * mask
-    loss = nll.sum() / mask.sum().clamp_min(1)
+    if isinstance(logits, DTensor):
+        # each row over the whole vocabulary (gathered from "model"), on
+        # each rank's rows: the same sums as unsharded, the gradient whole
+        logits = constrain(logits, "batch", None, None)
+        rows = tuple(logits.placements)
+        nll = run_local(_token_nll, (logits, safe), (rows, rows[:]), rows, logits.device_mesh,
+                        in_grad_placements=(rows, rows)) * mask
+    else:
+        nll = _token_nll(logits, safe) * mask
+    # scalars replicated on every rank (a sum over the batch shards is partial)
+    loss = constrain(nll.sum() / mask.sum().clamp_min(1))
+    aux = constrain(aux)
     return loss + 0.01 * aux, {"nll": loss, "aux": aux}
 
 
+def _token_nll(logits, labels):
+    """Each token's log-sum-exp of its f32 logits less its label's logit."""
+    logits = logits.float()
+    return torch.logsumexp(logits, dim=-1) - logits.gather(-1, labels[..., None])[..., 0]
+
+
 def kv_cache_heads(cfg: ArchConfig) -> int:
-    """KV heads held in the cache: ``n_kv_heads`` on one device (the JAX
-    package replicates them up to the tensor-parallel degree)."""
-    return cfg.n_kv_heads
+    """KV heads held in the cache: replicated up to the smallest multiple
+    that the model axis divides (the classic GQA/MQA tensor-parallel
+    serving trick -- vLLM does the same).  Exact: query head q reads
+    replicated head (q * H_eff) // H_q == q // group.  Without it, an
+    H_kv < model_parallelism cache must shard its sequence dim.  With no
+    rules active (one device) it is ``n_kv_heads``."""
+    hkv = cfg.n_kv_heads
+    ms = max(axis_size("model"), 1)
+    if hkv == 0 or hkv % ms == 0 or cfg.n_heads % ms != 0:
+        return hkv
+    r = 1
+    while (hkv * r) % ms or (cfg.n_heads % (hkv * r)):
+        r += 1
+        if hkv * r > cfg.n_heads:
+            return hkv  # no exact replication factor; keep seq sharding
+    return hkv * r
 
 
-def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None) -> dict:
-    """Decode cache, zeroed: per period position, stacked over the periods,
-    a head-major ``k``/``v`` of [n_periods, B, H, max_seq, hd] in
-    ``cfg.dtype`` for attention, or the SSM's ``conv`` window [n_periods,
-    B, k-1, d_inner] in ``cfg.dtype`` and state ``h`` [n_periods, B,
-    d_inner, N] in f32; ``pos``, an int32 scalar tensor on the device;
-    and for an encoder-decoder ``cross``, the cross-attention K/V of
-    [n_periods, B, H, encoder_seq, hd], filled by prefill."""
-    check_supported(cfg)
-    dev = resolve_device(device)
+def _cache_shapes(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
+    """The decode cache's tree of (shape, dtype) leaves."""
     period, n_periods = cfg.layer_pattern()
     dtype = torch_dtype(cfg)
-
-    def zeros(*shape, dt=dtype):
-        return torch.zeros((n_periods, batch, *shape), dtype=dt, device=dev)
-
     blocks = []
     for mixer, _ in period:
         if mixer == ATTN:
-            shp = (kv_cache_heads(cfg), max_seq, cfg.hd)
-            blocks.append({"k": zeros(*shp), "v": zeros(*shp)})
+            shp = ((n_periods, batch, kv_cache_heads(cfg), max_seq, cfg.hd), dtype)
+            blocks.append({"k": shp, "v": shp})
         else:
-            blocks.append({"conv": zeros(cfg.ssm_conv - 1, cfg.d_inner),
-                           "h": zeros(cfg.d_inner, cfg.ssm_state, dt=torch.float32)})
-    cache = {"blocks": blocks, "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+            blocks.append({"conv": ((n_periods, batch, cfg.ssm_conv - 1, cfg.d_inner), dtype),
+                           "h": ((n_periods, batch, cfg.d_inner, cfg.ssm_state), torch.float32)})
+    cache = {"blocks": blocks, "pos": ((), torch.int32)}
     if cfg.family == "encdec":
-        shp = (cfg.n_kv_heads, cfg.encoder_seq, cfg.hd)
-        cache["cross"] = [{"k": zeros(*shp), "v": zeros(*shp)}]
+        shp = ((n_periods, batch, cfg.n_kv_heads, cfg.encoder_seq, cfg.hd), dtype)
+        cache["cross"] = [{"k": shp, "v": shp}]
     return cache
+
+
+def _is_shape_leaf(v) -> bool:
+    return isinstance(v, tuple) and len(v) == 2 and isinstance(v[1], torch.dtype)
+
+
+def _map_cache(fn, tree):
+    if _is_shape_leaf(tree):
+        return fn(*tree)
+    if isinstance(tree, dict):
+        return {k: _map_cache(fn, v) for k, v in tree.items()}
+    return [_map_cache(fn, v) for v in tree]
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None,
+               abstract: bool = False) -> dict:
+    """Decode cache, zeroed: per period position, stacked over the periods,
+    a head-major ``k``/``v`` of [n_periods, B, H, max_seq, hd] in
+    ``cfg.dtype`` for attention (H = :func:`kv_cache_heads`), or the SSM's
+    ``conv`` window [n_periods, B, k-1, d_inner] in ``cfg.dtype`` and
+    state ``h`` [n_periods, B, d_inner, N] in f32; ``pos``, an int32
+    scalar tensor on the device; and for an encoder-decoder ``cross``, the
+    cross-attention K/V of [n_periods, B, H, encoder_seq, hd], filled by
+    prefill.  Under active rules every leaf is a DTensor laid out by
+    :func:`cache_shardings` on the rules' mesh (``device`` is not read),
+    each rank allocating only its shard.  With ``abstract`` the leaves
+    are meta-device tensors, which allocate nothing."""
+    check_supported(cfg)
+    shapes = _cache_shapes(cfg, batch, max_seq)
+    if abstract:
+        return _map_cache(lambda shape, dt: torch.empty(shape, dtype=dt, device="meta"), shapes)
+    rules = current_rules()
+    if rules is not None:
+        def make(shape, dt, sh):
+            return dtensor_zeros(shape, dtype=dt, device_mesh=sh[0], placements=list(sh[1]))
+
+        return _zip_cache(make, shapes, cache_shardings(cfg, rules, batch, max_seq))
+    dev = resolve_device(device)
+    return _map_cache(lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev), shapes)
+
+
+def _zip_cache(fn, shapes, shardings):
+    if _is_shape_leaf(shapes):
+        return fn(*shapes, shardings)
+    if isinstance(shapes, dict):
+        return {k: _zip_cache(fn, v, shardings[k]) for k, v in shapes.items()}
+    return [_zip_cache(fn, v, w) for v, w in zip(shapes, shardings)]
+
+
+def cache_shardings(cfg: ArchConfig, rules: MeshRules, batch: int, max_seq: int) -> dict:
+    """KV caches: batch on the data axes; the model axis takes kv heads
+    when they divide it, otherwise the cache *sequence* dim (which the
+    port's decode all-gathers before attention).  SSM caches: d_inner on
+    the model axis where it divides it, else the last dim."""
+    model_size = rules._axis_size(rules.axes_for("model"))
+
+    def shard(shape, _dtype):
+        if len(shape) == 5:  # attention KV: [P, B, H, S, hd] (head-major)
+            if model_size and shape[2] % max(model_size, 1) == 0:
+                axes = (None, "batch", "model", None, None)
+            else:
+                axes = (None, "batch", None, "model", None)
+            return rules.sharding(axes, shape)
+        if len(shape) == 4:  # ssm: [P, B, k-1, d_inner] or [P, B, d_inner, st]
+            if shape[2] % max(model_size, 1) == 0 and shape[2] >= model_size:
+                axes = (None, "batch", "model", None)
+            else:
+                axes = (None, "batch", None, "model")
+            return rules.sharding(axes, shape)
+        return rules.sharding((None,) * len(shape), shape)
+
+    with use_rules(rules):  # the cache's heads as replicated under these rules
+        return _map_cache(shard, _cache_shapes(cfg, batch, max_seq))
 
 
 def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor, cache: dict):

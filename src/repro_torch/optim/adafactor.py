@@ -14,6 +14,8 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import zeros as dtensor_zeros
 
 from ..tree import tree_map
 from .adamw import _step_device
@@ -35,15 +37,30 @@ def make_adafactor(
         return (len(shape) >= 2 and shape[-1] >= min_dim_size_to_factor
                 and shape[-2] >= min_dim_size_to_factor)
 
-    def _zeros(shape, like):
-        return torch.zeros(shape, dtype=torch.float32, device=like.device)
+    def _moment(p, drop: int | None):
+        """Zeros for ``p``'s second moment, f32, without dim ``drop`` (the
+        factored row or column means) or whole.  A DTensor parameter's
+        moment keeps its layout on the dims that stay, so the
+        preconditioner, their broadcast product, comes out sharded as the
+        parameter is (a replicated moment would make it whole on every rank)."""
+        if drop is None:
+            return torch.zeros_like(p, dtype=torch.float32)
+        drop %= p.ndim
+        shape = p.shape[:drop] + p.shape[drop + 1:]
+        if not isinstance(p, DTensor):
+            return torch.zeros(shape, dtype=torch.float32, device=p.device)
+        placements = [Replicate() if isinstance(pl, Shard) and pl.dim == drop else
+                      Shard(pl.dim - 1) if isinstance(pl, Shard) and pl.dim > drop else pl
+                      for pl in p.placements]
+        return dtensor_zeros(shape, dtype=torch.float32, device_mesh=p.device_mesh,
+                             placements=placements)
 
     def init(params):
         def vr(p):
-            return _zeros(p.shape[:-1] if _factored(p.shape) else p.shape, p)
+            return _moment(p, -1 if _factored(p.shape) else None)
 
         def vc(p):
-            return _zeros(p.shape[:-2] + p.shape[-1:], p) if _factored(p.shape) else None
+            return _moment(p, -2) if _factored(p.shape) else None
 
         step = torch.zeros((), dtype=torch.int32, device=_step_device(params))
         return AdafactorState(step, tree_map(vr, params), tree_map(vc, params))

@@ -46,7 +46,8 @@ def _maybe_dq(x):
 
 
 def _step_device(params) -> torch.device:
-    """Where the step counter lives: beside the parameters."""
+    """Where the step counter lives: beside the parameters (a plain
+    tensor on a DTensor's device, the same on every rank)."""
     leaves = tree_leaves(params)
     return leaves[0].device if leaves else torch.device("cpu")
 
@@ -60,12 +61,11 @@ def make_adamw(
     state_dtype: str | None = None,
 ):
     def init(params):
-        zeros_m = tree_map(lambda p: _maybe_q(torch.zeros(p.shape, dtype=torch.float32,
-                                                          device=p.device), state_dtype, True),
-                           params)
-        zeros_v = tree_map(lambda p: _maybe_q(torch.zeros(p.shape, dtype=torch.float32,
-                                                          device=p.device), state_dtype, False),
-                           params)
+        # zeros_like: a DTensor parameter's moments are laid out as it is
+        zeros_m = tree_map(lambda p: _maybe_q(torch.zeros_like(p, dtype=torch.float32),
+                                              state_dtype, True), params)
+        zeros_v = tree_map(lambda p: _maybe_q(torch.zeros_like(p, dtype=torch.float32),
+                                              state_dtype, False), params)
         master = (tree_map(lambda p: p.detach().to(torch.float32, copy=True), params)
                   if master_dtype == "float32" else None)
         step = torch.zeros((), dtype=torch.int32, device=_step_device(params))

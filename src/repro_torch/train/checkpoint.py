@@ -14,6 +14,14 @@ header descr ``'<V2'``, the raw 16-bit patterns) and read back as a
 16-bit view in the dtype of ``like``'s leaf.  (The JAX package's own
 ``restore`` cannot cast such a leaf back; the port can.)  Nothing here
 needs ``ml_dtypes``.
+
+Sharded trees: ``save`` writes each DTensor leaf whole (``full_tensor()``,
+a collective every rank joins), rank 0 writes the files, and every rank
+waits at a barrier for a synchronous save.  The on-disk format does not
+change, so a checkpoint written sharded restores unsharded and the other
+way round, and interchanges with the JAX package's.  ``restore(...,
+shardings=)`` lays each leaf out by a tree of (mesh, placements) (the
+reference's elastic restore onto another mesh).
 """
 
 from __future__ import annotations
@@ -26,8 +34,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
-from ..tree import tree_leaves, tree_unflatten
+from ..tree import tree_leaves, tree_map, tree_unflatten
 
 _BF16_DESCR = "<V2"  # how numpy writes ml_dtypes' bfloat16 (what the JAX package saves)
 
@@ -36,6 +46,8 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     """A host copy of a leaf, never a view of it: the caller goes on
     updating parameters in place.  A bf16 leaf as its 16-bit patterns."""
     t = t.detach()
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
     return t.to("cpu", copy=True).numpy()
@@ -58,6 +70,11 @@ def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3, async_: bool = F
     leaves = tree_leaves(tree)
     bf16 = [x.dtype == torch.bfloat16 for x in leaves]
     host = [_to_host(x) for x in leaves]
+    sharded = any(isinstance(x, DTensor) for x in leaves)
+    if sharded and dist.get_rank() != 0:  # rank 0 writes; the others wait for it
+        if not async_:
+            dist.barrier()
+        return None
 
     def _write():
         final = os.path.join(ckpt_dir, f"step_{step:08d}")
@@ -80,6 +97,8 @@ def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3, async_: bool = F
         t.start()
         return t
     _write()
+    if sharded:
+        dist.barrier()
     return None
 
 
@@ -116,9 +135,12 @@ def _from_host(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return t.to(device=like.device, dtype=like.dtype)
 
 
-def restore(ckpt_dir: str, step: int, like: Any) -> Any:
+def restore(ckpt_dir: str, step: int, like: Any, shardings: Any = None) -> Any:
     """The tree saved at ``step``, in the structure of ``like``, each leaf
-    in the dtype and on the device of ``like``'s leaf."""
+    in the dtype and on the device of ``like``'s leaf; with ``shardings``
+    (a tree of the same structure holding (mesh, placements), or None for
+    a leaf to restore whole) each leaf is laid out on its mesh instead,
+    every rank cutting its own shard from the file."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "MANIFEST.json")) as f:
         manifest = json.load(f)
@@ -128,4 +150,22 @@ def restore(ckpt_dir: str, step: int, like: Any) -> Any:
                          f"expected {len(leaves)}")
     out = [_from_host(np.load(os.path.join(path, n)), lf)
            for n, lf in zip(manifest["leaves"], leaves)]
-    return tree_unflatten(like, out)
+    tree = tree_unflatten(like, out)
+    if shardings is None:
+        return tree
+
+    def place(x, sh):
+        if sh is None:
+            return x
+        mesh, placements = sh
+        return distribute_tensor(x, mesh, list(placements), src_data_rank=None)
+
+    return tree_map(place, tree, shardings)
+
+
+def shardings_of(tree) -> Any:
+    """The (mesh, placements) of each DTensor leaf of ``tree``, None for a
+    plain one: what ``restore(..., shardings=)`` takes to lay a checkpoint
+    out as ``tree`` is."""
+    return tree_map(lambda x: (x.device_mesh, tuple(x.placements)) if isinstance(x, DTensor)
+                    else None, tree)

@@ -11,10 +11,17 @@ step updates the parameters and the optimizer state in place (the JAX
 step donates them); the microbatches accumulate into f32 buffers,
 divided by ``microbatch`` as the reference divides them.
 
+Under active sharding rules (``repro_torch.distributed.use_rules``) the
+parameters, optimizer state and batch are DTensors (``models.shard_params``,
+batches by ``MeshRules.distribute(x, "batch", ...)``): the same step
+runs sharded, the f32 gradient accumulator pinned to the parameters'
+layout (``constrain_like_params``), and each microbatch cut from the
+batch gathered along its rows, then laid out on the batch dims again.
+
 The ``Trainer`` adds checkpoint/restart (async, atomic), deterministic
 data resume (the step counter is the data cursor), crash recovery with
-bounded retries, and a straggler watchdog.  Sharding (the JAX package's
-mesh rules) has no counterpart on one device.
+bounded retries, and a straggler watchdog.  With ``rules`` it lays every
+batch out on the mesh; checkpoints are written whole by rank 0.
 """
 
 from __future__ import annotations
@@ -23,10 +30,14 @@ import logging
 import time
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate
 
 from .._device import resolve_device
 from ..configs.base import ArchConfig, RunConfig
-from ..models import loss_fn
+from ..distributed import constrain, current_rules
+from ..distributed.sharding import like
+from ..models import loss_fn, param_specs
 from ..optim import lr_schedule, make_optimizer
 from ..tree import tree_leaves, tree_unflatten
 from . import checkpoint
@@ -56,6 +67,24 @@ def make_train_step(cfg: ArchConfig, run_cfg: RunConfig, device=None):
     takes parameters and a batch of tensors on that device."""
     dev = resolve_device(device)
     opt_init, opt_update = make_optimizer(run_cfg)
+    spec_leaves = tree_leaves(param_specs(cfg))
+
+    def constrain_like_params(leaves):
+        """Pin param-shaped leaves (the f32 gradient accumulator) to the
+        parameters' layout; a no-op without rules."""
+        if current_rules() is None:
+            return leaves
+        return [constrain(x, *s.axes) for x, s in zip(leaves, spec_leaves)]
+
+    def micro_of(v, mb, i):
+        """Microbatch ``i`` of ``mb``: rows [i*B/mb, (i+1)*B/mb) of ``v``.
+        A DTensor batch is gathered along its rows first and the slice laid
+        out on the batch dims again (the tokens are small)."""
+        if isinstance(v, DTensor):
+            whole = v.redistribute(v.device_mesh, [Replicate()] * v.device_mesh.ndim)
+            part = whole.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
+            return constrain(part, "batch", *([None] * (v.ndim - 1)))
+        return v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
 
     def grads_of(params, batch):
         leaves = tree_leaves(params)
@@ -76,15 +105,16 @@ def make_train_step(cfg: ArchConfig, run_cfg: RunConfig, device=None):
                 raise ValueError(f"batch[{k!r}] is on {v.device}, the step runs on {dev}")
         mb = run_cfg.microbatch
         if mb > 1:
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                   for p in tree_leaves(params)]
-            loss = torch.zeros((), dtype=torch.float32, device=dev)
+            acc = constrain_like_params([torch.zeros_like(p, dtype=torch.float32)
+                                         for p in tree_leaves(params)])
+            loss = None
             for i in range(mb):
-                micro = {k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
-                         for k, v in batch.items()}
+                micro = {k: micro_of(v, mb, i) for k, v in batch.items()}
                 l_i, _, g_i = grads_of(params, micro)
                 for a, g in zip(acc, g_i):
                     a.add_(g.to(torch.float32) / mb)
+                if loss is None:
+                    loss = like(torch.zeros((), dtype=torch.float32, device=dev), l_i)
                 loss = loss + l_i / mb
             grads = acc
         else:
@@ -137,9 +167,9 @@ class Trainer:
         last = checkpoint.latest_step(run_cfg.checkpoint_dir)
         if last is not None:
             log.info("restoring checkpoint step %d", last)
-            state = checkpoint.restore(
-                run_cfg.checkpoint_dir, last, {"p": params, "o": opt_state}
-            )
+            like_tree = {"p": params, "o": opt_state}
+            state = checkpoint.restore(run_cfg.checkpoint_dir, last, like_tree,
+                                       shardings=checkpoint.shardings_of(like_tree))
             params, opt_state, step = state["p"], state["o"], last
         return cls(cfg, run_cfg, pipeline, params, train_step, opt_state, step, device=dev)
 
@@ -170,6 +200,10 @@ class Trainer:
         t0 = time.perf_counter()
         batch = self.pipeline.batch_at(self.step)
         batch = {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
+        rules = current_rules()
+        if rules is not None:  # every rank made the same batch: lay it out
+            batch = {k: rules.distribute(v, "batch", *([None] * (v.ndim - 1)))
+                     for k, v in batch.items()}
         self.params, self.opt_state, metrics = self.train_step(
             self.params, self.opt_state, batch, self.step
         )
@@ -206,10 +240,12 @@ class Trainer:
         # for it (the JAX Trainer does not, and can find none yet)
         if self._save_thread is not None:
             self._save_thread.join()
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()  # rank 0 writes the files: wait for them on every rank
         last = checkpoint.latest_step(self.run_cfg.checkpoint_dir)
         if last is None:
             raise RuntimeError("no checkpoint to restore from")
-        state = checkpoint.restore(
-            self.run_cfg.checkpoint_dir, last, {"p": self.params, "o": self.opt_state}
-        )
+        like_tree = {"p": self.params, "o": self.opt_state}
+        state = checkpoint.restore(self.run_cfg.checkpoint_dir, last, like_tree,
+                                   shardings=checkpoint.shardings_of(like_tree))
         self.params, self.opt_state, self.step = state["p"], state["o"], last

@@ -208,3 +208,48 @@ def test_no_card_means_raise_for_the_facade_cosim_and_moe(no_card):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(moe_cfg, moe_params, batch_size=1, max_seq=8)
     assert Engine(moe_cfg, moe_params, 1, 8, device="cpu").device == torch.device("cpu")
+
+
+SHARDING_MODULES = ("repro_torch.distributed", "repro_torch.distributed.sharding",
+                    "repro_torch.launch.mesh", "repro_torch.launch.specs",
+                    "repro_torch.launch.hlo_analysis", "repro_torch.launch.roofline",
+                    "repro_torch.launch.dryrun")
+
+
+def test_sharding_and_launch_modules_import_without_jax_a_kernel_or_a_process_group():
+    """The seven modules of the sharded path and the launch tools import
+    without JAX or ``repro``, load no kernel and start no process or
+    process group; and a DTensor that reaches a kernel wrapper is refused
+    (it has to go through ``local_map``), not run on its plain version."""
+    assert set(SHARDING_MODULES) <= set(_modules())
+    res = _run(
+        "import importlib, json, subprocess, sys\n"
+        "def refuse(*a, **k): raise AssertionError('a process was started on import')\n"
+        "subprocess.Popen = refuse\n"
+        f"for m in {SHARDING_MODULES!r}: importlib.import_module(m)\n"
+        "import torch, torch.distributed as dist\n"
+        "from repro_torch.kernels import _build\n"
+        "out = {'group': dist.is_initialized(), 'loaded': sorted(_build._loaded),\n"
+        "       'bad': sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))}\n"
+        "from repro_torch.launch.dryrun import fake_group\n"
+        "from torch.distributed.tensor import Replicate, distribute_tensor\n"
+        "from repro_torch.kernels.flash_attention import flash_attention\n"
+        "from repro_torch.kernels.ssm_scan import selective_scan\n"
+        "from repro_torch.launch.mesh import make_test_mesh\n"
+        "refused = []\n"
+        "with fake_group(1):\n"
+        "    mesh = make_test_mesh(1, 1, device_type='cpu')\n"
+        "    d = lambda *s: distribute_tensor(torch.ones(s), mesh, [Replicate()] * 2)\n"
+        "    for call in (lambda: flash_attention(d(1, 2, 3, 4), d(1, 2, 3, 4), d(1, 2, 3, 4)),\n"
+        "                 lambda: selective_scan(d(1, 2, 3), d(1, 2, 4), d(1, 2, 4), d(1, 2, 3),\n"
+        "                                        d(3, 4), d(1, 3, 4))):\n"
+        "        try:\n"
+        "            call()\n"
+        "        except TypeError as e:\n"
+        "            refused.append('local_map' in str(e))\n"
+        "out['refused'] = refused\n"
+        "out['group_after'] = dist.is_initialized()\n"
+        "print(json.dumps(out))\n"
+    )
+    assert res == {"group": False, "loaded": [], "bad": [], "refused": [True, True],
+                   "group_after": False}
