@@ -4,7 +4,7 @@
     python3 chip_smoke.py            (from the repository root)
 
 Builds every CUDA kernel of the port from the sources in the checkout,
-then runs twenty-seven phases, each of which must pass:
+then runs twenty-eight phases, each of which must pass:
 
 1. probe    the card (``nvidia-smi`` name and power limit), CUDA and nvcc
             versions, ptxas resource usage of each kernel, and that
@@ -280,6 +280,26 @@ then runs twenty-seven phases, each of which must pass:
             host), awaited here within its time limit, its eight rows
             printed, each "ok".  Phases 26-27 must leave allocated memory within
             1 MiB of its level before phase 26.
+28. examples the twins of the JAX package's examples, each driven
+            through its ``main`` on the card at its defaults, counted:
+            ``quickstart`` (``x @ M`` through exactly one adder-graph
+            launch, whose output equals its plain version's on the same
+            tensor); ``serve_lm`` (smollm-135m's smoke model trained 60
+            steps and serving 4 requests, then again with ``--arch
+            falcon-mamba-7b``: the loss falls, flash (scan) forward and
+            backward launches as layers x steps say and no other kernel,
+            the served tokens equal to the same engine's with every op
+            swapped for its plain version, or held by phase 8's
+            teacher-forced rule at f32); ``train_lm_resumable`` (a failure
+            at step 90 survived, the second Trainer back at step 120 and
+            on to 200, flash launches for every step run, the parameters
+            at step 120 bit for bit those of an uninterrupted run).  For
+            each LM twin the first step's gradients on fresh weights and
+            batch 0, kernel path against plain path, leaf by leaf within
+            ``BWD_REL["float32"]`` (the backward kernels at the twins'
+            shapes: f32 flash at head_dim 16, the scan at state 8).  The
+            phase must leave allocated memory within 1 MiB of its level
+            before it (cuBLAS workspaces cleared on both sides).
 Phases 17-21 each start on an emptied card (what stays allocated is
 printed) and print the decode step's device time by kernel, launches,
 idle share and bytes bound.  Around phase 19 the allocator's snapshot
@@ -1178,7 +1198,8 @@ def agreement(torch, kernel_logits, kernel_tokens, plain_logits, atol) -> dict:
         n_flip += int(flip.sum())
         n_far += int((flip & ~close).sum())
         n_close += int(close.sum())
-    return {"atol": atol, "max_abs_diff": worst, "n_picks": len(kernel_tokens) * SERVE_BATCH,
+    return {"atol": atol, "max_abs_diff": worst,
+            "n_picks": sum(int(t.numel()) for t in kernel_tokens),
             "n_flips": n_flip, "n_far_flips": n_far, "n_close_picks": n_close}
 
 
@@ -2867,6 +2888,16 @@ def scan_bwd_row(torch, args, info) -> dict:
     return row
 
 
+def train_launches(cfg, steps: int) -> dict:
+    """Kernel launches of ``steps`` train steps of ``cfg``: each attention
+    or Mamba layer's forward kernel once, and again where remat recomputes
+    it in the backward, and its backward kernel once."""
+    fwd = expected_launches(cfg)["prefill"]
+    runs = 1 if cfg.remat == "none" else 2
+    return {**{k: runs * n * steps for k, n in fwd.items()},
+            **{f"{k}_bwd": n * steps for k, n in fwd.items()}}
+
+
 def expect_train_launches(counts: dict, want: dict, what: str) -> None:
     got = {k: v for k, v in counts.items() if v}
     check(got == want, f"{what}: launches {got}, want {want}")
@@ -2933,9 +2964,7 @@ def train_smollm(torch, np, dev, info) -> dict:
         out["run_s"] = time.perf_counter() - t0
         counts = read_counts()
         out["launches"] = {k: v for k, v in counts.items() if v}
-        expect_train_launches(counts, {"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
-                                       "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS},
-                              "smollm-135m's training")
+        expect_train_launches(counts, train_launches(cfg, TRAIN_STEPS), "smollm-135m's training")
         out["losses"] = [float(x) for x in losses]
         check(all(np.isfinite(out["losses"])), f"smollm-135m: losses {out['losses']}")
         first, last = np.mean(out["losses"][:5]), np.mean(out["losses"][-5:])
@@ -2980,10 +3009,7 @@ def train_smollm(torch, np, dev, info) -> dict:
                 torch, cfg, step, trainer.params, trainer.opt_state, long_pipe, LONG_STEPS,
                 trainer.step, [(fa_ops, "flash_attention_bwd_cuda")])
         n_long = LONG_STEPS + 3  # two warm-up steps, the timed ones and the profiled one
-        expect_train_launches(read_counts(),
-                              {"flash_attention": 2 * cfg.n_layers * n_long,
-                               "flash_attention_bwd": cfg.n_layers * n_long},
-                              "the timed stretch")
+        expect_train_launches(read_counts(), train_launches(cfg, n_long), "the timed stretch")
         flops = train_flops(cfg, LONG_SEQ, LONG_BATCH)
         out["long"].update({"model_flops": flops,
                             "mfu": flops / (out["long"]["step_ms"] / 1e3) / BF16_FLOPS_PER_S,
@@ -3055,9 +3081,7 @@ def train_falcon(torch, np, dev, info) -> dict:
     out["profile"] = train_profile(
         torch, lambda: step(params, opt_state, batches[-1], FALCON_STEPS), out["step_ms"],
         [(ss_ops, "selective_scan_bwd_cuda")])
-    expect_train_launches(counts, {"ssm_scan": 2 * cfg.n_layers * FALCON_STEPS,
-                                   "ssm_scan_bwd": cfg.n_layers * FALCON_STEPS},
-                          "falcon-mamba-7b's training")
+    expect_train_launches(counts, train_launches(cfg, FALCON_STEPS), "falcon-mamba-7b's training")
     check(by_kernel == {"decode": 0, "prefill": 2 * cfg.n_layers * FALCON_STEPS},
           f"falcon-mamba-7b's training took the scan kernels {by_kernel}")
     check(isinstance(opt_state.m["embed"], Quantized)
@@ -3526,6 +3550,202 @@ def finish_dryrun(runs: list, started: float) -> dict:
             "wall_s": time.perf_counter() - started}
 
 
+# ----------------------------------------------------------------------
+# 28. the examples' twins
+# ----------------------------------------------------------------------
+def twin_grads(torch, cfg, params, batch, arch: str) -> dict:
+    """First-step gradients of a twin's model on its first batch: the
+    kernel path (each forward kernel once a layer, again under remat, and
+    its backward kernel once a layer) against the plain path, leaf by leaf
+    within ``BWD_REL["float32"]`` of the leaf's largest element: the
+    backward kernels at the twins' own shapes (the f32 flash backward at
+    head_dim 16 with 2 KV heads, the scan backward at state 8)."""
+    path = lm_paths()[arch]
+    moved = ([("ssm", n) for n in ("in_proj", "a_log", "x_proj", "dt_proj", "conv")]
+             if path["ops"][0]["kernel"] == "ssm_scan"
+             else [("attn", n) for n in ("wq", "wk", "wv", "wo")])
+    out = grads_against_plain(torch, cfg, params, batch, path, BWD_REL["float32"], True, moved)
+    expect_train_launches(out["launches"], train_launches(cfg, 1),
+                          f"{cfg.name}'s first-step gradients")
+    out["launches"] = {k: v for k, v in out["launches"].items() if v}
+    return out
+
+
+def quickstart_twin(torch) -> dict:
+    """quickstart on the card: the solve, ``x @ M`` through the adder-graph
+    kernel (one launch, its output equal to its plain version's on the
+    same tensor), pipelining and Verilog."""
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels.adder_graph import ops as ag_ops
+    from repro_torch.kernels.adder_graph.ref import adder_graph_ref
+
+    kernel = ag_ops.adder_graph_cuda
+    calls = []
+
+    def recording(tables, x):
+        y = kernel(tables, x)
+        calls.append((tables, x, y))
+        return y
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with swapped([(ag_ops, "adder_graph_cuda", recording)]):
+        out = quickstart.main(["--device", "cuda"])
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    check(out["route"] == "CUDA adder-graph kernel", f"quickstart took the route {out['route']}")
+    check(counts["adder_graph"] == 1 and len(calls) == 1,
+          f"quickstart: {counts['adder_graph']} adder-graph launches, want 1")
+    check_only(counts, "adder_graph", "quickstart")
+    tables, x, y = calls[0]
+    check(x.is_cuda and torch.equal(y, adder_graph_ref(tables, x)),
+          "quickstart: the kernel's output differs from its plain version's")
+    return {**out, "launches": {"adder_graph": counts["adder_graph"]}, "wall_s": wall_s,
+            "kernel_vs_plain": "equal", "shape": list(x.shape)}
+
+
+def serve_lm_twin(torch, np, dev, arch: str) -> dict:
+    """serve_lm on the card at its defaults (``arch`` aside): the loss
+    falls, the flash (or scan) forward and backward kernels are launched
+    as many times as layers x steps say and nothing else, and the served
+    tokens equal those of the same engine with every op swapped for its
+    plain version, or are held to it by phase 8's teacher-forced rule;
+    the first step's gradients are held to the plain path's
+    (``twin_grads``)."""
+    from repro_torch.examples import serve_lm
+    from repro_torch.models import init_params
+
+    argv = ["--device", "cuda"] + ([] if arch == "smollm-135m" else ["--arch", arch])
+    reset_counts()
+    t0 = time.perf_counter()
+    out = serve_lm.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    by_kernel = read_kernel_counts("ssm_scan")
+    cfg, params = out.pop("config"), out.pop("params")
+    steps, served = len(out["losses"]), out.pop("tokens_out")
+    per = expected_launches(cfg)
+    n_decode = max(map(len, served)) - 1
+    # the engine's warm-up decode step before its capture, prefill, then
+    # one replay per decode step
+    serving = {k: per["prefill"][k] + (1 + n_decode) * n for k, n in per["decode"].items()}
+    trained = train_launches(cfg, steps)
+    want = {k: trained.get(k, 0) + serving.get(k, 0) for k in {*trained, *serving}}
+    expect_train_launches(counts, want, f"serve_lm --arch {arch}")
+    if "ssm_scan" in per["decode"]:
+        n = per["decode"]["ssm_scan"]
+        scan = {"prefill": trained["ssm_scan"] + n, "decode": (1 + n_decode) * n}
+        check(by_kernel == scan, f"serve_lm {arch}: the scan's kernels took {by_kernel}, "
+                                 f"want {scan}")
+    losses = out["losses"]
+    check(all(np.isfinite(losses)) and np.mean(losses[-5:]) < np.mean(losses[:5]),
+          f"serve_lm {arch}: the loss did not fall ({losses[:5]} ... {losses[-5:]})")
+    check([len(t) for t in served] == [8, 12, 16, 20], f"serve_lm {arch}: served {served}")
+    pipe = serve_lm.data(cfg)
+    first = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(0).items()}
+    grads = twin_grads(torch, cfg, init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                               device=dev), first, arch)
+    log(f"serve_lm {arch}: first-step gradients: " + json.dumps(grads))
+
+    # the same engine on the plain path (every op swapped), and both paths
+    # teacher-forced on the served tokens
+    path = lm_paths()[arch]
+    with swapped(op_swaps(path, "plain")):
+        plain = serve_lm.serve(cfg, params, pipe, dev)
+    plain_tokens = [r.out_tokens for r in plain["requests"]]
+    prompts = np.stack([np.asarray(p, np.int64) for p in plain["prompts"]])
+    toks = [torch.tensor([t[i] if i < len(t) else 0 for t in served], device=dev)
+            for i in range(n_decode + 1)]
+    kern = teacher_forced(torch, cfg, params, prompts, dev, toks, [], {})
+    ref = teacher_forced(torch, cfg, params, prompts, dev, toks, op_swaps(path, "plain"), {})
+    agree = agreement(torch, kern, [lg.argmax(-1) for lg in kern], ref, LM_F32_ATOL)
+    flips = [(i, j) for i, (a, b) in enumerate(zip(served, plain_tokens))
+             for j, (x, y) in enumerate(zip(a, b)) if x != y]
+    log(f"serve_lm {arch}: served tokens {'equal' if not flips else 'differ from'} the plain "
+        f"path's{'' if not flips else ' at (request, token) ' + str(flips)}; teacher-forced, "
+        f"f32: " + json.dumps(agree))
+    if flips:
+        check(agree["n_far_flips"] == 0 and agree["max_abs_diff"] <= LM_F32_ATOL,
+              f"serve_lm {arch}: kernel vs plain path beyond phase 8's rule: {agree}")
+    del params, kern, ref
+    return {**out, "launches": {k: v for k, v in counts.items() if v},
+            "scan_kernels": by_kernel if "ssm_scan" in per["decode"] else None,
+            "layers": cfg.n_layers, "train_steps": steps, "decode_steps": n_decode,
+            "tokens_equal_plain": not flips, "flips": flips, "kernel_vs_plain": agree,
+            "grads": grads, "wall_s": wall_s}
+
+
+def train_resumable_twin(torch, np, dev) -> dict:
+    """train_lm_resumable on the card at its defaults: one failure
+    survived, the second Trainer back at step 120 and on to 200, the flash
+    launches of every step run (the 40 steps redone from the step-50
+    checkpoint included) and nothing else, the first step's gradients held
+    to the plain path's (``twin_grads``), and the parameters at step 120
+    equal to an uninterrupted 120-step run's bit for bit."""
+    import shutil
+    import tempfile
+
+    from repro_torch.examples import train_lm_resumable as ex
+    from repro_torch.train import Trainer
+    from repro_torch.tree import tree_leaves
+
+    steps, fail_at, resume_steps, every = 120, 90, 80, 50
+    reset_counts()
+    t0 = time.perf_counter()
+    out = ex.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    got = out.pop("phase1_params")
+    check((out["failures_survived"], out["phase1_step"], out["resumed_at"], out["phase2_step"])
+          == (1, steps, steps, steps + resume_steps), f"train_lm_resumable: {out}")
+    ran = steps + fail_at % every + resume_steps
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resumable_")
+    try:
+        cfg, run_cfg, pipe, init_fn, step_fn, opt_init = ex.setup(dev, tmp, every)
+        expect_train_launches(counts, train_launches(cfg, ran), "train_lm_resumable")
+        first = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(0).items()}
+        grads = twin_grads(torch, cfg, init_fn(), first, "stablelm-3b")
+        log("train_lm_resumable: first-step gradients: " + json.dumps(grads))
+        losses = []
+
+        def recording_step(*a):
+            res = step_fn(*a)
+            losses.append(float(res[2]["loss"]))
+            return res
+
+        ref = Trainer.resume_or_init(cfg, run_cfg, pipe, init_fn, recording_step, opt_init,
+                                     device=dev)
+        ref.run(steps)
+        want = tree_leaves(ref.params)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bitwise = len(want) == len(tree_leaves(got)) and all(map(torch.equal, want, tree_leaves(got)))
+    check(bitwise, "train_lm_resumable: the parameters at step 120 differ from an "
+                   "uninterrupted run's")
+    check(np.mean(losses[-5:]) < np.mean(losses[:5]) and out["phase2_loss"] < losses[0],
+          f"train_lm_resumable: the loss did not fall ({losses[0]} -> {out['phase1_loss']} -> "
+          f"{out['phase2_loss']})")
+    del got, want, ref
+    return {**out, "steps_run": ran, "launches": {k: v for k, v in counts.items() if v},
+            "bitwise_at_120": bitwise, "uninterrupted_losses": [losses[0], losses[-1]],
+            "grads": grads, "wall_s": wall_s}
+
+
+def examples_phase(torch, np, dev) -> dict:
+    """Phase 28: each twin of the examples driven through its ``main`` on
+    the card, its launch counts zeroed just before and read just after."""
+    out = {"quickstart": quickstart_twin(torch)}
+    log("quickstart: " + json.dumps(out["quickstart"]))
+    for arch in ("smollm-135m", "falcon-mamba-7b"):
+        out[f"serve_lm {arch}"] = serve_lm_twin(torch, np, dev, arch)
+        log(f"serve_lm {arch}: " + json.dumps(out[f"serve_lm {arch}"]))
+    out["train_lm_resumable"] = train_resumable_twin(torch, np, dev)
+    log("train_lm_resumable: " + json.dumps(out["train_lm_resumable"]))
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3908,6 +4128,34 @@ def main() -> int:
         f"before phase 26")
     check(abs(left) <= SHARD_LEFT_BYTES,
           f"phases 26-27 left {left} bytes allocated (at most {SHARD_LEFT_BYTES})")
+
+    log("== 28. the examples' twins on the card")
+    # PyTorch keeps a cuBLAS workspace for each stream a product ran on
+    # (each engine captures on a stream from its pool): cleared on both
+    # sides of the phase, as the allocator's cache is emptied
+    clear_workspaces = getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)
+    gc.collect()
+    clear_workspaces()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t28 = time.perf_counter()
+    ex = examples_phase(torch, np, dev)
+    entries = {e["name"]: e for e in kernels["kernels"]}
+    for name, entry in entries.items():
+        runs = {twin: r["launches"][name] for twin, r in ex.items() if r["launches"].get(name)}
+        if runs:
+            entry["launches_examples"] = runs
+    del ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    with_workspaces = torch.cuda.memory_allocated() - base
+    clear_workspaces()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - base
+    log(f"phase 28: {time.perf_counter() - t28:.1f} s; allocated {left} bytes more than "
+        f"before it ({with_workspaces} before the cuBLAS workspaces were cleared)")
+    check(abs(left) <= SHARD_LEFT_BYTES,
+          f"phase 28 left {left} bytes allocated (at most {SHARD_LEFT_BYTES})")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(info["nvidia_smi"])

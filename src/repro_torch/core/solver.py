@@ -370,18 +370,34 @@ def config_solve_key(
     return solve_key(m_int, qint_in, depth_in, kind=kind, solver=cfg.digest())
 
 
+def default_solve_key(
+    m_int, qint_in, depth_in, dc: int, kind: str = "da",
+    engine: str | None = None,
+) -> str:
+    """Deprecated shim: cache key for a solve with every option at its
+    :class:`SolverConfig` default (``engine`` optionally overridden).
+    Use :func:`config_solve_key`."""
+    cfg = SolverConfig(dc=dc) if engine is None else SolverConfig(dc=dc, engine=engine)
+    return config_solve_key(m_int, qint_in, depth_in, cfg, kind=kind)
+
+
 def solve_task(payload) -> "Solution":
     """One CMVM solve from a plain-tuple payload
     ``(w_int, qin, strategy, solver_config_dict)`` — the compiler's
-    deferred-solve unit.
+    deferred-solve unit.  Legacy ``(w_int, qin, strategy, dc[, engine])``
+    tuples are still accepted.
 
     Solve-pool workers (the compiler's GIL-releasing thread pool, see
     ``repro_torch.nn.compiler``) touch only numpy-land code through it;
     the payload stays picklable for callers that want to farm solves
     across processes.
     """
-    w_int, qin, strategy, opts = payload
-    cfg = SolverConfig.from_dict(opts)
+    w_int, qin, strategy, opts = payload[:4]
+    if isinstance(opts, dict):
+        cfg = SolverConfig.from_dict(opts)
+    else:  # legacy payload: opts is dc, optional 5th element is engine
+        engine = payload[4] if len(payload) > 4 else "batch"
+        cfg = SolverConfig(dc=opts, engine=engine)
     if strategy == "latency":
         return naive_adder_tree(w_int, qint_in=qin)
     return _solve_cmvm(w_int, qin, None, cfg)

@@ -77,6 +77,9 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
             "repro_torch.optim.quantized_state", "repro_torch.data.pipeline",
             "repro_torch.train.checkpoint", "repro_torch.train.train_lib",
             "repro_torch.launch.train", "repro_torch.examples.train_jet_tagger"} <= set(mods)
+    # the twins of the remaining examples
+    assert {f"repro_torch.examples.{m}" for m in (
+        "quickstart", "rtl_codegen", "serve_lm", "train_lm_resumable")} <= set(mods)
     res = _run(
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -194,6 +194,32 @@ def test_solve_key_digest_equal(kind):
     assert jcore.config_solve_key(m, jq, depth, cfg_j) == tcore.config_solve_key(m, tq, depth, cfg_t)
 
 
+@pytest.mark.parametrize("strategy,opts", [
+    ("da", (2,)), ("da", (0,)), ("da", (2, "batch")), ("da", (2, "arena")), ("da", (2, "heap")),
+    ("da", ({"dc": 2, "engine": "heap"},)), ("latency", (2,)),
+], ids=["dc2", "dc0", "dc2-batch", "dc2-arena", "dc2-heap", "dict", "latency"])
+def test_solve_task_legacy_payload_equal(strategy, opts):
+    """``solve_task`` takes the dict payload and the legacy
+    ``(w_int, qin, strategy, dc[, engine])`` tuple as the JAX package does."""
+    m = np.random.default_rng(3).integers(-32, 32, size=(8, 6))
+    a = jcore.solver.solve_task((m, [jcore.QInterval.from_fixed(True, 8, 8)] * 8, strategy, *opts))
+    b = tcore.solver.solve_task((m, [tcore.QInterval.from_fixed(True, 8, 8)] * 8, strategy, *opts))
+    _assert_same_program(a, b)
+    np.testing.assert_array_equal(b.evaluate(np.eye(8, dtype=np.int64)), m)
+
+
+@pytest.mark.parametrize("engine", [None, *ENGINES])
+def test_default_solve_key_equal(engine):
+    m = _matrix(9, 6, seed=5)
+    jq, tq = _qints(jcore, 9, seed=6), _qints(tcore, 9, seed=6)
+    depth = [0, 1, 2] * 3
+    key = tcore.solver.default_solve_key(m, tq, depth, 2, engine=engine)
+    assert key == jcore.solver.default_solve_key(m, jq, depth, 2, engine=engine)
+    cfg = TSolverConfig(dc=2) if engine is None else TSolverConfig(dc=2, engine=engine)
+    assert key == tcore.config_solve_key(m, tq, depth, cfg)
+    assert "default_solve_key" not in tcore.__all__
+
+
 @pytest.mark.parametrize("writer", ["jax", "port"])
 def test_disk_cache_entries_interchange(writer, tmp_path):
     m = _matrix(14, 7, seed=4)
