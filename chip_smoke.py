@@ -4,7 +4,7 @@
     python3 chip_smoke.py            (from the repository root)
 
 Builds every CUDA kernel of the port from the sources in the checkout,
-then runs twenty-eight phases, each of which must pass:
+then runs twenty-nine phases, each of which must pass:
 
 1. probe    the card (``nvidia-smi`` name and power limit), CUDA and nvcc
             versions, ptxas resource usage of each kernel, and that
@@ -60,9 +60,11 @@ then runs twenty-eight phases, each of which must pass:
             decode logits within 1e-4 (f32), with n_layers x (1 + decode
             steps) kernel launches;
 8. serve    the LM main path at full width: smollm-135m (30 layers,
-            d_model 576, 9:3 heads, vocab 49152, bf16) with the port's own
-            random weights (seed 0; the repository ships no checkpoint)
-            in ``Engine(batch_size=8, max_seq=512)``, which captures its
+            d_model 576, 9:3 heads, vocab 49152, bf16) with random
+            weights, the JAX package's of ``PRNGKey(0)`` drawn on the card
+            by the threefry kernel (the repository ships no checkpoint;
+            the draw counted: phase 29) in ``Engine(batch_size=8,
+            max_seq=512)``, which captures its
             decode step as a CUDA graph, serves 8 requests of 128-token
             prompts and 64 new tokens.  Launch counts are zeroed just
             before and read just after (30 x 64 flash launches: prefill
@@ -104,8 +106,8 @@ then runs twenty-eight phases, each of which must pass:
             decode steps) scan launches;
 11. serve   the SSM main path at full width: falcon-mamba-7b (64 Mamba-1
             layers, d_model 4096, d_inner 8192, state 16, vocab 65024,
-            bf16, 7,272,140,800 parameters) with the port's own random
-            weights (seed 0, drawn on the card) in ``Engine(batch_size=8,
+            bf16, 7,272,140,800 parameters) with random weights
+            (``PRNGKey(0)``, drawn on the card) in ``Engine(batch_size=8,
             max_seq=512)`` serves 8 requests of 128-token prompts and 64
             new tokens through its decode graph, as phase 8 does, counted
             (64 x 64 scan launches, no other kernel: 64 on the prefill
@@ -239,7 +241,7 @@ then runs twenty-eight phases, each of which must pass:
 24. train   falcon-mamba-7b at full width cut to 8 of its 64 layers
             (1,375,113,216 parameters): first-step gradients of an f32 copy
             against the plain path within 1e-4 of the largest element, and
-            in_proj, a_log, x_proj, dt_proj and conv non-zero; 10 steps of
+            in_proj, a_log, x_proj, dt_proj and conv non-zero; 20 steps of
             ``make_train_step`` with int8 moments (8 x 2 scan forward, all
             on the prefill kernel, and 8 backward launches a step), loss
             falling; the scan backward at the main path's inputs timed
@@ -299,7 +301,29 @@ then runs twenty-eight phases, each of which must pass:
             ``BWD_REL["float32"]`` (the backward kernels at the twins'
             shapes: f32 flash at head_dim 16, the scan at state 8).  The
             phase must leave allocated memory within 1 MiB of its level
-            before it (cuBLAS workspaces cleared on both sides).
+            before it (cuBLAS workspaces cleared on both sides);
+29. prng    the threefry kernel (``kernels/prng``, the port of the
+            JAX package's ``jax.random`` draw) against its plain version,
+            both on the card: bits and uniforms exactly, normals (f32,
+            scaled) within 4 ulp and in bf16 equal but for one-ulp
+            roundings, at odd shapes and windows of 1 to 4 merged dims,
+            across the count's high word; its device time per call (graph
+            replays) beside its bound and the plain version's at the
+            largest launch of qwen3-moe-30b-a3b's init; every served
+            init of phases 8-21 (each LM path starts with
+            ``init_params(cfg, PRNGKey(0))`` on the card, its launches
+            zeroed before and read after: one a normal leaf, one a period
+            slice of a stacked leaf, and no other kernel); in a process of
+            its own, rank 0 of a fake 256-rank group over the production
+            16x16 mesh draws its 8.16 GB shard of kimi-k2-1t-a32b
+            (``init_params(..., shardings=)``) with the card's peak within
+            one chunk of the shard, 10^6 sampled elements against the
+            plain version at the same global indices, and one launch over
+            the shard's largest leaf (1,343 M elements) timed beside its
+            bound.
+Phases 23 and 28 draw parameters inside their counted runs (the
+Trainer's and the examples' inits): their launches include the threefry
+kernel's; phase 26 draws its sharded parameters through ``shardings=``.
 Phases 17-21 each start on an emptied card (what stays allocated is
 printed) and print the decode step's device time by kernel, launches,
 idle share and bytes bound.  Around phase 19 the allocator's snapshot
@@ -321,6 +345,7 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -549,12 +574,14 @@ def launch_counters() -> dict:
     driven with all of them zeroed just before and read just after."""
     from repro_torch.kernels.adder_graph import kernel as ag_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.prng import kernel as prng_kernel
     from repro_torch.kernels.quant_matmul import kernel as qm_kernel
     from repro_torch.kernels.ssm_scan import kernel as ss_kernel
 
     return {"adder_graph": ag_kernel.launches, "flash_attention": fa_kernel.launches,
             "ssm_scan": ss_kernel.launches, "quant_matmul": qm_kernel.launches,
-            "flash_attention_bwd": fa_kernel.bwd_launches, "ssm_scan_bwd": ss_kernel.bwd_launches}
+            "flash_attention_bwd": fa_kernel.bwd_launches, "ssm_scan_bwd": ss_kernel.bwd_launches,
+            "prng": prng_kernel.launches}
 
 
 def kernel_counters() -> dict:
@@ -639,22 +666,28 @@ def graph_ms(torch, fn, calls: int = 20, replays: int = 20) -> float:
 PROFILE_TRIES = 3  # a trace with no device time at all is taken again, up to this many times
 
 
-def profile_once(torch, fn, key: str, keys=()) -> dict:
+def profile_once(torch, fn, key: str, keys=(), expect=None) -> dict:
     """One call of ``fn`` under the profiler (ending in a synchronise): the
     device time and launches of all kernels and of those whose profiler
     name contains ``key`` (and, under ``by_key``, each of ``keys``), device
     time by kernel, and the host ops by self CPU time.  Kernels launched
     by a CUDA-graph replay are listed as kernels too.  Now and then the
     profiler returns a trace with no device time in it (seen in a decode
-    replay and in a train step, not reproduced on demand): ``fn`` is then
-    called and profiled again, up to ``PROFILE_TRIES`` calls in all, and
-    ``tries`` says how many it took."""
+    replay and in a train step, not reproduced on demand), or one that
+    lacks a kernel of a graph replay (13 of jamba's 14 scan launches, seen
+    twice, one replay each): ``fn`` is then called and profiled again,
+    up to ``PROFILE_TRIES`` calls in all, and ``tries`` says how many it
+    took.  ``expect`` (a key of ``keys`` -> launches), where given, is what
+    one call launches; the caller still checks the last trace's counts."""
     for tries in range(1, PROFILE_TRIES + 1):
         out = _profile_call(torch, fn, key, keys)
         out["tries"] = tries
-        if out["all_ms"] is not None:
+        short = {k: out["by_key"][k]["launches"] for k, n in (expect or {}).items()
+                 if out["by_key"][k]["launches"] != n}
+        if out["all_ms"] is not None and not short:
             break
-        log(f"the profiler showed no device time (try {tries} of {PROFILE_TRIES})")
+        log(f"the profiler showed no device time or other launches than one call makes "
+            f"({short}; try {tries} of {PROFILE_TRIES})")
     return out
 
 
@@ -1008,8 +1041,8 @@ def lm_paths() -> dict:
     reaches it, the plain version that replaces it on the plain path and
     another correct plain version, and which calls of the op to keep for
     timing: name -> (step, index of the call within the step), step 0
-    being prefill), the config served (jamba's cut), where the weights are
-    drawn, and how the path is held to its plain path."""
+    being prefill), the config served (jamba's cut), and how the path is
+    held to its plain path."""
     from repro_torch import configs
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
@@ -1028,11 +1061,11 @@ def lm_paths() -> dict:
         "capture": {"prefill": (0, 0), "decode": (1, 0)},
     }
     whisper = configs.get("whisper-base")
-    dense = {"ops": [flash], "init_on_card": True, "f32_atol": None, "alt": False,
+    dense = {"ops": [flash], "f32_atol": None, "alt": False,
              "moe": False, "n_layers": None, "cut": None}
     return {
-        # 0.3 GB: drawn on the host, as phase 8 always has
-        "smollm-135m": {**dense, "init_on_card": False},
+        # 0.3 GB of bf16 weights
+        "smollm-135m": dense,
         # 5.6 GB of bf16 weights (head_dim 80)
         "stablelm-3b": dense,
         # 61 GB of bf16 weights (128 experts, head_dim 128, GQA 32:4): held by
@@ -1409,22 +1442,35 @@ def serve_lm(torch, np, dev, arch: str) -> dict:
     the plain path and time it.  Returns what the kernels line and PERF.md
     need."""
     from repro_torch.models import init_params, prefill
+    from repro_torch.models.transformer import init_launches
+    from repro_torch.random import PRNGKey
     from repro_torch.serve import Engine
+    from repro_torch.tree import tree_leaves
 
     path = lm_paths()[arch]
     ops = path["ops"]
     cfg = path_config(arch, path)
     want = expected_launches(cfg)
     kernels = sorted(want["decode"])
+    # the path starts with its parameters: drawn on the card by the
+    # threefry kernel, counted
+    reset_counts()
     t0 = time.perf_counter()
-    gen = torch.Generator(dev if path["init_on_card"] else "cpu").manual_seed(0)
-    params = init_params(cfg, gen, device=dev)
+    params = init_params(cfg, PRNGKey(0), device=dev)
+    torch.cuda.synchronize()
+    init = {"s": time.perf_counter() - t0, "launches": read_counts()["prng"],
+            "params": cfg.param_count(),
+            "gb": sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9}
+    check_only(read_counts(), "prng", f"{arch}'s init")
+    check(init["launches"] == init_launches(cfg),
+          f"{arch}'s init: {init['launches']} threefry launches, want {init_launches(cfg)}")
     extra = stub_inputs(torch, np, cfg, dev)
     torch.cuda.synchronize()
     log(f"{cfg.name}: {cfg.n_layers} layers{' (cut: ' + path['cut'] + ')' if path['cut'] else ''}, "
-        f"{cfg.param_count()} params in {cfg.dtype}, random (seed 0, the port's init_params, "
-        f"drawn on the {gen.device.type}; no checkpoint ships), made in "
-        f"{time.perf_counter() - t0:.2f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card"
+        f"{cfg.param_count()} params in {cfg.dtype}, random (init_params(cfg, PRNGKey(0)): the "
+        f"JAX package's parameters of seed 0, no checkpoint ships), drawn on the card in "
+        f"{init['s']:.3f} s by {init['launches']} threefry launches; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card"
         + "".join(f"; {k} {list(v.shape)} {str(v.dtype)[6:]} (numpy seed 0)"
                   for k, v in extra.items()))
     prompts = np.random.default_rng(0).integers(
@@ -1569,7 +1615,7 @@ def serve_lm(torch, np, dev, arch: str) -> dict:
             "launches_per_replay": per_replay, "capture_s": capture_s,
             "prefill_ms": prefill_ms, "decode_ms": decode_ms,
             "tokens_per_s": n_tok / (t_end - t_start), "eager": eager, "inputs": inputs,
-            "kernel_vs_plain": agree, **step}
+            "kernel_vs_plain": agree, "init": init, **step}
 
 
 def decode_breakdown(torch, cfg, eng, prompts, dev, ops, per_replay: dict, extra) -> dict:
@@ -1619,7 +1665,9 @@ def decode_breakdown(torch, cfg, eng, prompts, dev, ops, per_replay: dict, extra
                 step()
                 launch_ms += (time.perf_counter() - t1) * 1e3 / 5
                 torch.cuda.synchronize()
-            prof = profile_once(torch, step, first, keys=list(keys.values()))
+            prof = profile_once(torch, step, first, keys=list(keys.values()),
+                                expect=None if name == "eager" else
+                                {keys[k]: n for k, n in per_replay.items()})
             torch.cuda.set_sync_debug_mode("error")  # a step that waits for the card raises
             try:
                 step()
@@ -2506,7 +2554,11 @@ def serve_phase(torch, np, dev, arch: str, flash_entry: dict, scan_entry: dict,
 TRAIN_SEQ, TRAIN_BATCH = 128, 8  # the launcher's defaults
 TRAIN_STEPS, CRASH_AT, CKPT_EVERY, RESUME_STEPS = 20, 5, 4, 8
 LONG_SEQ, LONG_BATCH, LONG_STEPS = 1024, 16, 5  # the timed stretch
-FALCON_TRAIN_LAYERS, FALCON_STEPS = 8, 10  # of 64: the whole 7.27 B with its state does not fit
+# of 64 layers: the whole 7.27 B with its state does not fit.  20 steps, as
+# phase 23: the first 10 train at warm-up rates up to 3e-4, where the loss
+# moves less than it differs between batches (11.530-11.609 at init on the
+# JAX package's weights), so over 10 steps "the loss falls" tossed a coin
+FALCON_TRAIN_LAYERS, FALCON_STEPS = 8, 20
 # bf16 gradients of the kernel path against the plain path, per leaf,
 # relative to the leaf's largest element: the flash backward rounds P and
 # dS to bf16 where the plain backward keeps f32, and 30 bf16 layers carry
@@ -2888,14 +2940,18 @@ def scan_bwd_row(torch, args, info) -> dict:
     return row
 
 
-def train_launches(cfg, steps: int) -> dict:
+def train_launches(cfg, steps: int, inits: int = 0) -> dict:
     """Kernel launches of ``steps`` train steps of ``cfg``: each attention
     or Mamba layer's forward kernel once, and again where remat recomputes
-    it in the backward, and its backward kernel once."""
+    it in the backward, and its backward kernel once; and the threefry
+    kernel's of ``inits`` draws of its parameters."""
+    from repro_torch.models.transformer import init_launches
+
     fwd = expected_launches(cfg)["prefill"]
     runs = 1 if cfg.remat == "none" else 2
     return {**{k: runs * n * steps for k, n in fwd.items()},
-            **{f"{k}_bwd": n * steps for k, n in fwd.items()}}
+            **{f"{k}_bwd": n * steps for k, n in fwd.items()},
+            **({"prng": inits * init_launches(cfg)} if inits else {})}
 
 
 def expect_train_launches(counts: dict, want: dict, what: str) -> None:
@@ -2919,6 +2975,7 @@ def train_smollm(torch, np, dev, info) -> dict:
     from repro_torch.data import DataConfig, Pipeline
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import init_params
+    from repro_torch.random import PRNGKey
     from repro_torch.train import Trainer, make_train_step
     from repro_torch.tree import tree_leaves
 
@@ -2934,7 +2991,7 @@ def train_smollm(torch, np, dev, info) -> dict:
         step, opt_init = make_train_step(cfg, run_cfg, device=dev)
 
         def init_fn():
-            return init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+            return init_params(cfg, PRNGKey(0), device=dev)
 
         params = init_fn()
         batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(0).items()}
@@ -2964,7 +3021,9 @@ def train_smollm(torch, np, dev, info) -> dict:
         out["run_s"] = time.perf_counter() - t0
         counts = read_counts()
         out["launches"] = {k: v for k, v in counts.items() if v}
-        expect_train_launches(counts, train_launches(cfg, TRAIN_STEPS), "smollm-135m's training")
+        # the Trainer draws the parameters once (resume_or_init)
+        expect_train_launches(counts, train_launches(cfg, TRAIN_STEPS, inits=1),
+                              "smollm-135m's training")
         out["losses"] = [float(x) for x in losses]
         check(all(np.isfinite(out["losses"])), f"smollm-135m: losses {out['losses']}")
         first, last = np.mean(out["losses"][:5]), np.mean(out["losses"][-5:])
@@ -3025,7 +3084,7 @@ def train_smollm(torch, np, dev, info) -> dict:
 
 def train_falcon(torch, np, dev, info) -> dict:
     """Phase 24: falcon-mamba-7b at full width cut to 8 of 64 layers:
-    first-step gradients of an f32 copy against the plain path; 10 steps
+    first-step gradients of an f32 copy against the plain path; 20 steps
     of ``make_train_step`` on ``Pipeline`` batches with bf16 parameters,
     an f32 master and int8 moments (scan forward 2 x 8 and backward 8 a
     step), loss falling; the scan backward at the main path's inputs.
@@ -3035,6 +3094,7 @@ def train_falcon(torch, np, dev, info) -> dict:
     from repro_torch.data import DataConfig, Pipeline
     from repro_torch.kernels.ssm_scan import ops as ss_ops
     from repro_torch.models import init_params
+    from repro_torch.random import PRNGKey
     from repro_torch.optim import Quantized
     from repro_torch.train import make_train_step
 
@@ -3049,7 +3109,7 @@ def train_falcon(torch, np, dev, info) -> dict:
                                global_batch=TRAIN_BATCH))
     batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(0).items()}
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    params32 = init_params(cfg32, torch.Generator(dev).manual_seed(0), device=dev)
+    params32 = init_params(cfg32, PRNGKey(0), device=dev)
     out["grads"] = grads_against_plain(
         torch, cfg32, params32, batch, lm_paths()["falcon-mamba-7b"], GRAD_F32_REL, False,
         [("ssm", "in_proj"), ("ssm", "a_log"), ("ssm", "x_proj"), ("ssm", "dt_proj"),
@@ -3060,7 +3120,7 @@ def train_falcon(torch, np, dev, info) -> dict:
     run_cfg = RunConfig(learning_rate=3e-3, state_dtype="int8", master_dtype="float32")
     step, opt_init = make_train_step(cfg, run_cfg, device=dev)
     fresh_card(torch)
-    params = init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    params = init_params(cfg, PRNGKey(0), device=dev)
     opt_state = opt_init(params)
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(i).items()}
                for i in range(FALCON_STEPS)]
@@ -3269,7 +3329,8 @@ def sharded_on_card(torch, np, dev, cfg=None, jamba_asset: str = "jamba_smoke") 
     from repro_torch.distributed import MeshRules, use_rules
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import (decode_step, init_params, param_shardings, params_from_numpy,
-                                    prefill, shard_params, unflatten)
+                                    prefill, unflatten)
+    from repro_torch.random import PRNGKey
     from repro_torch.train import checkpoint, make_train_step
     from repro_torch.tree import tree_leaves
 
@@ -3284,7 +3345,7 @@ def sharded_on_card(torch, np, dev, cfg=None, jamba_asset: str = "jamba_smoke") 
         out["mesh"] = {"shape": list(rules.mesh.shape), "dims": list(rules.names)}
 
         def fresh():
-            return init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+            return init_params(cfg, PRNGKey(0), device=dev)
 
         # one train step, unsharded and sharded, from the same parameters
         run_cfg = RunConfig(learning_rate=3e-3, master_dtype="float32")
@@ -3301,7 +3362,8 @@ def sharded_on_card(torch, np, dev, cfg=None, jamba_asset: str = "jamba_smoke") 
         plain_counts = read_counts()
         with use_rules(rules):
             shardings = param_shardings(cfg, rules)
-            p2 = shard_params(fresh(), shardings)
+            # drawn as the launcher draws them: each rank its blocks only
+            p2 = init_params(cfg, PRNGKey(0), device=dev, shardings=shardings)
             o2 = opt_init(p2)
             b2 = {k: rules.distribute(v, "batch", None) for k, v in batch.items()}
             reset_counts()
@@ -3447,12 +3509,13 @@ def launch_tools_phase(torch, np, dev, info, sm_train: dict, cfg=None,
     from repro_torch.launch import roofline
     from repro_torch.launch.hlo_analysis import analyze
     from repro_torch.models import init_params
+    from repro_torch.random import PRNGKey
     from repro_torch.train import make_train_step
 
     cfg = cfg or configs.get("smollm-135m")
     run_cfg = RunConfig(learning_rate=3e-3, master_dtype="float32")
     step, opt_init = make_train_step(cfg, run_cfg, device=dev)
-    params = init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    params = init_params(cfg, PRNGKey(0), device=dev)
     opt = opt_init(params)
     pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch_size))
     batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(0).items()}
@@ -3614,6 +3677,7 @@ def serve_lm_twin(torch, np, dev, arch: str) -> dict:
     (``twin_grads``)."""
     from repro_torch.examples import serve_lm
     from repro_torch.models import init_params
+    from repro_torch.random import PRNGKey
 
     argv = ["--device", "cuda"] + ([] if arch == "smollm-135m" else ["--arch", arch])
     reset_counts()
@@ -3630,7 +3694,7 @@ def serve_lm_twin(torch, np, dev, arch: str) -> dict:
     # the engine's warm-up decode step before its capture, prefill, then
     # one replay per decode step
     serving = {k: per["prefill"][k] + (1 + n_decode) * n for k, n in per["decode"].items()}
-    trained = train_launches(cfg, steps)
+    trained = train_launches(cfg, steps, inits=1)  # the example draws its parameters once
     want = {k: trained.get(k, 0) + serving.get(k, 0) for k in {*trained, *serving}}
     expect_train_launches(counts, want, f"serve_lm --arch {arch}")
     if "ssm_scan" in per["decode"]:
@@ -3644,7 +3708,7 @@ def serve_lm_twin(torch, np, dev, arch: str) -> dict:
     check([len(t) for t in served] == [8, 12, 16, 20], f"serve_lm {arch}: served {served}")
     pipe = serve_lm.data(cfg)
     first = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(0).items()}
-    grads = twin_grads(torch, cfg, init_params(cfg, torch.Generator(dev).manual_seed(0),
+    grads = twin_grads(torch, cfg, init_params(cfg, PRNGKey(0),
                                                device=dev), first, arch)
     log(f"serve_lm {arch}: first-step gradients: " + json.dumps(grads))
 
@@ -3704,7 +3768,8 @@ def train_resumable_twin(torch, np, dev) -> dict:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_resumable_")
     try:
         cfg, run_cfg, pipe, init_fn, step_fn, opt_init = ex.setup(dev, tmp, every)
-        expect_train_launches(counts, train_launches(cfg, ran), "train_lm_resumable")
+        # each of the example's two Trainers draws the parameters (resume_or_init)
+        expect_train_launches(counts, train_launches(cfg, ran, inits=2), "train_lm_resumable")
         first = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(0).items()}
         grads = twin_grads(torch, cfg, init_fn(), first, "stablelm-3b")
         log("train_lm_resumable: first-step gradients: " + json.dumps(grads))
@@ -3744,6 +3809,273 @@ def examples_phase(torch, np, dev) -> dict:
     out["train_lm_resumable"] = train_resumable_twin(torch, np, dev)
     log("train_lm_resumable: " + json.dumps(out["train_lm_resumable"]))
     return out
+
+
+# ----------------------------------------------------------------------
+# 29. the counter-based draw: the threefry kernel
+# ----------------------------------------------------------------------
+PRNG_CASES = (  # (global shape, offset, block): odd sizes, windows of 1 to 4 merged dims
+    ((1,), (0,), (1,)),
+    ((1000003,), (0,), (1000003,)),
+    ((37, 129), (5, 3), (20, 100)),
+    ((6, 40, 72), (1, 8, 0), (4, 16, 72)),
+    ((3, 5, 7, 9), (1, 1, 2, 3), (2, 3, 4, 5)),
+    ((2**33,), (2**32 - 100,), (4096,)),  # across the count's high word
+    ((4, 2**16, 2**16), (3, 2**16 - 1, 2**16 - 77), (1, 1, 77)),  # the end of 2^34 elements
+    ((61, 384, 7168, 2048), (60, 383, 5, 1920), (1, 1, 4000, 128)),  # kimi-k2's experts' end
+)
+PRNG_NORMAL_ULPS = 4  # the card's log1pf against the host's log1p, carried by ErfInv32
+PRNG_KIMI_SAMPLES = 10**6
+PRNG_SERVED_ARCH = "qwen3-moe-30b-a3b"  # phase 17's init: its largest launch is timed
+
+
+def _ordered_f32(torch, t):
+    """float32 bits as integers in the order of the floats: ulp distances."""
+    i = t.float().view(torch.int32).long()
+    return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+def bf16_apart(torch, got, want, n: int, what: str) -> int:
+    """bfloat16 draws of the kernel and the plain version: equal but where
+    their float32 values round apart, by one ulp, at most one in 10^4."""
+    a, b = got.view(torch.int16).int(), want.view(torch.int16).int()
+    diff = a != b
+    nd = int(diff.sum())
+    check(nd <= max(2, n // 10_000) and bool(((a - b)[diff].abs() == 1).all()),
+          f"{what}: {nd} of {n} bf16 values differ, or by more than one ulp")
+    return nd
+
+
+def prng_cases(torch, dev) -> dict:
+    """The kernel against its plain version, both on the card, on the
+    same windows: the bits and the uniforms exactly, the normals (times a
+    scale) within PRNG_NORMAL_ULPS float32 ulp, in bfloat16 equal but
+    where the two round apart."""
+    from repro_torch import random as R
+    from repro_torch.kernels.prng import kernel as prng_kernel
+    from repro_torch.kernels.prng.ref import draw_ref
+
+    k0, k1 = R.key_words(R.split(R.PRNGKey(17), 4)[3])
+    draws = (("bits", torch.int64, {}), ("uniform", torch.float32, {"minval": -3.0, "maxval": 2.5}),
+             ("normal", torch.float32, {"scale": 72 ** -0.5}),
+             ("normal", torch.bfloat16, {"scale": 72 ** -0.5}))
+    out = {"cases": 0, "elements": 0, "max_ulps": 0, "max_abs_err": 0.0, "bf16_apart": 0}
+    for shape, offset, block in PRNG_CASES:
+        n = 1
+        for b in block:
+            n *= b
+        for kind, dtype, kw in draws:
+            what = f"threefry {kind} {dtype} of {block} at {offset} in {shape}"
+            got = prng_kernel.draw_cuda(torch.empty(block, dtype=dtype, device=dev), k0, k1,
+                                        shape, offset, kind, **kw)
+            want = draw_ref(torch.empty(block, dtype=dtype, device=dev), k0, k1, shape, offset,
+                            kind, **kw)
+            torch.cuda.synchronize()
+            if kind != "normal":
+                check(torch.equal(got, want), f"{what}: the kernel != its plain version")
+            elif dtype == torch.float32:
+                ulps = int((_ordered_f32(torch, got) - _ordered_f32(torch, want)).abs().max())
+                check(ulps <= PRNG_NORMAL_ULPS, f"{what}: {ulps} ulp from its plain version")
+                out["max_ulps"] = max(out["max_ulps"], ulps)
+                out["max_abs_err"] = max(out["max_abs_err"], float((got - want).abs().max()))
+            else:
+                out["bf16_apart"] += bf16_apart(torch, got, want, n, what)
+            out["cases"] += 1
+        out["elements"] += n
+    return out
+
+
+def prng_bound(info: dict, n: int, out_bytes: int) -> dict:
+    """The least time of a draw of ``n`` elements: its output written once
+    at the memory's rate, or its int32 operations at the SMs' int32 lanes
+    (the float part, on the FP32 lanes beside them, is shorter)."""
+    from repro_torch.kernels.prng import kernel as prng_kernel
+
+    bytes_ms = n * out_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(n * prng_kernel.INT32_OPS_PER_ELEMENT / info["int32_ops_per_s"],
+                 n * prng_kernel.F32_FLOPS_PER_ELEMENT / F32_FLOPS_PER_S) * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def prng_served_launch(torch, dev, info: dict) -> dict:
+    """The largest launch of PRNG_SERVED_ARCH's init (one period slice of
+    its largest stacked leaf, bf16), as the init makes it: the kernel's
+    device time per call (graph replays), the plain version's on the card,
+    the two outputs held together, beside the bound."""
+    from repro_torch import configs
+    from repro_torch import random as R
+    from repro_torch.kernels.prng import kernel as prng_kernel
+    from repro_torch.kernels.prng.ref import draw_ref
+    from repro_torch.models import param_specs
+    from repro_torch.models.transformer import _STACKED, init_scale
+    from repro_torch.tree import tree_leaves
+
+    cfg = configs.get(PRNG_SERVED_ARCH)
+    specs = param_specs(cfg)
+    leaves = tree_leaves(specs)
+    stacked = [s for k in _STACKED for s in tree_leaves(specs.get(k, []))
+               if s.init in ("normal", "embed")]
+    spec = max(stacked, key=lambda s: math.prod(s.shape[1:]))
+    k0, k1 = R.key_words(R.split(R.PRNGKey(0), len(leaves))[leaves.index(spec)])
+    block, offset = (1, *spec.shape[1:]), (0,) * len(spec.shape)
+    n = math.prod(block)
+    scale = init_scale(spec)
+    buf = torch.empty(block, dtype=torch.bfloat16, device=dev)
+    plain = torch.empty_like(buf)
+
+    def kern():
+        prng_kernel.draw_cuda(buf, k0, k1, spec.shape, offset, "normal", scale)
+
+    def ref_draw():
+        draw_ref(plain, k0, k1, spec.shape, offset, "normal", scale)
+
+    ms = graph_ms(torch, kern, calls=5, replays=5)
+    kern()
+    plain_ms = time_ms(torch, ref_draw, iters=1)
+    apart = bf16_apart(torch, buf, plain, n, f"{PRNG_SERVED_ARCH}'s largest init launch")
+    del buf, plain
+    torch.cuda.empty_cache()
+    return {"shape": f"{PRNG_SERVED_ARCH}'s largest init launch: one period slice {list(block)} "
+                     f"of a {list(spec.shape)} leaf, normal x {scale:.6g} to bf16 ({n} elements)",
+            "n": n, "ms": ms, "plain_ms": plain_ms, "bf16_apart": apart, "library_ms": None,
+            **prng_bound(info, n, 2)}
+
+
+def kimi_shard_child() -> int:
+    """Rank 0 of a fake 256-rank group over the production 16x16 mesh draws
+    its shard of kimi-k2-1t-a32b on the card (``init_params(...,
+    shardings=)``): launches, time, its bytes and the card's peak; 10^6
+    sampled elements against the plain version at the same global
+    indices; then one launch over the shard's largest leaf timed by graph
+    replay.  Run in a process of its own (the fake group is global);
+    prints one JSON line."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    from repro_torch import configs
+    from repro_torch import random as R
+    from repro_torch.distributed import MeshRules
+    from repro_torch.kernels.prng import kernel as prng_kernel
+    from repro_torch.kernels.prng import ref
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import init_params, param_shardings, param_specs
+    from repro_torch.models.transformer import init_scale
+    from repro_torch.tree import tree_leaves
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cfg = configs.get("kimi-k2-1t-a32b")
+    out = {"arch": cfg.name, "whole_gb": cfg.param_count() * 2 / 1e9}
+    with fake_group(256):
+        mesh = make_production_mesh(device_type="cuda")
+        shardings = param_shardings(cfg, MeshRules(mesh))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        prng_kernel.launches.reset()
+        t0 = time.perf_counter()
+        params = init_params(cfg, R.PRNGKey(0), device=dev, shardings=shardings)
+        torch.cuda.synchronize()
+        out["s"] = time.perf_counter() - t0
+        out["launches"] = prng_kernel.launches.value
+        out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        leaves = tree_leaves(params)
+        locals_ = [p.to_local() for p in leaves]
+        out["bytes"] = sum(t.numel() * t.element_size() for t in locals_)
+        out["largest_leaf"] = max(t.numel() for t in locals_)
+        out["chunk_bytes"] = ref.CHUNK * 8
+        specs = tree_leaves(param_specs(cfg))
+        keys = R.split(R.PRNGKey(0), len(specs))
+        normal = [i for i, s in enumerate(specs) if s.init in ("normal", "embed")]
+        total = sum(locals_[i].numel() for i in normal)
+        gen = torch.Generator().manual_seed(0)
+        n_samples = n_apart = 0
+        for i in normal:
+            p, local, spec = leaves[i], locals_[i], specs[i]
+            k = max(1, PRNG_KIMI_SAMPLES * local.numel() // total)
+            pos = torch.randint(local.numel(), (k,), generator=gen)
+            shape, offset = compute_local_shape_and_global_offset(
+                p.shape, p.device_mesh, p.placements)
+            check(tuple(shape) == tuple(local.shape), f"kimi-k2 leaf {i}: local {local.shape} "
+                                                      f"!= {shape}")
+            # local flat position -> global flat index, one dim at a time
+            g, rem, stride = torch.zeros_like(pos), pos.clone(), 1
+            for d in reversed(range(len(shape))):
+                g += (rem % shape[d] + offset[d]) * stride
+                rem //= shape[d]
+                stride *= spec.shape[d]
+            want = ref.values_at(*R.key_words(keys[i]), g.to(dev), "normal",
+                                 init_scale(spec)).to(local.dtype)
+            got = local.reshape(-1)[pos.to(dev)]
+            n_apart += bf16_apart(torch, got, want, k, f"kimi-k2 leaf {i}")
+            n_samples += k
+        out["samples"], out["samples_apart"] = n_samples, n_apart
+        # one launch over the shard's largest leaf, timed
+        i = max(range(len(leaves)), key=lambda j: locals_[j].numel())
+        shape, offset = compute_local_shape_and_global_offset(
+            leaves[i].shape, leaves[i].device_mesh, leaves[i].placements)
+        spec = specs[i]
+        del params, leaves, locals_
+        torch.cuda.empty_cache()
+        buf = torch.empty(tuple(shape), dtype=torch.bfloat16, device=dev)
+        k0, k1 = R.key_words(keys[i])
+        out["leaf"] = {"global": list(spec.shape), "offset": list(offset), "block": list(shape),
+                       "n": buf.numel()}
+        out["leaf"]["ms"] = graph_ms(torch, lambda: prng_kernel.draw_cuda(
+            buf, k0, k1, spec.shape, offset, "normal", init_scale(spec)), calls=2, replays=3)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def prng_phase(torch, np, dev, info: dict, inits: dict) -> dict:
+    """Phase 29: the threefry kernel against its plain version; its time
+    at the largest launch of a served init and over kimi-k2's largest
+    local leaf beside the bound; every served init of phases 8-21
+    (``inits``: arch -> ``serve_lm``'s ``init``); rank 0's kimi-k2 shard
+    drawn on the card in a process of its own."""
+    cases = prng_cases(torch, dev)
+    log("threefry kernel vs plain version on the card: " + json.dumps(cases))
+    served = prng_served_launch(torch, dev, info)
+    log("threefry at the served init: " + json.dumps(served))
+    for arch, init in inits.items():
+        log(f"init {arch}: {init['params']} parameters, {init['gb']:.3f} GB drawn on the card in "
+            f"{init['s']:.3f} s ({init['gb'] / init['s']:.1f} GB/s of parameters) by "
+            f"{init['launches']} threefry launches")
+    fresh_card(torch)
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.kimi_shard_child())"],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    check(child.returncode == 0, "the kimi-k2 shard draw failed:\n" + child.stdout[-4000:]
+          + child.stderr[-4000:])
+    kimi = json.loads(child.stdout.strip().splitlines()[-1])
+    kimi["wall_s"] = time.perf_counter() - t0
+    check(kimi["peak_bytes"] <= kimi["bytes"] + kimi["chunk_bytes"],
+          f"kimi-k2 rank 0: peak {kimi['peak_bytes']} B beyond its shard {kimi['bytes']} B and "
+          f"one chunk's {kimi['chunk_bytes']} B")
+    check(round(kimi["bytes"] / 1e9, 2) == 8.16, f"kimi-k2 rank 0 holds {kimi['bytes']} B")
+    kimi["leaf"].update(prng_bound(info, kimi["leaf"]["n"], 2))
+    log("kimi-k2-1t-a32b rank 0 of 256 (16x16 mesh, fake group): " + json.dumps(kimi))
+    return {
+        "name": "prng",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/prng/csrc/threefry.cu",
+        "replaces": "src/repro/models/transformer.py:146",
+        "replaces_note": "no TPU kernel: the JAX package's jax.random.normal per leaf "
+                         "(_init_leaf), which XLA lowers to its own threefry",
+        "launches": inits["smollm-135m"]["launches"],  # phase 8's init
+        "max_abs_err": cases["max_abs_err"],
+        **{k: served[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                  "shape")},
+        "served": served,
+        "cases": cases,
+        "inits": inits,
+        "kimi_shard": kimi,
+    }
 
 
 def main() -> int:
@@ -3909,6 +4241,7 @@ def main() -> int:
 
     log("== 8. serve smollm-135m at full width (main path)")
     lm = serve_lm(torch, np, dev, "smollm-135m")
+    inits = {"smollm-135m": lm["init"]}  # each served path's init, for phase 29
     ft = flash_times(torch, lm["inputs"]["flash_attention"])
     dec, pre = ft["decode"], ft["prefill"]
     flash_entry = {
@@ -3940,6 +4273,7 @@ def main() -> int:
 
     log("== 11. serve falcon-mamba-7b at full width (main path); the W8A8 matmul's op")
     sm = serve_lm(torch, np, dev, "falcon-mamba-7b")
+    inits["falcon-mamba-7b"] = sm["init"]
     n_layers = sm["launches"]["ssm_scan"] // NEW_TOKENS
     want = {"decode": n_layers * (NEW_TOKENS - 1), "prefill": n_layers}
     check(sm["launches_by_kernel"] == want,
@@ -3992,6 +4326,7 @@ def main() -> int:
 
     log("== 13. serve stablelm-3b at full width (head_dim 80)")
     sl = serve_lm(torch, np, dev, "stablelm-3b")
+    inits["stablelm-3b"] = sl["init"]
     ft = flash_times(torch, {f"stablelm-3b {k}": v
                              for k, v in sl["inputs"]["flash_attention"].items()})
     ft.update(flash_times(torch, head_dim_inputs(torch, dev)))
@@ -4020,7 +4355,8 @@ def main() -> int:
     kernels["kernels"][0]["launches_cosim"] = cs["adder_graph_launches"]
 
     log("== 17. serve qwen3-moe-30b-a3b at full width (MoE)")
-    serve_phase(torch, np, dev, "qwen3-moe-30b-a3b", flash_entry, scan_entry, info)
+    inits["qwen3-moe-30b-a3b"] = serve_phase(
+        torch, np, dev, "qwen3-moe-30b-a3b", flash_entry, scan_entry, info)["init"]
 
     log("== 18. reduced jamba, whisper and internvl2 against the committed JAX golden outputs")
     fresh_card(torch)
@@ -4031,17 +4367,20 @@ def main() -> int:
 
     left_18 = left_on_card(torch, "after phase 18")
     log("== 19. serve whisper-base at full width (encoder-decoder)")
-    serve_phase(torch, np, dev, "whisper-base", flash_entry, scan_entry, info)
+    inits["whisper-base"] = serve_phase(
+        torch, np, dev, "whisper-base", flash_entry, scan_entry, info)["init"]
     left_19 = left_on_card(torch, "after phase 19")
     diff_left(left_18, left_19)
     cublas_share(torch, left_19)
     del left_18, left_19
 
     log("== 20. serve internvl2-26b at full width (VLM)")
-    serve_phase(torch, np, dev, "internvl2-26b", flash_entry, scan_entry, info)
+    inits["internvl2-26b"] = serve_phase(
+        torch, np, dev, "internvl2-26b", flash_entry, scan_entry, info)["init"]
 
     log(f"== 21. serve jamba-v0.1-52b at full width, cut to {JAMBA_LAYERS} layers (hybrid)")
-    serve_phase(torch, np, dev, "jamba-v0.1-52b", flash_entry, scan_entry, info)
+    inits["jamba-v0.1-52b"] = serve_phase(
+        torch, np, dev, "jamba-v0.1-52b", flash_entry, scan_entry, info)["init"]
 
     log("== 22. the backward kernels vs their plain versions")
     fresh_card(torch)
@@ -4141,8 +4480,9 @@ def main() -> int:
     t28 = time.perf_counter()
     ex = examples_phase(torch, np, dev)
     entries = {e["name"]: e for e in kernels["kernels"]}
+    ex_launches = {twin: r["launches"] for twin, r in ex.items()}
     for name, entry in entries.items():
-        runs = {twin: r["launches"][name] for twin, r in ex.items() if r["launches"].get(name)}
+        runs = {twin: n[name] for twin, n in ex_launches.items() if n.get(name)}
         if runs:
             entry["launches_examples"] = runs
     del ex
@@ -4156,6 +4496,14 @@ def main() -> int:
         f"before it ({with_workspaces} before the cuBLAS workspaces were cleared)")
     check(abs(left) <= SHARD_LEFT_BYTES,
           f"phase 28 left {left} bytes allocated (at most {SHARD_LEFT_BYTES})")
+
+    log("== 29. the counter-based draw: the threefry kernel")
+    fresh_card(torch)
+    prng_entry = prng_phase(torch, np, dev, info, inits)
+    prng_entry["launches_train_smollm_135m"] = sm_train["launches"].get("prng")
+    prng_entry["launches_examples"] = {twin: n["prng"] for twin, n in ex_launches.items()
+                                       if n.get("prng")}
+    kernels["kernels"].append(prng_entry)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(info["nvidia_smi"])

@@ -11,9 +11,9 @@ then decode with a preallocated cache, on the card through a captured
 CUDA graph (``serve``).  On the card attention runs the hand-written
 flash kernels, forward and backward (a Mamba model: the selective-scan
 kernels).  The step updates the parameters in place.  The weights are
-drawn from a ``torch.Generator`` (seed 0), which gives other numbers
-than the JAX example's ``jax.random`` key; ``serve`` takes any
-parameter tree, the JAX package's carried across with
+the JAX example's: ``init_params(cfg, PRNGKey(0))`` draws what its
+``jax.random`` key draws (on the card, the threefry kernel); ``serve``
+takes any parameter tree, the JAX package's carried across with
 ``models.params_from_numpy`` included.
 """
 
@@ -30,6 +30,7 @@ from .._device import resolve_device
 from ..configs.base import RunConfig
 from ..data import DataConfig, Pipeline
 from ..models import init_params
+from ..random import PRNGKey
 from ..serve import Engine, Request
 from ..train import make_train_step
 
@@ -93,7 +94,7 @@ def main(argv=None) -> dict:
     cfg = config(args.arch)
     print(f"serving {cfg.name}: {cfg.param_count():,} params")
 
-    params = init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    params = init_params(cfg, PRNGKey(0), device=dev)
     pipe = data(cfg)
     t0 = time.perf_counter()
     params, losses = train(cfg, params, pipe, dev, args.train_steps)

@@ -8,10 +8,10 @@ Phase 1 runs 120 steps through ``Trainer`` and survives a failure
 simulated at step 90 by restoring the last checkpoint (step 50); phase 2
 is a new ``Trainer`` (fresh process semantics) that resumes at step 120
 and runs 80 more.  On the card attention runs the hand-written flash
-kernels, forward and backward.  The weights are drawn from a
-``torch.Generator`` (seed 0), which gives other numbers than the JAX
-example's ``jax.random`` key.  The checkpoint directory, which the
-example creates, is removed at the end.
+kernels, forward and backward.  The weights are the JAX example's:
+``init_params(cfg, PRNGKey(0))`` draws what its ``jax.random`` key
+draws.  The checkpoint directory, which the example creates, is removed
+at the end.
 """
 
 from __future__ import annotations
@@ -21,13 +21,12 @@ import os
 import shutil
 import tempfile
 
-import torch
-
 from .. import configs
 from .._device import resolve_device
 from ..configs.base import RunConfig
 from ..data import DataConfig, Pipeline
 from ..models import init_params
+from ..random import PRNGKey
 from ..train import Trainer, make_train_step
 
 
@@ -43,7 +42,7 @@ def setup(device, ckpt_dir: str, checkpoint_every: int = 50):
     step_fn, opt_init = make_train_step(cfg, run_cfg, device=device)
 
     def init_fn():
-        return init_params(cfg, torch.Generator(device).manual_seed(0), device=device)
+        return init_params(cfg, PRNGKey(0), device=device)
 
     return cfg, run_cfg, pipe, init_fn, step_fn, opt_init
 

@@ -95,12 +95,12 @@ def _run_cfg_for(cfg, shape=None, n_data: int = 16) -> RunConfig:
 
 
 @contextlib.contextmanager
-def fake_group(world: int):
-    """A ``fake`` process group of ``world`` ranks, this process rank 0
-    (its collectives move nothing); destroyed on exit."""
+def fake_group(world: int, rank: int = 0):
+    """A ``fake`` process group of ``world`` ranks, this process rank
+    ``rank`` (its collectives move nothing); destroyed on exit."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
     try:
         yield
     finally:

@@ -12,7 +12,9 @@ the CPU (with ``--smoke``, the reduced config, for a run there).  Above
 ``--mesh single|multi`` runs sharded on the production mesh (16x16, or
 2x16x16) over the ranks ``torchrun`` started (or a process group the
 caller already started): parameters, optimizer state and batches are
-laid out by the sharding rules, each rank training its shard:
+laid out by the sharding rules, each rank training its shard.  Each rank
+draws only its blocks of the parameters (``init_params(...,
+shardings=)``), the values the JAX launcher's sharded init gives there:
 
     torchrun --nproc-per-node 8 --nnodes 32 ... -m repro_torch.launch.train \
         --arch smollm-135m --mesh single
@@ -36,7 +38,8 @@ from .._device import resolve_device
 from ..configs.base import RunConfig
 from ..data.pipeline import DataConfig, Pipeline
 from ..distributed import MeshRules, use_rules
-from ..models import init_params, param_shardings, shard_params
+from ..models import init_params, param_shardings
+from ..random import PRNGKey
 from ..train.train_lib import Trainer, make_train_step
 from .mesh import make_production_mesh
 
@@ -92,11 +95,9 @@ def main(argv=None) -> dict:
     with use_rules(rules):
         step_fn, opt_init = make_train_step(cfg, run_cfg, device=dev)
 
-        def init_fn():
-            params = init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
-            if rules is None:
-                return params
-            return shard_params(params, param_shardings(cfg, rules))
+        def init_fn():  # under a mesh each rank draws only its blocks of the parameters
+            shardings = None if rules is None else param_shardings(cfg, rules)
+            return init_params(cfg, PRNGKey(0), device=dev, shardings=shardings)
 
         trainer = Trainer.resume_or_init(cfg, run_cfg, pipe, init_fn, step_fn, opt_init,
                                          device=dev)

@@ -43,12 +43,14 @@ from torch.utils.checkpoint import (
 
 from torch.distributed.tensor import DTensor, distribute_tensor
 from torch.distributed.tensor import zeros as dtensor_zeros
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
 from .._device import resolve_device
 from ..configs.base import ATTN, MLP, MOE, SSM, ArchConfig
 from ..distributed import MeshRules, constrain, current_rules, use_rules
 from ..distributed.sharding import axis_size, like, run_local
-from ..tree import tree_map
+from .. import random
+from ..tree import tree_leaves, tree_map, tree_unflatten
 from .attention import attention_block, precompute_cross_cache
 from .layers import embed_tokens, rmsnorm, swiglu, unembed
 from .moe import moe_block
@@ -192,37 +194,89 @@ def _zip_specs(fn, specs, tree, path=""):
 # ----------------------------------------------------------------------
 # Parameter materialisation
 # ----------------------------------------------------------------------
-def init_params(cfg: ArchConfig, generator: torch.Generator, device=None) -> dict:
-    """Random parameters (normal, 1/sqrt(fan_in) or 0.02 for the
-    embedding; ones for norms and the SSM's ``d``, zeros for ``dt_bias``,
-    log(1..N) for ``a_log``) drawn in f32 from ``generator`` on its own
-    device, then cast to ``cfg.dtype`` on ``device``.  A period-stacked
-    block leaf is drawn one period slice at a time, so the f32 draw never
-    holds a whole stack (falcon-mamba-7b's ``in_proj`` alone would be
-    17 GB): pass a generator on the card to keep the draw off the host.
-    The JAX package's ``init_params`` draws other numbers from the same
-    seed: weights cross between the packages with :func:`params_from_numpy`."""
-    dev = resolve_device(device)
+def _contiguous_strides(shape) -> tuple[int, ...]:
+    strides, s = [], 1
+    for n in reversed(shape):
+        strides.append(s)
+        s *= n
+    return tuple(reversed(strides))
+
+
+def init_scale(spec: PSpec) -> float:
+    """The factor of a normal leaf's draw: 1/sqrt(fan_in) where the spec
+    names its fan-in axis, else 0.02 for the embedding and 1."""
+    if spec.fan_in_axis is not None:
+        return 1.0 / math.sqrt(spec.shape[spec.fan_in_axis])
+    return 0.02 if spec.init == "embed" else 1.0
+
+
+def init_launches(cfg: ArchConfig) -> int:
+    """The draws one :func:`init_params` of ``cfg`` makes (kernel launches
+    on the card): one a normal leaf, one a period slice of a stacked one."""
+    return sum(spec.shape[0] if k in _STACKED else 1
+               for k, sub in param_specs(cfg).items() for spec in tree_leaves(sub)
+               if spec.init in ("normal", "embed"))
+
+
+def init_params(cfg: ArchConfig, key, device=None, shardings=None) -> dict:
+    """The JAX package's parameters of ``cfg`` from ``key``
+    (``repro_torch.random.PRNGKey(seed)``): one key per leaf by
+    ``random.split(key, n_leaves)`` in JAX's flatten order; a normal leaf
+    is ``normal(leaf_key, shape) * scale`` in f32 (1/sqrt(fan_in), or
+    0.02 for the embedding) cast to ``cfg.dtype``; ones for norms and the
+    SSM's ``d``, zeros for ``dt_bias``, log(1..N) for ``a_log``.  The draw
+    runs on ``device`` (the kernel on the card), each element from its
+    leaf's key and its global index alone, so any block of a leaf is drawn
+    on its own with the whole leaf's values there.  A period-stacked block
+    leaf is drawn one period slice at a time.
+
+    With ``shardings`` (:func:`param_shardings`), each leaf is this rank's
+    block only, as a DTensor: no rank holds a whole leaf and nothing is
+    communicated (the reference's ``jit`` with ``out_shardings``).
+    ``device="meta"`` gives the same tensors without storage."""
+    if isinstance(key, torch.Generator):
+        raise TypeError("init_params takes a key, repro_torch.random.PRNGKey(seed), "
+                        "not a torch.Generator")
+    dev = torch.device("meta") if device == "meta" else resolve_device(device)
     dtype = torch_dtype(cfg)
+    specs = param_specs(cfg)
+    keys = tree_unflatten(specs, random.split(key, len(tree_leaves(specs))))
+    if shardings is None:
+        shardings = tree_map(lambda _: None, specs)
 
-    def make(spec: PSpec, stacked: bool) -> torch.Tensor:
-        out = torch.empty(spec.shape, dtype=dtype, device=dev)
+    draws = []  # (out, key, shape, offset, scale) of every normal leaf, drawn at the end
+
+    def make(spec: PSpec, leaf_key, sharding, *, stacked: bool) -> torch.Tensor:
+        if sharding is None:
+            block, offset = tuple(spec.shape), (0,) * len(spec.shape)
+        else:
+            block, offset = compute_local_shape_and_global_offset(
+                spec.shape, sharding[0], list(sharding[1]))
+        out = torch.empty(block, dtype=dtype, device=dev)
         if spec.init in ("ones", "zeros"):
-            return out.fill_(1.0 if spec.init == "ones" else 0.0)
-        if spec.init == "ssm_a":  # mamba: A_log = log(1..N), broadcast over d_inner
-            st = spec.shape[-1]
-            return out.copy_(torch.log(torch.arange(1, st + 1, dtype=torch.float32)))
-        scale = 0.02 if spec.init == "embed" else 1.0
-        if spec.fan_in_axis is not None:
-            scale = 1.0 / math.sqrt(spec.shape[spec.fan_in_axis])
-        for piece in (out if stacked else [out]):
-            w = torch.randn(piece.shape, generator=generator, dtype=torch.float32,
-                            device=generator.device)
-            piece.copy_(w * scale)
-        return out
+            out.fill_(1.0 if spec.init == "ones" else 0.0)
+        elif spec.init == "ssm_a":  # mamba: A_log = log(1..N), broadcast over d_inner
+            n = torch.arange(offset[-1] + 1, offset[-1] + block[-1] + 1, dtype=torch.float32)
+            out.copy_(torch.log(n))
+        else:
+            scale = init_scale(spec)
+            if stacked:
+                draws.extend((out[p:p + 1], leaf_key, spec.shape, (offset[0] + p, *offset[1:]),
+                              scale) for p in range(block[0]))
+            else:
+                draws.append((out, leaf_key, spec.shape, offset, scale))
+        if sharding is None:
+            return out
+        mesh, placements = sharding
+        return DTensor.from_local(out, mesh, list(placements), run_check=False,
+                                  shape=torch.Size(spec.shape),
+                                  stride=_contiguous_strides(spec.shape))
 
-    return {k: tree_map(lambda spec: make(spec, True), v) if k in _STACKED else make(v, False)
-            for k, v in param_specs(cfg).items()}
+    params = {k: tree_map(functools.partial(make, stacked=k in _STACKED), specs[k], keys[k],
+                          shardings[k])
+              for k in specs}
+    random.normal_many(draws)  # into the local tensors the DTensors wrap
+    return params
 
 
 def params_from_numpy(cfg: ArchConfig, tree, device=None) -> dict:

@@ -24,6 +24,7 @@ from repro_torch.models import init_cache, init_params
 from repro_torch.nn import compile_model, params_from_numpy
 from repro_torch.nn import init_params as nn_init_params
 from repro_torch.nn import models as nn_models
+from repro_torch.random import PRNGKey
 from repro_torch.runtime import ServeEngine, design_from_arrays, load_design
 from repro_torch.serve import Engine
 from repro_torch.configs.base import RunConfig
@@ -141,17 +142,17 @@ def test_no_card_means_raise_not_cpu(no_card):
         params_from_numpy([{}])
     cfg = configs.get_smoke("smollm-135m")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        init_params(cfg, torch.Generator().manual_seed(0))
-    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        init_params(cfg, PRNGKey(0))
+    params = init_params(cfg, PRNGKey(0), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(cfg, params, batch_size=1, max_seq=8)
     assert Engine(cfg, params, 1, 8, device="cpu").device == torch.device("cpu")
     ssm_cfg = configs.get_smoke("falcon-mamba-7b")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        init_params(ssm_cfg, torch.Generator().manual_seed(0))
+        init_params(ssm_cfg, PRNGKey(0))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_cache(ssm_cfg, 1, 8)
-    ssm_params = init_params(ssm_cfg, torch.Generator().manual_seed(0), device="cpu")
+    ssm_params = init_params(ssm_cfg, PRNGKey(0), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(ssm_cfg, ssm_params, batch_size=1, max_seq=8)
     assert Engine(ssm_cfg, ssm_params, 1, 8, device="cpu").device == torch.device("cpu")
@@ -206,8 +207,8 @@ def test_no_card_means_raise_for_the_facade_cosim_and_moe(no_card):
         cosim_grid()
     moe_cfg = configs.get_smoke("qwen3-moe-30b-a3b")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        init_params(moe_cfg, torch.Generator().manual_seed(0))
-    moe_params = init_params(moe_cfg, torch.Generator().manual_seed(0), device="cpu")
+        init_params(moe_cfg, PRNGKey(0))
+    moe_params = init_params(moe_cfg, PRNGKey(0), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(moe_cfg, moe_params, batch_size=1, max_seq=8)
     assert Engine(moe_cfg, moe_params, 1, 8, device="cpu").device == torch.device("cpu")

@@ -44,7 +44,13 @@ as before (also inside a CUDA-graph capture), ``loss.backward()``
 through the reduced smollm-135m, falcon-mamba, qwen3-moe, jamba, whisper
 and internvl2 reaching every attention and Mamba call's backward kernel
 with the plain path's gradients, and the Trainer resuming from a crash
-to the same parameters bit for bit.
+to the same parameters bit for bit.  The threefry kernel (the port of
+the JAX package's ``jax.random`` draw) against its plain version: bits
+and uniforms exactly, normals within 4 f32 ulp (the card's ``log1pf``
+against the host's ``log1p``) and in bf16 equal but for one-ulp
+roundings, at windows of 1 to 4 merged dims and across the count's high
+word; ``init_params`` on the card launching it, within 4 ulp of the CPU
+draw.
 
 Every test here needs a card and skips without one.  This file imports
 neither ``jax`` nor ``repro``, so it runs where only PyTorch is
@@ -89,6 +95,7 @@ from repro_torch.nn import init_params as nn_init_params
 from repro_torch.nn import models as nn_models
 from repro_torch.nn.compiler import count_cmvm_steps
 from repro_torch.kernels._build import KernelError
+from repro_torch.random import PRNGKey
 from repro_torch.runtime import ServeEngine, load_design
 from repro_torch.runtime import engine as serve_engine
 from repro_torch.serve import Engine, Request
@@ -541,7 +548,7 @@ def test_graph_replayed_tokens_equal_an_eager_loop(card, name, dtype):
     if name == "stablelm-3b":
         kw = {"head_dim": 80}
     cfg = dataclasses.replace(configs.get_smoke(name, n_layers=3, **kw), dtype=dtype)
-    params = init_params(cfg, torch.Generator(card).manual_seed(0), device=card)
+    params = init_params(cfg, PRNGKey(0), device=card)
     counter = ss_kernel if cfg.family == "ssm" else fa_kernel
     eng = Engine(cfg, params, 4, 48, eos_id=-1)
     assert eng.decode_graph.launches_by_kernel()[counter.launches.name] == cfg.n_layers
@@ -624,7 +631,7 @@ def test_family_graph_tokens_equal_an_eager_loop(card, name):
     loop exactly, and the static cache's tensors, cross K/V included, the
     same before and after (prefill writes into them; the graph reads them)."""
     cfg = dataclasses.replace(configs.get_smoke(name), dtype="bfloat16")
-    params = init_params(cfg, torch.Generator(card).manual_seed(0), device=card)
+    params = init_params(cfg, PRNGKey(0), device=card)
     rng = np.random.default_rng(0)
     for seed in (0, 1):
         extra = _stub_inputs(cfg, 4, card, seed)
@@ -1156,7 +1163,7 @@ def test_backward_through_the_model_reaches_attention_and_the_scan(card, arch):
     from repro_torch.tree import tree_leaves
 
     cfg = configs.get_smoke(arch)
-    params = init_params(cfg, torch.Generator().manual_seed(0), device=card)
+    params = init_params(cfg, PRNGKey(0), device=card)
     rng = np.random.default_rng(0)
     batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int64))
              .to(card) for k in ("tokens", "labels")}
@@ -1233,7 +1240,7 @@ def test_trainer_resumes_exactly_on_the_card(card, tmp_path):
         step, opt_init = make_train_step(cfg, run_cfg, device=card)
         t = Trainer.resume_or_init(
             cfg, run_cfg, pipe,
-            lambda: init_params(cfg, torch.Generator().manual_seed(0), device=card),
+            lambda: init_params(cfg, PRNGKey(0), device=card),
             step, opt_init, device=card)
         armed = {"on": fail_at is not None}
 
@@ -1261,7 +1268,7 @@ def test_remat_changes_no_gradient_on_the_card(card, remat):
     grads = {}
     for mode in ("none", remat):
         cfg = dataclasses.replace(configs.get_smoke("jamba-v0.1-52b"), remat=mode)
-        params = init_params(cfg, torch.Generator().manual_seed(0), device=card)
+        params = init_params(cfg, PRNGKey(0), device=card)
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -1271,3 +1278,86 @@ def test_remat_changes_no_gradient_on_the_card(card, remat):
         loss, _ = loss_fn(cfg, params, batch)
         grads[mode] = torch.autograd.grad(loss, leaves)
     assert all(torch.equal(a, b) for a, b in zip(grads["none"], grads[remat]))
+
+
+# ----------------------------------------------------------------------
+# the counter-based draw (kernels/prng): the kernel against its plain version
+# ----------------------------------------------------------------------
+PRNG_WINDOWS = [
+    ((1,), (0,), (1,)),
+    ((1000003,), (0,), (1000003,)),  # odd size, one merged dim
+    ((37, 129), (5, 3), (20, 100)),  # a column block: two dims
+    ((6, 40, 72), (1, 8, 0), (4, 16, 72)),  # inner dim whole
+    ((3, 5, 7, 9), (1, 1, 2, 3), (2, 3, 4, 5)),  # four dims
+    ((2**33,), (2**32 - 100,), (4096,)),  # across the count's high word
+    ((4, 2**16, 2**16), (3, 2**16 - 1, 2**16 - 77), (1, 1, 77)),  # the last element of 2^34
+]
+
+
+def _ordered_f32(t: torch.Tensor) -> torch.Tensor:
+    i = t.float().view(torch.int32).long()
+    return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+@pytest.mark.parametrize("shape,offset,block", PRNG_WINDOWS)
+def test_prng_kernel_against_plain_version(card, shape, offset, block):
+    """Bits exactly; uniforms exactly (one fmaf each side); normals (f32,
+    scaled) within 4 f32 ulp (log1pf on the card, log1p on the host); in
+    bf16 equal but where the two f32 values round apart, by one ulp."""
+    from repro_torch import random as R
+    from repro_torch.kernels.prng import kernel as prng_kernel
+
+    key = R.split(PRNGKey(17), 4)[3]
+    before = prng_kernel.launches.value
+    got = R.bits(key, shape, offset=offset, block=block, device=card)
+    assert torch.equal(got.cpu(), R.bits(key, shape, offset=offset, block=block, device="cpu"))
+    u = R.uniform(key, shape, -3.0, 2.5, offset=offset, block=block, device=card)
+    assert torch.equal(u.cpu(), R.uniform(key, shape, -3.0, 2.5, offset=offset, block=block,
+                                          device="cpu"))
+    scale = 1.0 / np.sqrt(72)
+    for dtype in (torch.float32, torch.bfloat16):
+        k_out = torch.empty(block, dtype=dtype, device=card)
+        p_out = torch.empty(block, dtype=dtype)
+        R.normal_(k_out, key, shape, offset, scale=scale)
+        R.normal_(p_out, key, shape, offset, scale=scale)
+        k_out = k_out.cpu()
+        if dtype == torch.float32:
+            assert int((_ordered_f32(k_out) - _ordered_f32(p_out)).abs().max()) <= 4
+        else:
+            diff = k_out.view(torch.int16) != p_out.view(torch.int16)
+            assert int(diff.sum()) <= max(2, k_out.numel() // 10_000)
+            steps = (k_out.view(torch.int16).int() - p_out.view(torch.int16).int())[diff].abs()
+            assert bool((steps == 1).all())
+    torch.cuda.synchronize()
+    assert prng_kernel.launches.value - before == 4
+
+
+def test_prng_init_params_on_the_card_equals_the_cpu_draw(card):
+    """init_params on the card draws with the kernel (its launches counted)
+    the CPU draw's parameters: the f32 leaves within 4 ulp."""
+    from repro_torch.kernels.prng import kernel as prng_kernel
+    from repro_torch.tree import tree_leaves
+
+    cfg = configs.get_smoke("qwen3-moe-30b-a3b")
+    before = prng_kernel.launches.value
+    on_card = tree_leaves(init_params(cfg, PRNGKey(0), device=card))
+    torch.cuda.synchronize()
+    assert prng_kernel.launches.value > before
+    on_cpu = tree_leaves(init_params(cfg, PRNGKey(0), device="cpu"))
+    for a, b in zip(on_card, on_cpu):
+        assert a.dtype == b.dtype == torch.float32
+        assert int((_ordered_f32(a.cpu()) - _ordered_f32(b)).abs().max()) <= 4
+
+
+def test_prng_kernel_refuses_what_it_cannot_take(card):
+    from repro_torch.kernels.prng import kernel as prng_kernel
+
+    with pytest.raises(TypeError):
+        prng_kernel.draw_cuda(torch.empty(4, dtype=torch.int32, device=card), 0, 0, (4,), (0,),
+                              "bits")
+    with pytest.raises(ValueError, match="contiguous"):
+        prng_kernel.draw_cuda(torch.empty(4, 4, device=card).t(), 0, 0, (4, 4), (0, 0),
+                              "normal")
+    with pytest.raises(ValueError, match="merged dims"):
+        prng_kernel.draw_cuda(torch.empty(2, 2, 2, 2, 2, device=card), 0, 0, (3, 3, 3, 3, 3),
+                              (0,) * 5, "normal")

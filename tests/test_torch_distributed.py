@@ -137,11 +137,12 @@ def rank_main(rank, world, store, npz, ckpt_dir, out_json):
 
     # --- the hybrid family (Mamba scan on each rank's channels) ---
     from repro_torch.models import decode_step, init_params
+    from repro_torch.random import PRNGKey
     cfg_h = configs.get_smoke("jamba-v0.1-52b")
     tok_h = {k: v[:, :8] for k, v in batch.items()}
 
     def fresh_h():
-        return init_params(cfg_h, torch.Generator().manual_seed(2), device="cpu")
+        return init_params(cfg_h, PRNGKey(2), device="cpu")
 
     def loss_and_grads(params, b):
         leaves = tree_leaves(params)
@@ -165,7 +166,7 @@ def rank_main(rank, world, store, npz, ckpt_dir, out_json):
     res["decode"] = {}
     for name, c in (("seq_cache", configs.get_smoke("smollm-135m", n_heads=6, n_kv_heads=2)),
                     ("encdec", configs.get_smoke("whisper-base"))):
-        pc = init_params(c, torch.Generator().manual_seed(3), device="cpu")
+        pc = init_params(c, PRNGKey(3), device="cpu")
         b = {"tokens": batch["tokens"][:, :8]}
         if c.family == "encdec":
             b["enc_frames"] = torch.randn(4, c.encoder_seq, c.d_model,

@@ -27,11 +27,12 @@ def rank_main(rank, world, store, ckpt_dir, out_json):
     from repro_torch.distributed import MeshRules, use_rules
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import init_params, param_shardings, shard_params
+    from repro_torch.random import PRNGKey
     from repro_torch.train import checkpoint
     from repro_torch.tree import tree_leaves, tree_map
 
     cfg = configs.get_smoke("stablelm-3b")
-    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params = init_params(cfg, PRNGKey(0), device="cpu")
 
     # save under a 2x4 mesh
     rules_a = MeshRules(make_test_mesh(2, 4, device_type="cpu"))

@@ -53,6 +53,7 @@ from repro_torch.models import (
 )
 from repro_torch.models.attention import attention_block, precompute_cross_cache
 from repro_torch.models.transformer import check_supported, tree_map
+from repro_torch.random import PRNGKey
 from repro_torch.serve import Engine, Request
 
 FAMILY_ARCHS = ["jamba-v0.1-52b", "whisper-base", "internvl2-26b"]
@@ -132,8 +133,8 @@ def test_init_params_draws_every_stack(name):
     """``enc_blocks`` are period-stacked, as ``blocks`` are: drawn one
     period slice at a time, seeded, scaled by fan-in."""
     cfg = configs.get_smoke(name)
-    a = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    b = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    a = init_params(cfg, PRNGKey(0), device="cpu")
+    b = init_params(cfg, PRNGKey(0), device="cpu")
     jax.tree.map(lambda x, y: torch.testing.assert_close(x, y, atol=0, rtol=0), a, b)
     specs = jax.tree.map(lambda s: tuple(s.shape), param_specs(cfg),
                          is_leaf=lambda s: hasattr(s, "fan_in_axis"))
@@ -269,7 +270,7 @@ def test_prefill_into_a_given_cache_keeps_its_tensors():
     cache's own tensors (a captured decode step reads those), and resets
     the self-attention cache, whatever an earlier batch left there."""
     cfg = configs.get_smoke("whisper-base")
-    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params = init_params(cfg, PRNGKey(0), device="cpu")
     cache = init_cache(cfg, 2, MAX_SEQ, device="cpu")
     ptrs = tree_map(lambda t: t.data_ptr(), cache)
     for seed in (0, 1):
@@ -284,7 +285,7 @@ def test_prefill_into_a_given_cache_keeps_its_tensors():
 
 def test_prefill_counts_vision_tokens_against_max_seq():
     cfg = configs.get_smoke("internvl2-26b")
-    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params = init_params(cfg, PRNGKey(0), device="cpu")
     tb, _ = _batches(cfg, 1, 10, seed=0)
     prefill(cfg, params, tb, cfg.vision_tokens + 10)
     with pytest.raises(ValueError, match="vision tokens"):
@@ -308,7 +309,7 @@ def _port_batch(cfg, b, s, seed):
 def test_forward_shapes_and_finite(name):
     cfg = configs.get_smoke(name)
     check_supported(cfg)
-    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params = init_params(cfg, PRNGKey(0), device="cpu")
     logits, aux = forward(cfg, params, _port_batch(cfg, 2, 32, 0))
     assert logits.shape == (2, 32, cfg.padded_vocab)
     assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux))
@@ -320,7 +321,7 @@ def test_prefill_decode_consistency(name):
     bookkeeping, cache masking and RoPE offsets all line up (the JAX
     test's tolerances: 1e-2 with MoE routing, 5e-4 without)."""
     cfg = configs.get_smoke(name)
-    params = init_params(cfg, torch.Generator().manual_seed(2), device="cpu")
+    params = init_params(cfg, PRNGKey(2), device="cpu")
     b, s = 2, 16
     batch = _port_batch(cfg, b, s, 2)
     extra = cfg.vision_tokens if cfg.family == "vlm" else 0

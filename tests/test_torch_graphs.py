@@ -28,6 +28,7 @@ from repro_torch.kernels.graphs import CapturedGraph
 from repro_torch.models import decode_step, init_cache, init_params, prefill
 from repro_torch.models.ssm import F32_LEAVES, f32_leaves
 from repro_torch.models.transformer import tree_map
+from repro_torch.random import PRNGKey
 from repro_torch.serve import Engine, Request
 
 
@@ -96,7 +97,7 @@ def _cfg(name):
 @pytest.mark.parametrize("name", ["smollm-135m", "falcon-mamba-7b"])
 def test_prefill_into_a_static_cache_equals_a_fresh_one(name):
     cfg = _cfg(name)
-    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params = init_params(cfg, PRNGKey(0), device="cpu")
     tokens = torch.from_numpy(
         np.random.default_rng(0).integers(2, cfg.vocab_size, size=(2, 7)).astype(np.int64))
     static = init_cache(cfg, 2, 16, device="cpu")
@@ -123,7 +124,7 @@ def _leaves(tree):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_f32_leaves_cast_once_give_the_same_logits(dtype):
     cfg = dataclasses.replace(_cfg("falcon-mamba-7b"), dtype=dtype)
-    params = init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    params = init_params(cfg, PRNGKey(1), device="cpu")
     cast = dict(params, blocks=[dict(b, ssm=f32_leaves(b["ssm"])) for b in params["blocks"]])
     for k in F32_LEAVES:
         assert cast["blocks"][0]["ssm"][k].dtype == torch.float32
@@ -141,7 +142,7 @@ def test_f32_leaves_cast_once_give_the_same_logits(dtype):
 @pytest.mark.parametrize("name", ["smollm-135m", "falcon-mamba-7b"])
 def test_cpu_engine_captures_nothing_and_casts_once(name):
     cfg = dataclasses.replace(_cfg(name), dtype="bfloat16")
-    params = init_params(cfg, torch.Generator().manual_seed(2), device="cpu")
+    params = init_params(cfg, PRNGKey(2), device="cpu")
     eng = Engine(cfg, params, 2, 16, device="cpu")
     assert eng.decode_graph is None
     if cfg.family == "ssm":  # the engine's copies are f32, the caller's stay bf16

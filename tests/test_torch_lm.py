@@ -41,6 +41,7 @@ from repro_torch.models import (
     prefill,
     unflatten,
 )
+from repro_torch.random import PRNGKey
 from repro_torch.serve import Engine, Request
 
 ASSET = Path(__file__).resolve().parent.parent / "src" / "repro_torch" / "assets" / "smollm_smoke"
@@ -154,8 +155,8 @@ def test_params_from_numpy_takes_bf16_bits_and_checks_shapes(smollm):
 
 def test_init_params_is_seeded_and_scaled():
     cfg = configs.get_smoke("smollm-135m", **SMOLLM)
-    a = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    b = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    a = init_params(cfg, PRNGKey(0), device="cpu")
+    b = init_params(cfg, PRNGKey(0), device="cpu")
     assert torch.equal(a["head"], b["head"])
     assert torch.equal(a["final_norm"], torch.ones(cfg.d_model))
     assert abs(float(a["embed"].std()) - 0.02) < 2e-3

@@ -47,6 +47,7 @@ from repro_torch.models import (
     ssm,
     unflatten,
 )
+from repro_torch.random import PRNGKey
 from repro_torch.serve import Engine, Request
 
 ARCH = "falcon-mamba-7b"
@@ -169,8 +170,8 @@ def test_init_params_uses_the_reference_initialisers(mamba):
     values the other way); random leaves are seeded and scaled by
     1/sqrt(fan_in)."""
     cfg, jparams, _ = mamba
-    a = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    b = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    a = init_params(cfg, PRNGKey(0), device="cpu")
+    b = init_params(cfg, PRNGKey(0), device="cpu")
     s, js = a["blocks"][0]["ssm"], jparams["blocks"][0]["ssm"]
     for key in ("dt_bias", "d"):
         np.testing.assert_array_equal(_np(s[key]), _np(js[key]))

@@ -43,6 +43,7 @@ from repro_torch.data import DataConfig, Pipeline
 from repro_torch.examples import train_jet_tagger
 from repro_torch.launch import train as launch_train
 from repro_torch.models import init_params, loss_fn, params_from_numpy
+from repro_torch.random import PRNGKey
 from repro_torch.optim import make_adamw
 from repro_torch.train import Trainer, checkpoint, make_train_step
 from repro_torch.tree import tree_leaves, tree_map
@@ -150,7 +151,7 @@ def test_microbatch_equivalence(tmp_path):
     base = dict(learning_rate=1e-3, warmup_steps=1, checkpoint_dir=str(tmp_path))
     pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4))
     batch = {k: torch.from_numpy(v) for k, v in pipe.batch_at(0).items()}
-    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params = init_params(cfg, PRNGKey(0), device="cpu")
     out = []
     for mb in (1, 2):
         step, opt_init = make_train_step(cfg, RunConfig(microbatch=mb, **base), device="cpu")
@@ -189,7 +190,7 @@ def _trainer_setup(ckpt_dir, ckpt_every=2):
     step, opt_init = make_train_step(cfg, run_cfg, device="cpu")
 
     def init_fn():
-        return init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        return init_params(cfg, PRNGKey(0), device="cpu")
 
     return cfg, run_cfg, pipe, init_fn, step, opt_init
 
@@ -239,7 +240,7 @@ def test_jax_checkpoint_restores_in_the_port_and_back(tmp_path):
     jtree = {"p": jp, "o": j_init(jp)}
     jax_checkpoint.save(str(tmp_path / "jax"), 3, jtree)
     t_init, _ = make_adamw()
-    like = {"p": init_params(cfg, torch.Generator().manual_seed(1), device="cpu")}
+    like = {"p": init_params(cfg, PRNGKey(1), device="cpu")}
     like["o"] = t_init(like["p"])
     assert checkpoint.latest_step(str(tmp_path / "jax")) == 3
     got = checkpoint.restore(str(tmp_path / "jax"), 3, like)
@@ -260,7 +261,7 @@ def test_bf16_tree_round_trips(async_, tmp_path):
     descr '<V2') and read back bit for bit; so are int8 moments and the
     f32 master.  The async save copies every leaf before it returns."""
     cfg = dataclasses.replace(configs.get_smoke("smollm-135m"), dtype="bfloat16")
-    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params = init_params(cfg, PRNGKey(0), device="cpu")
     init, _ = make_adamw(state_dtype="int8")
     tree = {"p": params, "o": init(params)}
     want = [x.clone() for x in tree_leaves(tree)]
@@ -269,7 +270,7 @@ def test_bf16_tree_round_trips(async_, tmp_path):
         x.zero_()
     if thread is not None:
         thread.join()
-    like = {"p": init_params(cfg, torch.Generator().manual_seed(2), device="cpu")}
+    like = {"p": init_params(cfg, PRNGKey(2), device="cpu")}
     like["o"] = init(like["p"])
     got = checkpoint.restore(str(tmp_path), 1, like)
     for a, b in zip(want, tree_leaves(got)):
