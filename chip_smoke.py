@@ -4,7 +4,7 @@
     python3 chip_smoke.py            (from the repository root)
 
 Builds every CUDA kernel of the port from the sources in the checkout,
-then runs twenty-nine phases, each of which must pass:
+then runs thirty phases, each of which must pass:
 
 1. probe    the card (``nvidia-smi`` name and power limit), CUDA and nvcc
             versions, ptxas resource usage of each kernel, and that
@@ -161,7 +161,9 @@ then runs twenty-nine phases, each of which must pass:
             replays): every future golden, v1 drained with its graphs
             released, v2 serving, launches counted as phase 4 counts for
             both versions; two jet_tagger designs compiled on the card by
-            ``Flow.compile`` from two seeds, rolled v1 -> v2 (v1 kept) ->
+            ``Flow.compile`` from the weights of ``PRNGKey(0)`` and
+            ``PRNGKey(1)`` (the JAX package's, drawn on the card), rolled
+            v1 -> v2 (v1 kept) ->
             ``activate(1)`` -> ``unregister``, every output its own
             version's ``forward_int`` and the two versions different; five
             register/drain cycles of the Mixer, device memory read after
@@ -247,10 +249,12 @@ then runs twenty-nine phases, each of which must pass:
             falling; the scan backward at the main path's inputs timed
             beside its bound;
 25. qat     the jet tagger's QAT workflow through its example entry point
-            (``python -m repro_torch.examples.train_jet_tagger``): 300
-            steps, both compile strategies, the design bit-exact to the
-            float model, served through ``ServeEngine`` on the adder-graph
-            kernel;
+            (``python -m repro_torch.examples.train_jet_tagger``) on the
+            JAX example's keys (its weights, class centres and batches,
+            drawn on the card: one threefry launch a layer, the centres and
+            each batch's labels and features counted): 300 steps, both
+            compile strategies, the design bit-exact to the float model,
+            served through ``ServeEngine`` on the adder-graph kernel;
 26. shard   the sharded path on the card: a one-rank NCCL group (a
             ``FileStore`` in a temporary directory) and a 1x1 ("data",
             "model") mesh.  smollm-135m at full width: one train step under
@@ -321,9 +325,9 @@ then runs twenty-nine phases, each of which must pass:
             plain version at the same global indices, and one launch over
             the shard's largest leaf (1,343 M elements) timed beside its
             bound.
-Phases 23 and 28 draw parameters inside their counted runs (the
-Trainer's and the examples' inits): their launches include the threefry
-kernel's; phase 26 draws its sharded parameters through ``shardings=``.
+Phases 23, 25 and 28 draw parameters inside their counted runs (the
+Trainer's and the examples' inits, the jet tagger's data): their
+launches include the threefry kernel's; phase 26 draws its sharded parameters through ``shardings=``.
 Phases 17-21 each start on an emptied card (what stays allocated is
 printed) and print the decode step's device time by kernel, launches,
 idle share and bytes bound.  Around phase 19 the allocator's snapshot
@@ -581,7 +585,7 @@ def launch_counters() -> dict:
     return {"adder_graph": ag_kernel.launches, "flash_attention": fa_kernel.launches,
             "ssm_scan": ss_kernel.launches, "quant_matmul": qm_kernel.launches,
             "flash_attention_bwd": fa_kernel.bwd_launches, "ssm_scan_bwd": ss_kernel.bwd_launches,
-            "prng": prng_kernel.launches}
+            "prng": prng_kernel.launches, "gumbel_pick": prng_kernel.pick_launches}
 
 
 def kernel_counters() -> dict:
@@ -2271,6 +2275,7 @@ def serve_flow(torch, np, dev, mixer_path, x_gold, y_gold, port_mixer) -> dict:
     from repro_torch.flow import CompileConfig, Flow, ServeConfig
     from repro_torch.nn import init_params, models
     from repro_torch.nn.compiler import count_cmvm_steps
+    from repro_torch.random import PRNGKey
     from repro_torch.runtime import ServeEngine
 
     out = {}
@@ -2323,7 +2328,7 @@ def serve_flow(torch, np, dev, mixer_path, x_gold, y_gold, port_mixer) -> dict:
     jets = []
     t0 = time.perf_counter()
     for seed in (0, 1):
-        params, _ = init_params(model, in_shape, torch.Generator(dev).manual_seed(seed), dev)
+        params, _ = init_params(PRNGKey(seed), model, in_shape, dev)
         jets.append(Flow.compile(model, params, in_shape, in_quant, config=CompileConfig(),
                                  device=dev))
     compile_s = time.perf_counter() - t0
@@ -3159,23 +3164,43 @@ def train_falcon(torch, np, dev, info) -> dict:
     return out
 
 
+def nn_draws(model) -> int:
+    """The threefry launches of the NN front end's ``init_params`` on the
+    card: one a CMVM layer's weights (a ``Residual``'s body counted
+    within)."""
+    from repro_torch.nn import QConv2D, QDense, QDenseOnAxis, Residual
+
+    return sum(nn_draws(spec.body) if isinstance(spec, Residual)
+               else isinstance(spec, (QDense, QDenseOnAxis, QConv2D)) for spec in model)
+
+
 def train_jet_tagger_phase(torch) -> dict:
     """Phase 25: the paper's QAT workflow on the card through its example
-    entry point: 300 SGD steps with the STE ``fake_quant`` and the
+    entry point: the JAX example's keys (the weights of ``PRNGKey(0)``,
+    the data of ``PRNGKey(1)``, a split a step) drawn by the threefry
+    kernel, 300 SGD steps with the STE ``fake_quant`` and the
     ``collect_bits`` penalty, ``compile_model`` with both strategies,
     float64 ``apply_model`` == the design's ``forward`` (checked inside),
     and a burst served through ``ServeEngine`` on the adder-graph kernel
     equal to ``forward_int``."""
     from repro_torch.examples import train_jet_tagger
+    from repro_torch.nn import models
 
+    steps = 300
     reset_counts()
-    out = train_jet_tagger.main(["--device", "cuda", "--steps", "300"])
+    out = train_jet_tagger.main(["--device", "cuda", "--steps", str(steps)])
     counts = read_counts()
     check(counts["adder_graph"] > 0, "the jet tagger was not served on the adder-graph kernel")
-    check_only(counts, "adder_graph", "the jet tagger's workflow")
+    check_only(counts, {"adder_graph", "prng"}, "the jet tagger's workflow")
+    # the init, the class centres, each batch (two bits draws for the
+    # labels, one normal for the features) and the evaluation batch
+    draws = nn_draws(models.jet_tagger()[0]) + 1 + 3 * (steps + 1)
+    check(counts["prng"] == draws, f"the jet tagger: {counts['prng']} threefry launches, want "
+                                   f"{draws}")
     check(out["accuracy"] > 0.9 and out["hw_accuracy"] > 0.9,
           f"the jet tagger's accuracy {out['accuracy']}, on the design {out['hw_accuracy']}")
     out["adder_graph_launches"] = counts["adder_graph"]
+    out["prng_launches"] = counts["prng"]
     log("jet tagger: " + json.dumps(out))
     return out
 
@@ -4078,6 +4103,211 @@ def prng_phase(torch, np, dev, info: dict, inits: dict) -> dict:
     }
 
 
+# ----------------------------------------------------------------------
+# 30. the categorical pick: the Gumbel-max kernel
+# ----------------------------------------------------------------------
+PICK_ULPS = 4  # float32: the card's logf against the plain version's log, carried to the scores
+PICK_TEMPERATURES = (1.0, 0.7)
+PICK_TIED_ROWS = 2  # rows of one logit value each case: the noise's ties decide them
+PICK_SERVED_ARCH = "smollm-135m"
+PICK_F32_ARCH = "falcon-mamba-7b"  # held in float32 at full width (phase 11)
+
+
+def pick_logits(torch, dev, b, v, dtype, seed):
+    """[b, v] decode-like logits (normal x 3) in ``dtype``, the first
+    PICK_TIED_ROWS rows of one value each (bfloat16: 0, where the largest
+    of the 128 noise values ties; float32: 2^26, whose spacing of 8 rounds
+    most of the noise away)."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn((b, v), generator=gen, device=dev) * 3
+    x[:PICK_TIED_ROWS] = 0.0 if dtype == torch.bfloat16 else 2.0**26
+    return x.to(dtype)
+
+
+def pick_cases(torch, dev) -> dict:
+    """The pick kernel against its plain version, both on the card, at each
+    served architecture's decode logits [8, padded vocabulary] in bfloat16
+    and at falcon-mamba-7b's in float32, at PICK_TEMPERATURES, with tied
+    rows: bfloat16 picks equal; float32 picks equal but where the plain
+    scores of the two picks lie within PICK_ULPS ulp (counted).  Then the
+    threefry kernel's Gumbel draws against the plain version's: bfloat16
+    equal (every one of its 128 values), float32 within two ulp of the
+    larger of |x| and 1."""
+    from repro_torch import configs
+    from repro_torch import random as R
+    from repro_torch.kernels.prng import kernel as prng_kernel
+    from repro_torch.kernels.prng.ref import draw_ref, gumbel_pick_ref, pick_scores_ref
+
+    shapes = {arch: (configs.get(arch).padded_vocab, torch.bfloat16) for arch in lm_paths()}
+    shapes[PICK_F32_ARCH + " (f32)"] = (configs.get(PICK_F32_ARCH).padded_vocab, torch.float32)
+    out = {"cases": 0, "rows": 0, "rows_apart": 0, "max_abs_err": 0.0, "ties": 0, "by_arch": {}}
+    for i, (arch, (v, dtype)) in enumerate(shapes.items()):
+        x = pick_logits(torch, dev, SERVE_BATCH, v, dtype, i)
+        for temperature in PICK_TEMPERATURES:
+            k0, k1 = R.key_words(R.split(R.PRNGKey(i), 2)[1])
+            got = prng_kernel.gumbel_pick_cuda(x, k0, k1, temperature)
+            want = gumbel_pick_ref(x, k0, k1, temperature)
+            scores = pick_scores_ref(x, k0, k1, temperature).float()
+            torch.cuda.synchronize()
+            rows = torch.arange(SERVE_BATCH, device=dev)
+            apart = got != want
+            top = scores.max(-1).values
+            out["ties"] += int(((scores == top[:, None]).sum(-1) > 1).sum())
+            err = float((scores[rows, got] - scores[rows, want]).abs().max())
+            what = f"pick {arch} {str(dtype)[6:]} [{SERVE_BATCH}, {v}] T {temperature}"
+            if dtype == torch.bfloat16:
+                check(not bool(apart.any()), f"{what}: kernel {got.tolist()} != plain "
+                                             f"{want.tolist()}")
+            else:
+                ulps = (_ordered_f32(torch, scores[rows, got])
+                        - _ordered_f32(torch, scores[rows, want])).abs()
+                check(bool((ulps[apart] <= PICK_ULPS).all()),
+                      f"{what}: rows {apart.nonzero().flatten().tolist()} apart by "
+                      f"{ulps[apart].tolist()} ulp of their scores")
+            out["cases"] += 1
+            out["rows"] += SERVE_BATCH
+            out["rows_apart"] += int(apart.sum())
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            out["by_arch"].setdefault(arch, []).append(
+                {"T": temperature, "rows_apart": int(apart.sum()), "max_abs_err": err})
+    check(out["ties"] >= PICK_TIED_ROWS, f"pick: only {out['ties']} rows tie at their maximum")
+    # the Gumbel draws of the threefry kernel
+    k0, k1 = R.key_words(R.PRNGKey(5))
+    n = 1 << 20
+    got = prng_kernel.draw_cuda(torch.empty(n, dtype=torch.bfloat16, device=dev), k0, k1, (n,),
+                                (0,), "gumbel")
+    want = draw_ref(torch.empty(n, dtype=torch.bfloat16, device=dev), k0, k1, (n,), (0,),
+                    "gumbel")
+    check(torch.equal(got, want), "gumbel bf16: the threefry kernel != its plain version")
+    out["gumbel_bf16_values"] = int(torch.unique(got).numel())
+    got = prng_kernel.draw_cuda(torch.empty(n, device=dev), k0, k1, (n,), (0,), "gumbel")
+    want = draw_ref(torch.empty(n, device=dev), k0, k1, (n,), (0,), "gumbel")
+    scale = torch.maximum(want.abs(), torch.ones_like(want))
+    scale = (torch.nextafter(scale, scale * 2) - scale).double()
+    far = float(((got.double() - want.double()).abs() / scale).max())
+    check(far <= 2, f"gumbel f32: the threefry kernel {far} ulp of max(|x|, 1) from its plain "
+                    "version")
+    out["gumbel_f32_ulps_of_max_x_1"] = far
+    out["gumbel_f32_apart"] = float((got != want).float().mean())
+    return out
+
+
+def pick_time(torch, dev, info: dict, v: int, dtype) -> dict:
+    """The pick at [SERVE_BATCH, v] logits in ``dtype``: the kernel's and
+    the plain version's device time per call (graph replays), beside the
+    bound and ``torch.multinomial`` of the softmax (another draw, a
+    yardstick only: no PyTorch call draws JAX's numbers)."""
+    from repro_torch.kernels.prng import kernel as prng_kernel
+    from repro_torch.kernels.prng.ref import gumbel_pick_ref
+
+    x = pick_logits(torch, dev, SERVE_BATCH, v, dtype, 99)
+    n = SERVE_BATCH * v
+    ms = graph_ms(torch, lambda: prng_kernel.gumbel_pick_cuda(x, 1, 2, 0.7))
+    plain_ms = graph_ms(torch, lambda: gumbel_pick_ref(x, 1, 2, 0.7), calls=2, replays=5)
+    multinomial_ms = graph_ms(
+        torch, lambda: torch.multinomial(torch.softmax(x.float() / 0.7, -1), 1))
+    bytes_ms = (n * x.element_size() + SERVE_BATCH * 8) / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(n * prng_kernel.PICK_INT32_OPS_PER_ELEMENT / info["int32_ops_per_s"],
+                 n * prng_kernel.PICK_F32_FLOPS_PER_ELEMENT[dtype] / F32_FLOPS_PER_S) * 1e3
+    return {"shape": f"logits [{SERVE_BATCH}, {v}] {str(dtype)[6:]}, T 0.7", "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None, "multinomial_ms": multinomial_ms}
+
+
+def serve_categorical(torch, np, dev) -> dict:
+    """PICK_SERVED_ARCH served as phase 8 serves it, with
+    ``sample="categorical"``: counted (the flash launches of phase 8, one
+    pick launch a pick -- after prefill and after each decode step -- and
+    no other kernel); the tokens equal to the same engine's with the pick
+    swapped for its plain version (the key reset to the reference's
+    PRNGKey(0)); tokens/s beside greedy's on the same engine."""
+    from repro_torch import configs
+    from repro_torch.kernels.prng import ref
+    from repro_torch.models import init_params
+    from repro_torch.random import PRNGKey
+    from repro_torch.serve import engine as engine_mod
+
+    cfg = configs.get(PICK_SERVED_ARCH)
+    want = expected_launches(cfg)
+    params = init_params(cfg, PRNGKey(0), device=dev)
+    prompts = np.random.default_rng(0).integers(
+        2, cfg.vocab_size, size=(SERVE_BATCH, PROMPT_LEN)).astype(np.int32)
+    eng = engine_mod.Engine(cfg, params, batch_size=SERVE_BATCH, max_seq=SERVE_MAX_SEQ,
+                            eos_id=-1, sample="categorical", temperature=0.7)
+
+    def run(sample):
+        eng.sample, eng.key = sample, PRNGKey(0)
+        reqs = requests_for(prompts, NEW_TOKENS)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        eng.generate(reqs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return [r.out_tokens for r in reqs], read_counts(), dt
+
+    run("categorical")  # warm-up: the first prefill's cuBLAS choices
+    greedy, _, greedy_s = run("greedy")
+    toks, counts, cat_s = run("categorical")
+    flash = {k: want["prefill"][k] + (NEW_TOKENS - 1) * want["decode"][k] for k in want["decode"]}
+    picks = NEW_TOKENS  # one after prefill, one after each of the NEW_TOKENS - 1 decode steps
+    check(counts["gumbel_pick"] == picks,
+          f"categorical serve: {counts['gumbel_pick']} pick launches, want {picks}")
+    check({k: counts[k] for k in flash} == flash,
+          f"categorical serve: launches {counts}, want {flash} and {picks} picks")
+    check_only(counts, {"gumbel_pick", *flash}, "the categorical serve")
+    check(all(len(t) == NEW_TOKENS and all(0 <= x < cfg.padded_vocab for x in t) for t in toks),
+          "categorical serve: a request fell short or a token lies outside the logits")
+    check(toks != greedy, "categorical serve: the same tokens as greedy")
+    plain_pick = lambda logits, k0, k1, t: ref.gumbel_pick_ref(logits, k0, k1, t)  # noqa: E731
+    with swapped([(engine_mod, "gumbel_pick", plain_pick)]):
+        plain, plain_counts, _ = run("categorical")
+    check(plain_counts["gumbel_pick"] == 0, "the plain-swapped engine launched the pick kernel")
+    n_diff = sum(a != b for ta, tb in zip(toks, plain) for a, b in zip(ta, tb))
+    check(n_diff == 0, f"categorical serve: {n_diff} tokens differ from the plain pick's")
+    n_tok = SERVE_BATCH * NEW_TOKENS
+    out = {"arch": cfg.name, "launches": {k: counts[k] for k in ("gumbel_pick", *flash)},
+           "picks": picks, "tokens_per_s": n_tok / cat_s, "greedy_tokens_per_s": n_tok / greedy_s,
+           "tokens_equal_plain_pick": True}
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def pick_phase(torch, np, dev, info: dict) -> dict:
+    """Phase 30: the Gumbel-max pick kernel against its plain version, its
+    time beside its bound, and smollm-135m served categorically through
+    it."""
+    from repro_torch import configs
+
+    cases = pick_cases(torch, dev)
+    log("pick kernel vs plain version on the card: " + json.dumps(cases))
+    main_t = pick_time(torch, dev, info, configs.get(PICK_SERVED_ARCH).padded_vocab,
+                       torch.bfloat16)
+    f32_t = pick_time(torch, dev, info, configs.get(PICK_F32_ARCH).padded_vocab, torch.float32)
+    log("pick times: " + json.dumps({"bf16": main_t, "f32": f32_t}))
+    served = serve_categorical(torch, np, dev)
+    log(f"serve {served['arch']} categorically (T 0.7): " + json.dumps(served))
+    return {
+        "name": "gumbel_pick",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/prng/csrc/gumbel_pick.cu",
+        "replaces": "src/repro/serve/engine.py:60",
+        "replaces_note": "no TPU kernel: the JAX engine's jax.random.categorical(sub, logits / T), "
+                         "which XLA runs as threefry, -log(-log(u)), an add and an argmax",
+        "launches": served["launches"]["gumbel_pick"],
+        "max_abs_err": cases["max_abs_err"],
+        **{k: main_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                  "shape", "multinomial_ms")},
+        "library": "none: no PyTorch call draws JAX's numbers (torch.multinomial of the "
+                   "softmax, another draw, timed as multinomial_ms)",
+        "f32": f32_t,
+        "cases": cases,
+        "serve": served,
+    }
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4503,7 +4733,12 @@ def main() -> int:
     prng_entry["launches_train_smollm_135m"] = sm_train["launches"].get("prng")
     prng_entry["launches_examples"] = {twin: n["prng"] for twin, n in ex_launches.items()
                                        if n.get("prng")}
+    prng_entry["launches_jet_tagger"] = jet["prng_launches"]
     kernels["kernels"].append(prng_entry)
+
+    log("== 30. the categorical pick: the Gumbel-max kernel")
+    fresh_card(torch)
+    kernels["kernels"].append(pick_phase(torch, np, dev, info))
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(info["nvidia_smi"])

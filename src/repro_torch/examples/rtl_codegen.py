@@ -3,14 +3,13 @@ no HLS in the loop; the port of ``examples/rtl_codegen.py``.
 
     PYTHONPATH=src python -m repro_torch.examples.rtl_codegen [--device cuda|cpu] [--out FILE]
 
-Host code only (the solver, Verilog emission, the model compiler): it
-launches no kernel.  The single CMVM comes from numpy's
+Host code but the muon tracker's initial draw (on the card one threefry
+launch a dense layer).  The single CMVM comes from numpy's
 ``default_rng(3)`` as in the JAX example, so its modules are that
-example's text.  The muon tracker's weights are drawn from a
-``torch.Generator`` (seed 0), which gives other numbers than the JAX
-example's ``jax.random`` key; ``tracker_report`` compiles any parameter
-list, the JAX package's carried across with ``nn.params_from_numpy``
-included.
+example's text.  The muon tracker's weights are
+``init_params(PRNGKey(0), ...)``, the JAX example's parameters, so its
+design and its ``dense0`` Verilog are that example's too;
+``tracker_report`` compiles any parameter list.
 """
 
 from __future__ import annotations
@@ -20,13 +19,13 @@ import os
 import tempfile
 
 import numpy as np
-import torch
 
 from .._device import resolve_device
 from ..core import emit_verilog, pipeline, solve_cmvm
 from ..core.fixed_point import QInterval
 from ..flow import CompileConfig, SolverConfig
 from ..nn import compile_model, init_params, models
+from ..random import PRNGKey
 
 
 def tracker_report(params, device) -> dict:
@@ -78,7 +77,7 @@ def main(argv=None) -> dict:
 
     # --- whole-network resource report through the model compiler ---
     model, in_shape, _ = models.muon_tracker(d_in=32)
-    params, _ = init_params(model, in_shape, torch.Generator(dev).manual_seed(0), device=dev)
+    params, _ = init_params(PRNGKey(0), model, in_shape, device=dev)
     rep = tracker_report(params, dev)
     design = rep["design"]
     return {"comb": comb, "piped": piped, "n_stages": n_stages, "out": args.out,

@@ -1,5 +1,6 @@
 // Counter-based random draw for NVIDIA Hopper (sm_90a): jax.random's
-// threefry2x32 over the flat index, its uniform and its normal.
+// threefry2x32 over the flat index, its uniform, its normal and its
+// Gumbel noise.
 //
 // Replaces no TPU kernel: the JAX package draws its parameters with
 // jax.random (src/repro/models/transformer.py:_init_leaf,
@@ -14,15 +15,17 @@
 //     the digits of the thread's local flat index over the window's merged
 //     dims (at most 4; kernel.py/ref.py window_plan merges them);
 //   - (y0, y1) = threefry2x32((k0, k1), (g >> 32, g & 0xffffffff)), 20
-//     rounds in 32-bit registers, rotations as __funnelshift_l; the 32
-//     random bits are y0 ^ y1 (jax.random.bits);
+//     rounds in 32-bit registers, rotations as __funnelshift_l
+//     (threefry.cuh); the 32 random bits are y0 ^ y1 (jax.random.bits);
 //   - uniform: (bits >> 9) | 0x3f800000 as a float in [1, 2), minus 1,
 //     times (maxval - minval) plus minval in one fmaf, clamped below at
 //     minval (jax.random's _uniform, whose product and sum XLA fuses);
 //   - normal: the uniform on [nextafter(-1, 0), 1), then sqrt(2) times
 //     XLA's ErfInv32 (Giles' two 9-term polynomials, w = -log1p(-x^2),
 //     each step an fmaf), times the leaf's scale, written as float32 or
-//     rounded to bfloat16 (round to nearest even).
+//     rounded to bfloat16 (round to nearest even);
+//   - gumbel: -log(-log(u)), u on [tiny, 1) (threefry.cuh's gumbel_f32 and
+//     gumbel_bf16, which the categorical pick, gumbel_pick.cu, shares).
 // Or the bits themselves, zero-extended into an int64 output, so the
 // integer part can be held exactly against the plain version.
 //
@@ -41,12 +44,21 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "threefry.cuh"
+
 namespace {
+
+using da4ml_prng::gumbel_bf16;
+using da4ml_prng::gumbel_bf16_mantissa;
+using da4ml_prng::gumbel_f32;
+using da4ml_prng::threefry_bits;
 
 constexpr int kThreads = 256;
 constexpr int kMaxDims = 4;
 
-enum Kind : int { kBits = 0, kUniform = 1, kNormalF32 = 2, kNormalBf16 = 3 };
+enum Kind : int {
+  kBits = 0, kUniform = 1, kNormalF32 = 2, kNormalBf16 = 3, kGumbelF32 = 4, kGumbelBf16 = 5
+};
 
 struct Args {
   uint32_t k0, k1;
@@ -58,52 +70,6 @@ struct Args {
   float range, minval, scale;
   void* out;
 };
-
-template <int R>
-__device__ __forceinline__ void mix(uint32_t& x0, uint32_t& x1) {
-  x0 += x1;
-  x1 = __funnelshift_l(x1, x1, R);
-  x1 ^= x0;
-}
-
-__device__ __forceinline__ void rounds_a(uint32_t& x0, uint32_t& x1) {
-  mix<13>(x0, x1);
-  mix<15>(x0, x1);
-  mix<26>(x0, x1);
-  mix<6>(x0, x1);
-}
-
-__device__ __forceinline__ void rounds_b(uint32_t& x0, uint32_t& x1) {
-  mix<17>(x0, x1);
-  mix<29>(x0, x1);
-  mix<16>(x0, x1);
-  mix<24>(x0, x1);
-}
-
-// threefry2x32 of the count (x0, x1) under (k0, k1), as XLA's unrolled
-// lowering of jax's threefry2x32_p; returns y0 ^ y1
-__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1, uint32_t x0,
-                                                  uint32_t x1) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  x0 += k0;
-  x1 += k1;
-  rounds_a(x0, x1);
-  x0 += k1;
-  x1 += k2 + 1u;
-  rounds_b(x0, x1);
-  x0 += k2;
-  x1 += k0 + 2u;
-  rounds_a(x0, x1);
-  x0 += k0;
-  x1 += k1 + 3u;
-  rounds_b(x0, x1);
-  x0 += k1;
-  x1 += k2 + 4u;
-  rounds_a(x0, x1);
-  x0 += k2;
-  x1 += k0 + 5u;
-  return x0 ^ x1;
-}
 
 // XLA's ErfInv32, each step of the polynomial a fused multiply-add
 __device__ __forceinline__ float erf_inv32(float x) {
@@ -145,6 +111,10 @@ __global__ void __launch_bounds__(kThreads) threefry_kernel(const Args a) {
       threefry_bits(a.k0, a.k1, static_cast<uint32_t>(g >> 32), static_cast<uint32_t>(g));
   if constexpr (KIND == kBits) {
     static_cast<long long*>(a.out)[i] = static_cast<long long>(bits);
+  } else if constexpr (KIND == kGumbelF32) {
+    static_cast<float*>(a.out)[i] = gumbel_f32(bits);
+  } else if constexpr (KIND == kGumbelBf16) {
+    static_cast<__nv_bfloat16*>(a.out)[i] = __float2bfloat16_rn(gumbel_bf16(gumbel_bf16_mantissa(bits)));
   } else {
     const float f = __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
     const float u = fmaxf(a.minval, fmaf(f, a.range, a.minval));
@@ -180,7 +150,7 @@ extern "C" int da4ml_threefry(int kind, unsigned int k0, unsigned int k1, unsign
                               long long len3, long long stride0, long long stride1,
                               long long stride2, long long stride3, float range, float minval,
                               float scale, void* out, void* stream) {
-  if (kind < kBits || kind > kNormalBf16 || n <= 0 || nd < 1 || nd > kMaxDims || out == nullptr ||
+  if (kind < kBits || kind > kGumbelBf16 || n <= 0 || nd < 1 || nd > kMaxDims || out == nullptr ||
       (n + kThreads - 1) / kThreads > 0x7FFFFFFFLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -197,7 +167,9 @@ extern "C" int da4ml_threefry(int kind, unsigned int k0, unsigned int k1, unsign
     case kBits: return static_cast<int>(launch<kBits>(a, s));
     case kUniform: return static_cast<int>(launch<kUniform>(a, s));
     case kNormalF32: return static_cast<int>(launch<kNormalF32>(a, s));
-    default: return static_cast<int>(launch<kNormalBf16>(a, s));
+    case kNormalBf16: return static_cast<int>(launch<kNormalBf16>(a, s));
+    case kGumbelF32: return static_cast<int>(launch<kGumbelF32>(a, s));
+    default: return static_cast<int>(launch<kGumbelBf16>(a, s));
   }
 }
 

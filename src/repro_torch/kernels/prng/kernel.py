@@ -1,15 +1,21 @@
-"""Launch wrapper of the Hopper counter-based draw (``csrc/threefry.cu``).
+"""Launch wrappers of the Hopper counter-based draw (``csrc/threefry.cu``)
+and of the categorical pick built on it (``csrc/gumbel_pick.cu``).
 
-It replaces no TPU kernel: the JAX package draws its parameters with
-``jax.random`` (``src/repro/models/transformer.py``, ``_init_leaf``),
-which XLA lowers to its own threefry.  The kernel draws the same
-numbers: one thread per element of a window of a larger array, the
-element's global flat index hashed under the key, then the bits, the
-uniform or the normal (times a scale, as float32 or bfloat16) written in
-place.  The wrapper checks what the kernel takes, launches on the current
-stream, raises :class:`KernelError` on a launch error, and counts its
-launches in ``launches``.  Nothing is built on import: the library is
-built and loaded on the first launch.
+Neither replaces a TPU kernel.  The JAX package draws its parameters
+with ``jax.random`` (``src/repro/models/transformer.py``, ``_init_leaf``;
+``src/repro/nn/layers.py``, ``_glorot``), which XLA lowers to its own
+threefry.  The draw kernel gives the same numbers: one thread per
+element of a window of a larger array, the element's global flat index
+hashed under the key, then the bits, the uniform, the normal (times a
+scale, as float32 or bfloat16) or the Gumbel noise written in place.
+The JAX engine's categorical pick (``src/repro/serve/engine.py``,
+``jax.random.categorical`` of ``logits / T``) is XLA's threefry,
+``-log(-log(u))``, an add and an ``argmax``; the pick kernel fuses them
+and writes one index a row.  Each wrapper checks what its kernel takes,
+launches on the current stream, raises :class:`KernelError` on a launch
+error, and counts its launches (``launches``, ``pick_launches``).
+Nothing is built on import: a library is built and loaded on its first
+launch.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import ctypes
 import torch
 
 from .._build import KernelError, LaunchCounter, library
-from .ref import KINDS, NORMAL_LO, f32, window_plan
+from .ref import KINDS, NORMAL_LO, f32, weak_scalar, window_plan
 
 MAX_DIMS = 4  # merged dims of a window the kernel takes
 BLOCK = 256  # threads a block, one element each
@@ -30,11 +36,20 @@ BLOCK = 256  # threads a block, one element each
 # flops of its own polynomial)
 INT32_OPS_PER_ELEMENT = 77
 F32_FLOPS_PER_ELEMENT = 50
+# the pick's work per logit, for its bound: the index and the hash (74
+# int32 operations) and the noise's index or mantissa, the compare and
+# the select (4); float32 flops: bf16 -- the division, the sum and two
+# roundings (the noise is one of 128 values, from a table each block
+# fills) -- or f32 -- the division, the sum and two logf (~20 each)
+PICK_INT32_OPS_PER_ELEMENT = 78
+PICK_F32_FLOPS_PER_ELEMENT = {torch.bfloat16: 4, torch.float32: 42}
 
 launches = LaunchCounter("prng")
+pick_launches = LaunchCounter("gumbel_pick")
 
 _OUT_DTYPES = {"bits": (torch.int64,), "uniform": (torch.float32,),
-               "normal": (torch.float32, torch.bfloat16)}
+               "normal": (torch.float32, torch.bfloat16),
+               "gumbel": (torch.float32, torch.bfloat16)}
 
 _c_int = ctypes.c_int
 _c_uint = ctypes.c_uint
@@ -63,11 +78,30 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _pick_lib() -> ctypes.CDLL:
+    lib = library("gumbel_pick")
+    if lib.da4ml_gumbel_pick.argtypes is None:
+        lib.da4ml_gumbel_pick.argtypes = [
+            _c_int,  # bfloat16 logits (1) or float32 (0)
+            _c_ptr,  # logits
+            _c_int, _c_int, _c_ll,  # rows, their length, the row stride in elements
+            _c_uint, _c_uint,  # the key's two words
+            _c_float,  # the temperature, rounded to the logits' dtype
+            _c_ptr,  # out: int64 [rows]
+            _c_ptr,  # stream
+        ]
+        lib.da4ml_gumbel_pick.restype = _c_int
+        lib.da4ml_cuda_error_string.argtypes = [_c_int]
+        lib.da4ml_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def kernel_kind(kind: str, dtype: torch.dtype) -> int:
     """The C entry point's code of a draw of ``kind`` into ``dtype``."""
     if kind not in KINDS or dtype not in _OUT_DTYPES[kind]:
         raise TypeError(f"a {kind} draw goes to {_OUT_DTYPES.get(kind)}, got {dtype}")
-    return {"bits": 0, "uniform": 1}.get(kind, 2 if dtype == torch.float32 else 3)
+    bf16 = dtype == torch.bfloat16
+    return {"bits": 0, "uniform": 1, "normal": 2 + bf16, "gumbel": 4 + bf16}[kind]
 
 
 def draw_cuda(out: torch.Tensor, k0: int, k1: int, shape, offset, kind: str,
@@ -75,8 +109,9 @@ def draw_cuda(out: torch.Tensor, k0: int, k1: int, shape, offset, kind: str,
     """Fill the contiguous CUDA tensor ``out`` -- the block at ``offset``
     of an array of ``shape`` -- with the draw of key (k0, k1) there: the
     32 random bits (int64 ``out``), the uniform on [minval, maxval)
-    (float32) or the normal times ``scale`` (float32 or bfloat16).  One
-    launch (none for an empty block)."""
+    (float32), the normal times ``scale`` (float32 or bfloat16) or the
+    Gumbel noise (float32 or bfloat16).  One launch (none for an empty
+    block)."""
     if out.device.type != "cuda":
         raise ValueError(f"draw_cuda takes a CUDA tensor, got one on {out.device}")
     if not out.is_contiguous():
@@ -107,4 +142,38 @@ def draw_cuda(out: torch.Tensor, k0: int, k1: int, shape, offset, kind: str,
         msg = lib.da4ml_cuda_error_string(err).decode()
         raise KernelError(f"threefry kernel launch failed: {msg} (cudaError {err})")
     launches.add()
+    return out
+
+
+def gumbel_pick_cuda(logits: torch.Tensor, k0: int, k1: int,
+                     temperature: float = 1.0) -> torch.Tensor:
+    """For each row of the CUDA tensor ``logits`` [B, V] (float32 or
+    bfloat16, unit stride along V), the first index of the maximum of
+    ``logits / T + gumbel(key, [B, V], dtype)``, with the JAX engine's
+    roundings (``ref.gumbel_pick_ref``).  Returns int64 [B]; one launch."""
+    if logits.device.type != "cuda":
+        raise ValueError(f"gumbel_pick_cuda takes a CUDA tensor, got one on {logits.device}")
+    if logits.dim() != 2 or logits.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the pick takes float32 or bfloat16 logits [B, V], got "
+                        f"{logits.dtype} {tuple(logits.shape)}")
+    b, v = logits.shape
+    if v == 0 or (v > 1 and logits.stride(1) != 1):
+        raise ValueError(f"the pick needs V >= 1 and unit stride along V, got {tuple(logits.shape)} "
+                         f"strides {logits.stride()}")
+    if v >= 2**31 or b > 65535:
+        raise ValueError(f"the pick takes V < 2^31 and B <= 65535, got {tuple(logits.shape)}")
+    out = torch.empty(b, dtype=torch.int64, device=logits.device)
+    if b == 0:
+        return out
+    lib = _pick_lib()
+    with torch.cuda.device(logits.device):
+        err = lib.da4ml_gumbel_pick(
+            int(logits.dtype == torch.bfloat16), logits.data_ptr(), b, v, logits.stride(0),
+            k0, k1, weak_scalar(temperature, logits.dtype), out.data_ptr(),
+            torch.cuda.current_stream(logits.device).cuda_stream,
+        )
+    if err != 0:
+        msg = lib.da4ml_cuda_error_string(err).decode()
+        raise KernelError(f"gumbel pick kernel launch failed: {msg} (cudaError {err})")
+    pick_launches.add()
     return out

@@ -1,7 +1,9 @@
 """Plain PyTorch version of the counter-based draw: the port of what the
-JAX package's ``init_params`` uses from ``jax.random`` (threefry2x32
-over the flat index, the uniform's mantissa trick, ``normal`` as
-sqrt(2) erf_inv(u) with XLA's float32 ``ErfInv32``).
+JAX package uses from ``jax.random`` (threefry2x32 over the flat index,
+the uniform's mantissa trick, ``normal`` as sqrt(2) erf_inv(u) with
+XLA's float32 ``ErfInv32``, ``gumbel`` as -log(-log(u)) in float32 or
+bfloat16), and of the serve engine's categorical pick,
+``argmax(logits / T + gumbel)`` (:func:`gumbel_pick_ref`).
 
 The 32-bit words are held in int64 tensors and every sum is masked to
 32 bits.  The tests use it against ``jax.random``, and so does every CPU
@@ -24,7 +26,7 @@ MASK = 0xFFFFFFFF
 CHUNK = 1 << 24  # elements per chunk of a draw: its temporaries' size
 ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 KS_PARITY = 0x1BD11BDA
-KINDS = ("bits", "uniform", "normal")
+KINDS = ("bits", "uniform", "normal", "gumbel")
 
 # XLA's ErfInv32 (M. Giles, "Approximating the erfinv function"): the
 # polynomial in w - 2.5 below w = 5, in sqrt(w) - 3 above
@@ -35,6 +37,9 @@ ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
 SQRT2 = float(np.float32(np.sqrt(2.0)))
 # normal's uniform runs from the float32 after -1 towards 0, up to 1
 NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+# gumbel's uniform runs from the smallest normal float (float32's and
+# bfloat16's alike) up to 1
+TINY = float(np.finfo(np.float32).tiny)
 
 
 def f32(x: float) -> float:
@@ -97,6 +102,33 @@ def sqrt32(x: torch.Tensor) -> torch.Tensor:
     return torch.where((c > 0) & (((c.double() + down.double()) / 2) ** 2 > xd), down, c)
 
 
+def log32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 ``log`` of float32 ``x``, through
+    float64.  ``torch.log`` of float32 on the CPU was seen to return values
+    some 1e-4 off in one of a dozen fresh processes (as ``torch.sqrt``,
+    :func:`sqrt32`); XLA's and the card's ``logf`` are within one ulp of
+    this."""
+    return torch.log(x.double()).float()
+
+
+def gumbel_from_bits(bits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Gumbel noise from 32 random bits, as ``jax.random.gumbel`` (mode
+    "low", ``-log(-log(u))``, u uniform on [tiny, 1)) in ``dtype``.
+
+    float32: u from the top 23 bits, as ``uniform``.  bfloat16: JAX draws
+    8 bits (the low byte) and keeps 7 as the mantissa, so u takes 128
+    values; each ``log`` runs in float32 and rounds to bfloat16, as XLA
+    computes a bfloat16 op."""
+    if dtype == torch.bfloat16:
+        f = ((bits & 0xFF) >> 1).float() * (1.0 / 128)  # exact: the bf16 in [1, 2) less 1
+        u = torch.where(f > 0, f, TINY)
+        inner = log32(u).bfloat16().float()
+        return -log32(-inner).bfloat16()
+    if dtype != torch.float32:
+        raise TypeError(f"gumbel draws float32 or bfloat16, got {dtype}")
+    return -log32(-log32(uniform_from_bits(bits, TINY, 1.0)))
+
+
 def erf_inv32(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 ``ErfInv32``; each step of the polynomial a fused
     multiply-add."""
@@ -110,16 +142,18 @@ def erf_inv32(x: torch.Tensor) -> torch.Tensor:
 
 
 def values_at(k0, k1, index: torch.Tensor, kind: str, scale=1.0, minval: float = 0.0,
-              maxval: float = 1.0) -> torch.Tensor:
+              maxval: float = 1.0, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The draw at the global flat indices ``index`` (int64): the 32 bits
-    (int64), the uniform or the normal times ``scale`` (float32).  The key
-    words (ints, or int64 tensors of ``index``'s shape) and ``scale`` (a
-    float, or a float32 tensor of that shape) may differ element by
-    element."""
+    (int64), the uniform or the normal times ``scale`` (float32), or the
+    Gumbel noise in ``dtype``.  The key words (ints, or int64 tensors of
+    ``index``'s shape) and ``scale`` (a float, or a float32 tensor of that
+    shape) may differ element by element."""
     y0, y1 = threefry2x32(k0, k1, index >> 32, index & MASK)
     bits = y0 ^ y1
     if kind == "bits":
         return bits
+    if kind == "gumbel":
+        return gumbel_from_bits(bits, dtype)
     if kind == "uniform":
         return uniform_from_bits(bits, minval, maxval)
     v = erf_inv32(uniform_from_bits(bits, NORMAL_LO, 1.0)) * SQRT2
@@ -183,11 +217,16 @@ class Draw(NamedTuple):
 
 def draw_many_ref(draws, kind: str, minval: float = 0.0, maxval: float = 1.0) -> None:
     """Fill every draw's ``out``: bits into int64, uniforms and normals
-    into a floating dtype (cast from float32).  The draws are cut into
-    pieces of at most ``CHUNK`` elements and taken together in passes of
-    at most ``CHUNK`` elements, each piece its own key and scale."""
+    into a floating dtype (cast from float32), Gumbel noise in its
+    ``out``'s dtype (float32 or bfloat16, one for all the draws).  The
+    draws are cut into pieces of at most ``CHUNK`` elements and taken
+    together in passes of at most ``CHUNK`` elements, each piece its own
+    key and scale."""
     if kind not in KINDS:
         raise ValueError(f"unknown draw {kind!r}; one of {KINDS}")
+    draws = list(draws)
+    if kind == "gumbel" and len({d.out.dtype for d in draws}) > 1:
+        raise ValueError("gumbel draws in one call share one dtype")
     pieces, size = [], 0
     for d in draws:
         base, dims = window_plan(d.shape, d.offset, d.out.shape)
@@ -217,7 +256,8 @@ def _fill(pieces, kind: str, minval: float, maxval: float) -> None:
                                     base, dims) for part, _, base, dims, start in pieces])
     values = values_at(per_piece(lambda d: d.k0, torch.int64),
                        per_piece(lambda d: d.k1, torch.int64), index, kind,
-                       per_piece(lambda d: f32(d.scale), torch.float32), minval, maxval)
+                       per_piece(lambda d: f32(d.scale), torch.float32), minval, maxval,
+                       pieces[0][0].dtype)
     at = 0
     for part, *_ in pieces:
         part.copy_(values[at:at + part.numel()])
@@ -230,4 +270,47 @@ def draw_ref(out: torch.Tensor, k0: int, k1: int, shape, offset, kind: str,
     ``shape``) with the draw of key (k0, k1) there (:func:`draw_many_ref`
     of one draw); returns ``out``."""
     draw_many_ref([Draw(out, k0, k1, tuple(shape), tuple(offset), scale)], kind, minval, maxval)
+    return out
+
+
+def weak_scalar(x: float, dtype: torch.dtype) -> float:
+    """A Python float as JAX takes it beside an array of ``dtype``: a weak
+    type, rounded to that dtype (float32 or bfloat16)."""
+    return float(torch.tensor(float(x), dtype=dtype).float())
+
+
+def pick_scores_ref(logits: torch.Tensor, k0: int, k1: int, temperature: float = 1.0,
+                    first_row: int = 0) -> torch.Tensor:
+    """``logits / T + gumbel(key, [B, V], dtype)`` of the rows ``logits``
+    [n, V] (float32 or bfloat16), the rows from ``first_row`` on of the
+    whole [B, V] draw, with the JAX engine's roundings: T rounded to the
+    logits' dtype (a weak type), the quotient and the sum each rounded to
+    it, the noise of element (b, v) drawn at flat index b * V + v.  In
+    the logits' dtype."""
+    dtype = logits.dtype
+    n, v = logits.shape
+    index = torch.arange(first_row * v, (first_row + n) * v, dtype=torch.int64,
+                         device=logits.device)
+    noise = values_at(k0, k1, index, "gumbel", dtype=dtype).view(n, v)
+    scaled = (logits.float() / weak_scalar(temperature, dtype)).to(dtype)
+    return (scaled.float() + noise.float()).to(dtype)
+
+
+def gumbel_pick_ref(logits: torch.Tensor, k0: int, k1: int,
+                    temperature: float = 1.0) -> torch.Tensor:
+    """The plain version of the categorical pick: for each row of
+    ``logits`` [B, V] (float32 or bfloat16), the first index of the maximum
+    of :func:`pick_scores_ref`, as the JAX engine's
+    ``jax.random.categorical(key, logits / T)``.  int64 [B]; the rows go
+    in passes of at most ``CHUNK`` elements."""
+    if logits.dim() != 2:
+        raise ValueError(f"the pick takes logits [B, V], got {tuple(logits.shape)}")
+    if logits.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the pick takes float32 or bfloat16 logits, got {logits.dtype}")
+    b, v = logits.shape
+    out = torch.empty(b, dtype=torch.int64, device=logits.device)
+    rows = max(1, CHUNK // max(v, 1))
+    for r0 in range(0, b, rows):
+        out[r0:r0 + rows] = pick_scores_ref(logits[r0:r0 + rows], k0, k1, temperature,
+                                            r0).argmax(-1)
     return out

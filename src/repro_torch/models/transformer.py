@@ -41,7 +41,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 from torch.distributed.tensor import zeros as dtensor_zeros
 from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
@@ -501,18 +501,34 @@ def forward(cfg: ArchConfig, params: dict, batch: dict):
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict):
     """Next-token cross-entropy in f32 (labels of -1 are masked), plus
     0.01 times the MoE aux loss.  Returns (loss, {"nll", "aux"}); the
-    port of the JAX package's ``loss_fn``."""
+    port of the JAX package's ``loss_fn``.
+
+    Under a mesh whose "model" axis shards the vocabulary, each rank
+    takes its rows' log-sum-exp over its own vocabulary shard and the
+    statistics are all-reduced over "model" (:class:`_VocabShardNLL`), as
+    GSPMD reduces the reference's ``logsumexp``: no rank holds a row's
+    whole vocabulary.  Where "model" does not shard it (one rank on the
+    axis), each rank's rows are taken whole."""
     logits, aux = forward(cfg, params, batch)
     labels = batch["labels"]
     mask = labels >= 0
     safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
     if isinstance(logits, DTensor):
-        # each row over the whole vocabulary (gathered from "model"), on
-        # each rank's rows: the same sums as unsharded, the gradient whole
-        logits = constrain(logits, "batch", None, None)
-        rows = tuple(logits.placements)
-        nll = run_local(_token_nll, (logits, safe), (rows, rows[:]), rows, logits.device_mesh,
-                        in_grad_placements=(rows, rows)) * mask
+        mesh, placements = logits.device_mesh, tuple(logits.placements)
+        vocab = [i for i, p in enumerate(placements) if p == Shard(logits.ndim - 1)]
+        if vocab:
+            # the rows laid out as the logits' rows, whole on the vocabulary's mesh dim
+            (dim,) = vocab
+            rows = tuple(Replicate() if i == dim else p for i, p in enumerate(placements))
+            group, rank = (mesh, dim), mesh.get_local_rank(dim)
+            nll = run_local(lambda x, y: _VocabShardNLL.apply(x, y, group, rank), (logits, safe),
+                            (placements, rows), rows, mesh,
+                            in_grad_placements=(placements, rows)) * mask
+        else:
+            logits = constrain(logits, "batch", None, None)
+            rows = tuple(logits.placements)
+            nll = run_local(_token_nll, (logits, safe), (rows, rows[:]), rows, mesh,
+                            in_grad_placements=(rows, rows)) * mask
     else:
         nll = _token_nll(logits, safe) * mask
     # scalars replicated on every rank (a sum over the batch shards is partial)
@@ -525,6 +541,46 @@ def _token_nll(logits, labels):
     """Each token's log-sum-exp of its f32 logits less its label's logit."""
     logits = logits.float()
     return torch.logsumexp(logits, dim=-1) - logits.gather(-1, labels[..., None])[..., 0]
+
+
+def _all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    """``t`` reduced by ``op`` over ``group`` (a functional collective, as
+    DTensor's own: the launch tools count its bytes)."""
+    from torch.distributed import _functional_collectives as funcol
+
+    out = funcol.all_reduce(t, op, group)
+    return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) else out
+
+
+class _VocabShardNLL(torch.autograd.Function):
+    """Each token's NLL from one rank's vocabulary shard of its logits
+    [B, S, V / n] (the shard at ``rank`` of ``group``, n ranks): the
+    shard's max, all-reduced MAX; the shard's sum of exp(x - max) in f32,
+    all-reduced SUM; the label's logit from the rank that holds it (0
+    elsewhere), all-reduced SUM; ``log(sum) + max - label_logit``.  Three
+    all-reduces of [B, S] statistics, and the whole vocabulary of a row is
+    never gathered.  The backward is local: ``(softmax - onehot)`` on the
+    shard, times the upstream gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, group, rank):
+        x = logits.float()
+        width = x.shape[-1]
+        gmax = _all_reduce(x.amax(-1), "max", group)
+        total = _all_reduce(torch.exp(x - gmax[..., None]).sum(-1), "sum", group)
+        local = labels - rank * width
+        here = (local >= 0) & (local < width)
+        at = local.clamp(0, width - 1)[..., None]
+        label = _all_reduce(torch.where(here, x.gather(-1, at)[..., 0], 0.0), "sum", group)
+        ctx.save_for_backward(logits, gmax, total, at, here)
+        return torch.log(total) + gmax - label
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, gmax, total, at, here = ctx.saved_tensors
+        p = torch.exp(logits.float() - gmax[..., None]) / total[..., None]
+        p.scatter_add_(-1, at, -here.to(p.dtype)[..., None])
+        return (p * grad[..., None]).to(logits.dtype), None, None, None
 
 
 def kv_cache_heads(cfg: ArchConfig) -> int:

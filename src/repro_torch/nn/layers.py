@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from .._device import resolve_device
+from ..random import key_words, split, uniform
 from .quant import QuantConfig, bit_count_surrogate, fake_quant
 
 # ----------------------------------------------------------------------
@@ -97,11 +98,10 @@ Sequential = tuple  # tuple[LayerSpec, ...]
 # ----------------------------------------------------------------------
 # Initialisation
 # ----------------------------------------------------------------------
-def _glorot(gen: torch.Generator, shape: tuple, device: torch.device) -> torch.Tensor:
+def _glorot(key, shape: tuple, device: torch.device) -> torch.Tensor:
     fan_in = int(np.prod(shape[:-1]))
     lim = (3.0 / fan_in) ** 0.5
-    u = torch.rand(shape, generator=gen, device=gen.device, dtype=torch.float32)
-    return (u * (2 * lim) - lim).to(device)
+    return uniform(key, shape, -lim, lim, device=device)
 
 
 def _out_shape(spec, shape: tuple) -> tuple:
@@ -129,23 +129,28 @@ def _out_shape(spec, shape: tuple) -> tuple:
 
 
 def init_params(
+    rng: torch.Tensor,
     model: Sequential,
     in_shape: tuple[int, ...],
-    generator: torch.Generator,
     device: str | torch.device | None = None,
 ):
     """Returns (params_list, out_shape); ``in_shape`` excludes the batch.
 
-    Glorot-uniform float32 weights and zero biases, drawn layer by layer
-    from ``generator`` on its own device, then placed on ``device``
-    (default: the CUDA card; raises without one unless ``device="cpu"``).
-    The draws are not the JAX package's: carry that package's weights
-    across with :func:`params_from_numpy` instead.
+    The JAX package's ``init_params(rng, model, in_shape)``: each layer
+    takes ``rng, sub = split(rng)``, a CMVM layer's weights are the
+    Glorot-uniform float32 ``uniform(sub, shape, -lim, lim)`` and its
+    biases zeros, and a ``Residual`` draws its body from ``sub``; so a
+    key from ``repro_torch.random.PRNGKey(seed)`` gives that package's
+    parameters of the same seed, bit for bit.  Drawn on ``device``
+    (default: the CUDA card, by the threefry kernel; raises without one
+    unless ``device="cpu"``).  A ``torch.Generator`` is refused.
     """
+    key_words(rng)  # a key, not a torch.Generator
     dev = resolve_device(device)
     params: list[dict] = []
     shape = tuple(in_shape)
     for spec in model:
+        rng, sub = split(rng)
         out = _out_shape(spec, shape)
         if isinstance(spec, (QDense, QDenseOnAxis, QConv2D)):
             if isinstance(spec, QDense):
@@ -154,14 +159,14 @@ def init_params(
                 wshape = (shape[spec.axis % len(shape)], spec.units)
             else:
                 wshape = (*spec.kernel, shape[-1], spec.filters)
-            p = {"w": _glorot(generator, wshape, dev)}
+            p = {"w": _glorot(sub, wshape, dev)}
             if spec.use_bias:
                 p["b"] = torch.zeros(wshape[-1], dtype=torch.float32, device=dev)
             params.append(p)
         elif isinstance(spec, Residual):
-            sub, sub_shape = init_params(spec.body, shape, generator, dev)
-            assert sub_shape == shape, "residual body must preserve shape"
-            params.append({"body": sub})
+            body, body_shape = init_params(sub, spec.body, shape, dev)
+            assert body_shape == shape, "residual body must preserve shape"
+            params.append({"body": body})
         else:
             params.append({})
         shape = out

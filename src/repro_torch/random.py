@@ -1,5 +1,6 @@
-"""The part of ``jax.random`` that parameter initialisation uses, with the
-same numbers from the same keys.
+"""The part of ``jax.random`` that the JAX package uses, with the same
+numbers from the same keys: ``PRNGKey``, ``split``, ``bits``,
+``uniform``, ``normal``, ``randint``, ``gumbel`` and ``categorical``.
 
 A key is JAX's raw threefry key: two 32-bit words, held on the host as
 an int64 tensor of shape [2] (or [n, 2] for :func:`split`'s keys).  A
@@ -13,10 +14,14 @@ elements of the larger array, with the values the whole draw has there.
 
 The draws run on the card (the hand-written kernel,
 ``kernels/prng/csrc/threefry.cu``) unless ``device="cpu"`` is asked for
-(the plain version, ``kernels/prng/ref.py``).  ``bits`` and ``uniform``
-equal ``jax.random``'s bit for bit; ``normal`` is XLA's float32
+(the plain version, ``kernels/prng/ref.py``); ``categorical`` runs where
+its logits lie (on the card the pick kernel, ``csrc/gumbel_pick.cu``).
+``bits``, ``uniform`` and ``randint`` equal ``jax.random``'s bit for
+bit, and so does ``gumbel`` in bfloat16; ``normal`` is XLA's float32
 ``ErfInv32`` of the uniform times sqrt(2), within a few float32 ulp of
-``jax.random.normal`` (the two ``log1p`` differ).
+``jax.random.normal`` (the two ``log1p`` differ), and float32 ``gumbel``
+is within an ulp of each ``log`` (XLA's and the card's ``logf`` are not
+correctly rounded).
 """
 
 from __future__ import annotations
@@ -28,10 +33,12 @@ import torch
 
 from ._device import resolve_device
 from .kernels.prng import ref
-from .kernels.prng.ops import draw, draw_many
+from .kernels.prng.ops import draw, draw_many, gumbel_pick
 
-__all__ = ["PRNGKey", "bits", "key_words", "normal", "normal_", "normal_many", "split",
-           "uniform"]
+__all__ = ["PRNGKey", "bits", "categorical", "gumbel", "key_words", "normal", "normal_",
+           "normal_many", "randint", "split", "uniform"]
+
+INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
 
 
 def PRNGKey(seed: int) -> torch.Tensor:  # noqa: N802 -- the reference's name
@@ -101,6 +108,53 @@ def normal(key, shape: Sequence[int], *, offset=None, block=None, device=None) -
     """float32 standard normals, as ``jax.random.normal`` (float32), over
     the window ``offset``/``block`` of ``shape``."""
     return _draw("normal", torch.float32, key, shape, offset, block, device)
+
+
+def randint(key, shape: Sequence[int], minval: int, maxval: int, *, device=None) -> torch.Tensor:
+    """int32 integers on [minval, maxval), as ``jax.random.randint(key,
+    shape, minval, maxval)`` (int32): two 32-bit draws from ``split(key)``,
+    ``hi`` and ``lo``, reduced modulo the span in uint32 arithmetic as
+    ``jax._src.random._randint`` does (a span of 1 where maxval <=
+    minval).  ``minval`` and ``maxval`` are int32 ints."""
+    minval, maxval = int(minval), int(maxval)
+    if not (INT32_MIN <= minval <= INT32_MAX and INT32_MIN <= maxval <= INT32_MAX):
+        raise ValueError(f"randint takes int32 bounds, got [{minval}, {maxval})")
+    k_hi, k_lo = split(key)
+    hi = bits(k_hi, shape, device=device)
+    lo = bits(k_lo, shape, device=device)
+    span = (maxval - minval) & ref.MASK if maxval > minval else 1
+    m = (1 << 16) % span
+    multiplier = ((m * m) & ref.MASK) % span  # 2^32 mod span, as uint32 computes it
+    offset = ((((hi % span) * multiplier) & ref.MASK) + lo % span) & ref.MASK
+    value = (minval + offset % span) & ref.MASK
+    return torch.where(value > INT32_MAX, value - (1 << 32), value).to(torch.int32)
+
+
+def gumbel(key, shape: Sequence[int], dtype: torch.dtype = torch.float32, *, offset=None,
+           block=None, device=None) -> torch.Tensor:
+    """Gumbel noise in ``dtype`` (float32 or bfloat16), as
+    ``jax.random.gumbel(key, shape, dtype)`` (mode "low"), over the window
+    ``offset``/``block`` of ``shape``."""
+    return _draw("gumbel", dtype, key, shape, offset, block, device)
+
+
+def categorical(key, logits: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Samples of the categorical distributions of ``logits`` (float32 or
+    bfloat16) along ``axis``, as ``jax.random.categorical(key, logits,
+    axis)``: the first index of the maximum of ``logits + gumbel(key,
+    logits.shape, logits.dtype)``, the sum in the logits' dtype; int64, on
+    the logits' device.  Along the last axis the pick runs fused (on the
+    card the pick kernel, which writes no noise); along another, the noise
+    is drawn and added."""
+    k0, k1 = key_words(key)
+    axis = axis % logits.dim()
+    if axis == logits.dim() - 1:
+        rows = logits.reshape(-1, logits.shape[-1])
+        if rows.stride(-1) != 1:
+            rows = rows.contiguous()
+        return gumbel_pick(rows, k0, k1).reshape(logits.shape[:-1])
+    noise = gumbel(key, logits.shape, logits.dtype, device=logits.device)
+    return (logits + noise).argmax(axis)
 
 
 def normal_(out: torch.Tensor, key, shape: Sequence[int], offset=None,

@@ -16,9 +16,13 @@ which the captured body writes back.  A decode step is then a token copy
 and one replay.  Prefill runs eagerly, once per batch, into the static
 cache; an encoder-decoder's prefill writes the new encoder output's
 cross K/V into the static cross cache, the tensors the graph reads.  The
-pick (argmax, or a categorical draw from the engine's
-generator) stays outside the graph; its ``tolist`` syncs the host each
-step, as the JAX engine's ``np.asarray(tok)`` does.  On the CPU both run
+pick stays outside the graph: ``argmax``, or the reference's categorical
+draw -- the engine holds ``key = PRNGKey(0)`` and each pick takes
+``key, sub = split(key)``, then ``categorical(sub, logits / T)``, on the
+card one launch of the pick kernel (``kernels/prng``), on the CPU its
+plain version -- so the tokens are the JAX engine's from the same key,
+which carries across ``generate`` calls.  Its ``tolist`` syncs the host
+each step, as the JAX engine's ``np.asarray(tok)`` does.  On the CPU both run
 eagerly and each batch gets a fresh cache.  The SSM blocks' f32 leaves
 are cast once, when the parameters move to the device.  ``extra_inputs``
 (``enc_frames`` of an encoder-decoder, ``img_embeds`` of a VLM: the
@@ -36,8 +40,10 @@ import torch
 from .._device import resolve_device
 from ..configs.base import SSM, ArchConfig
 from ..kernels.graphs import CapturedGraph, capture
+from ..kernels.prng.ops import gumbel_pick
 from ..models.ssm import f32_leaves
 from ..models.transformer import check_supported, decode_step, init_cache, prefill, tree_map
+from ..random import PRNGKey, key_words, split
 
 
 @dataclass
@@ -52,8 +58,8 @@ class Engine:
     """``Engine(cfg, params, batch_size, max_seq)`` serves on the CUDA
     card by default (``device=None``; raises without one) and on the CPU
     with ``device="cpu"``.  ``params`` are moved to the device.  Sampling
-    is greedy, or categorical at ``temperature`` from ``generator`` (a
-    ``torch.Generator`` on the device; by default one seeded with 0).
+    is greedy, or categorical at ``temperature`` from ``key`` (the
+    reference's ``PRNGKey(0)`` at construction, split once a pick).
     ``extra_inputs`` (tensors or numpy arrays, each with the batch
     dimension ``batch_size``) join every batch's ``tokens``.
 
@@ -72,7 +78,6 @@ class Engine:
         sample: str = "greedy",
         temperature: float = 1.0,
         device=None,
-        generator: torch.Generator | None = None,
         extra_inputs: dict | None = None,
     ):
         check_supported(cfg)
@@ -89,9 +94,7 @@ class Engine:
         self.eos_id = eos_id
         self.sample = sample
         self.temperature = temperature
-        if generator is None:
-            generator = torch.Generator(self.device).manual_seed(0)
-        self.generator = generator
+        self.key = PRNGKey(0)
         self.extra_inputs = {k: torch.as_tensor(v).to(self.device)
                              for k, v in (extra_inputs or {}).items()}
         self.decode_graph: CapturedGraph | None = None
@@ -120,8 +123,8 @@ class Engine:
     def _pick(self, logits: torch.Tensor) -> torch.Tensor:
         if self.sample == "greedy":
             return torch.argmax(logits, dim=-1)
-        probs = torch.softmax(logits.float() / self.temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=self.generator)[:, 0]
+        self.key, sub = split(self.key)
+        return gumbel_pick(logits, *key_words(sub), self.temperature)
 
     @torch.inference_mode()
     def generate(self, requests: list[Request]) -> list[Request]:

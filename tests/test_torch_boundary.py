@@ -134,8 +134,8 @@ def test_no_card_means_raise_not_cpu(no_card):
         design_from_arrays({}, {})
     jet, jet_shape, jet_quant = nn_models.jet_tagger()
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        nn_init_params(jet, jet_shape, torch.Generator().manual_seed(0))
-    jet_params, _ = nn_init_params(jet, jet_shape, torch.Generator().manual_seed(0), "cpu")
+        nn_init_params(PRNGKey(0), jet, jet_shape)
+    jet_params, _ = nn_init_params(PRNGKey(0), jet, jet_shape, "cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         compile_model(jet, jet_params, jet_shape, jet_quant)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -200,7 +200,7 @@ def test_no_card_means_raise_for_the_facade_cosim_and_moe(no_card):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Deployment()
     jet, jet_shape, jet_quant = nn_models.jet_tagger()
-    jet_params, _ = nn_init_params(jet, jet_shape, torch.Generator().manual_seed(0), "cpu")
+    jet_params, _ = nn_init_params(PRNGKey(0), jet, jet_shape, "cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Flow.compile(jet, jet_params, jet_shape, jet_quant)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -50,7 +50,11 @@ and uniforms exactly, normals within 4 f32 ulp (the card's ``log1pf``
 against the host's ``log1p``) and in bf16 equal but for one-ulp
 roundings, at windows of 1 to 4 merged dims and across the count's high
 word; ``init_params`` on the card launching it, within 4 ulp of the CPU
-draw.
+draw; its Gumbel draws (bf16 equal, f32 within two ulp of max(|x|, 1)).
+The categorical pick kernel against its plain version (bf16 picks equal,
+f32 equal but where the two picks' scores lie within 4 ulp), on strided
+rows and in a captured graph, and the LM engine's categorical tokens on
+the card equal to its tokens on the CPU.
 
 Every test here needs a card and skips without one.  This file imports
 neither ``jax`` nor ``repro``, so it runs where only PyTorch is
@@ -236,7 +240,7 @@ def test_port_compiled_design_on_the_card(card, monkeypatch):
     ``DAISProgram.evaluate`` of its program (int64, reduced mod 2^32), and
     the whole ``forward_int`` the numpy interpreter's."""
     model, in_shape, in_quant = nn_models.jet_tagger()
-    params, _ = nn_init_params(model, in_shape, torch.Generator(card).manual_seed(0), card)
+    params, _ = nn_init_params(PRNGKey(0), model, in_shape, card)
     design = compile_model(model, params, in_shape, in_quant, config=CompileConfig(jobs=2),
                            device=card)
     assert design.device == card and design.solver_stats["verify"]["ok"]
@@ -896,7 +900,7 @@ def test_deployment_rollout_on_the_card(card):
     model, in_shape, in_quant = nn_models.jet_tagger()
     designs = []
     for seed in (0, 1):
-        params, _ = nn_init_params(model, in_shape, torch.Generator(card).manual_seed(seed), card)
+        params, _ = nn_init_params(PRNGKey(seed), model, in_shape, card)
         designs.append(Flow.compile(model, params, in_shape, in_quant,
                                     config=CompileConfig(jobs=2), device=card))
     q = in_quant.qint
@@ -1361,3 +1365,105 @@ def test_prng_kernel_refuses_what_it_cannot_take(card):
     with pytest.raises(ValueError, match="merged dims"):
         prng_kernel.draw_cuda(torch.empty(2, 2, 2, 2, 2, device=card), 0, 0, (3, 3, 3, 3, 3),
                               (0,) * 5, "normal")
+
+
+# ----------------------------------------------------------------------
+# the categorical pick (kernels/prng/csrc/gumbel_pick.cu): the kernel
+# against its plain version
+# ----------------------------------------------------------------------
+PICK_SHAPES = [(1, 1), (3, 7), (8, 2049), (8, 49152), (5, 152064), (64, 512)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,v", PICK_SHAPES)
+def test_pick_kernel_against_plain_version(card, b, v, dtype):
+    """One launch a call; bfloat16 picks equal the plain version's (rows of
+    one value included, which the noise's ties decide); float32 picks equal
+    but where the plain scores of the two picks lie within 4 ulp (the
+    card's logf against the host's log)."""
+    from repro_torch import random as R
+    from repro_torch.kernels.prng import kernel as prng_kernel
+    from repro_torch.kernels.prng.ref import gumbel_pick_ref, pick_scores_ref
+
+    gen = torch.Generator(card).manual_seed(b * v)
+    x = (torch.randn((b, v), generator=gen, device=card) * 3).to(dtype)
+    x[: max(1, b // 4)] = 0.0 if dtype == torch.bfloat16 else 2.0**26
+    for temperature in (1.0, 0.7):
+        k0, k1 = R.key_words(R.split(PRNGKey(v), 2)[1])
+        before = prng_kernel.pick_launches.value
+        got = prng_kernel.gumbel_pick_cuda(x, k0, k1, temperature)
+        torch.cuda.synchronize()
+        assert prng_kernel.pick_launches.value - before == 1
+        want = gumbel_pick_ref(x, k0, k1, temperature)
+        assert got.dtype == torch.int64 and got.shape == (b,)
+        if dtype == torch.bfloat16:
+            assert torch.equal(got, want)
+        else:
+            s = pick_scores_ref(x, k0, k1, temperature).float()
+            rows = torch.arange(b, device=card)
+            ulps = (_ordered_f32(s[rows, got].cpu()) - _ordered_f32(s[rows, want].cpu())).abs()
+            assert int(ulps.max()) <= 4
+
+
+def test_pick_kernel_takes_a_row_stride_and_graphs(card):
+    """Rows of a larger tensor (the last position of [B, S, V] logits),
+    and a capture replayed: the same picks as the contiguous rows."""
+    from repro_torch.kernels.prng import kernel as prng_kernel
+
+    x = torch.randn((4, 3, 1000), device=card).bfloat16()
+    rows = x[:, -1]
+    assert not rows.is_contiguous()
+    want = prng_kernel.gumbel_pick_cuda(rows.contiguous(), 5, 6, 0.7)
+    assert torch.equal(prng_kernel.gumbel_pick_cuda(rows, 5, 6, 0.7), want)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        prng_kernel.gumbel_pick_cuda(rows, 5, 6, 0.7)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        out = prng_kernel.gumbel_pick_cuda(rows, 5, 6, 0.7)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+def test_gumbel_draws_on_the_card_equal_the_plain_version(card):
+    """The threefry kernel's Gumbel noise: bfloat16 equal on 2^20 draws
+    (its 128 values), float32 within two ulp of the larger of |x| and 1."""
+    from repro_torch import random as R
+
+    key = PRNGKey(5)
+    n = 1 << 20
+    got = R.gumbel(key, (n,), torch.bfloat16, device=card).cpu()
+    assert torch.equal(got, R.gumbel(key, (n,), torch.bfloat16, device="cpu"))
+    assert torch.unique(got).numel() == 128
+    got = R.gumbel(key, (n,), device=card).cpu().double()
+    want = R.gumbel(key, (n,), device="cpu")
+    scale = torch.maximum(want.abs(), torch.ones_like(want))
+    assert float(((got - want.double()).abs() / (torch.nextafter(scale, scale * 2) - scale)
+                  .double()).max()) <= 2
+
+
+def test_engine_picks_categorically_on_the_card(card):
+    """``Engine(sample="categorical")`` on the card: one pick launch a pick,
+    the tokens those of the same engine on the CPU (float32 smoke model,
+    the same key)."""
+    from repro_torch.kernels.prng import kernel as prng_kernel
+    from repro_torch.serve import Engine, Request
+
+    cfg = configs.get_smoke("smollm-135m")
+    params = init_params(cfg, PRNGKey(0), device="cpu")
+    prompts = np.random.default_rng(0).integers(2, cfg.vocab_size, size=(4, 10)).astype(np.int32)
+
+    def serve(device):
+        eng = Engine(cfg, params, 4, 24, eos_id=-1, sample="categorical", temperature=0.7,
+                     device=device)
+        before = prng_kernel.pick_launches.value
+        reqs = eng.generate([Request(p, 5) for p in prompts])
+        return [r.out_tokens for r in reqs], prng_kernel.pick_launches.value - before
+
+    on_card, picks = serve(card)
+    on_cpu, none = serve("cpu")
+    assert picks == 5 and none == 0
+    assert on_card == on_cpu

@@ -56,17 +56,18 @@ def walk(node, path):
 walk(params, [])
 np.savez(out_npz, tokens=np.asarray(batch["tokens"]), labels=np.asarray(batch["labels"]), **flat)
 
-mesh = make_test_mesh(2, 4)
-rules = MeshRules(mesh)
 res = {}
-for name, c in (("", cfg), ("lc_", dataclasses.replace(cfg, capacity_factor=0.5))):
-    f = jax.jit(lambda p, b, c=c: loss_fn(c, p, b)[0])
-    res[name + "ref_loss"] = float(f(params, batch))
-    with use_rules(rules):
-        p_s = jax.device_put(params, param_shardings(c, rules))
-        b_s = jax.device_put(batch, jax.tree.map(
-            lambda x: rules.sharding(("batch",) + (None,) * (x.ndim - 1), x.shape), batch))
-        res[name + "sh_loss"] = float(f(p_s, b_s))
+for mesh_name, (dm, mm) in (("", (2, 4)), ("4x2_", (4, 2))):
+    rules = MeshRules(make_test_mesh(dm, mm))
+    cases = (("", cfg), ("lc_", dataclasses.replace(cfg, capacity_factor=0.5)))
+    for name, c in cases[:2 if not mesh_name else 1]:
+        f = jax.jit(lambda p, b, c=c: loss_fn(c, p, b)[0])
+        res[name + "ref_loss"] = float(f(params, batch))
+        with use_rules(rules):
+            p_s = jax.device_put(params, param_shardings(c, rules))
+            b_s = jax.device_put(batch, jax.tree.map(
+                lambda x: rules.sharding(("batch",) + (None,) * (x.ndim - 1), x.shape), batch))
+            res[mesh_name + name + "sh_loss"] = float(f(p_s, b_s))
 res["n_dev"] = jax.device_count()
 with open(out_json, "w") as fh:
     json.dump(res, fh)
@@ -78,6 +79,25 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch.utils._python_dispatch import TorchDispatchMode
+
+COLLECTIVES = ("all_gather", "all_reduce", "reduce_scatter", "all_to_all", "broadcast")
+
+
+class Collectives(TorchDispatchMode):
+    # each collective op dispatched (DTensor's functional ones and c10d's),
+    # with the shape of its result
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func.__name__.split(".")[0]
+        if "c10d" in func.namespace and name.startswith(COLLECTIVES):
+            first = out[0] if isinstance(out, (list, tuple)) else out
+            self.ops.append([name, list(first.shape) if isinstance(first, torch.Tensor) else None])
+        return out
 
 
 def rank_main(rank, world, store, npz, ckpt_dir, out_json):
@@ -109,10 +129,30 @@ def rank_main(rank, world, store, npz, ckpt_dir, out_json):
     with torch.no_grad():
         lg_r, _ = prefill(cfg, fresh(), {"tokens": batch["tokens"]}, 24)
 
+    res = {"n_ranks": dist.get_world_size(), "ref_loss": float(m1["loss"])}
+
+    # --- the train step on a 4x2 mesh too: the vocabulary on 2 ranks, not 4;
+    # each step's collectives recorded on both meshes ---
+    full1 = [x.float() for x in tree_leaves(p1)]
+    res["meshes"] = {}
+    for dm, mm in ((2, 4), (4, 2)):
+        rules = MeshRules(make_test_mesh(dm, mm, device_type="cpu"))
+        with use_rules(rules):
+            shardings = param_shardings(cfg, rules)
+            bs = {k: rules.distribute(v, "batch", None) for k, v in batch.items()}
+            p3 = shard_params(fresh(), shardings)
+            rec = Collectives()
+            with rec:
+                p3, _, m3 = step_fn(p3, opt_init(p3), bs, 0)
+            res["meshes"][f"{dm}x{mm}"] = {
+                "sh_loss": float(m3["loss"]),
+                "param_dmax": max(float((a - b.full_tensor().float()).abs().max())
+                                  for a, b in zip(full1, tree_leaves(p3))),
+                "collectives": rec.ops, "rows": [4 // dm, 16], "logits": [16, cfg.padded_vocab]}
+
     # --- sharded on a 2x4 (data x model) mesh ---
     mesh = make_test_mesh(2, 4, device_type="cpu")
     rules = MeshRules(mesh)
-    res = {"n_ranks": dist.get_world_size(), "ref_loss": float(m1["loss"])}
     with use_rules(rules):
         shardings = param_shardings(cfg, rules)
         bs = {k: rules.distribute(v, "batch", None) for k, v in batch.items()}
@@ -236,6 +276,31 @@ def test_eight_ranks_on_a_2x4_mesh(result):
 def test_sharded_train_step_matches_reference(result):
     assert abs(result["ref_loss"] - result["sh_loss"]) < 1e-4
     assert result["param_dmax"] < 5e-5
+
+
+@pytest.mark.parametrize("mesh", ["2x4", "4x2"])
+def test_vocab_sharded_step_holds_the_reference_bounds(result, mesh):
+    """The train step with the loss on vocabulary shards (4 or 2 of them):
+    loss and parameters within the bounds above of the unsharded port, the
+    loss within 1e-4 of the JAX package's at the same mesh."""
+    got = result["meshes"][mesh]
+    assert abs(result["ref_loss"] - got["sh_loss"]) < 1e-4
+    assert got["param_dmax"] < 5e-5
+    jax_loss = result["jax"]["sh_loss" if mesh == "2x4" else "4x2_sh_loss"]
+    assert abs(got["sh_loss"] - jax_loss) < 1e-4
+
+
+@pytest.mark.parametrize("mesh", ["2x4", "4x2"])
+def test_vocab_sharded_loss_reduces_statistics_not_logits(result, mesh):
+    """The step's collectives: all-reduces of each rank's [B, S] rows of
+    statistics (max, sum, the label's logit), and no collective whose
+    result holds a row of the logits' vocabulary ([.., S, V])."""
+    got = result["meshes"][mesh]
+    ops = [tuple([name, *(shape or [])]) for name, shape in got["collectives"]]
+    stats = [op for op in ops if op[0].startswith("all_reduce") and list(op[1:]) == got["rows"]]
+    assert len(stats) >= 3, ops
+    logits = [op for op in ops if list(op[-2:]) == got["logits"]]
+    assert not logits, logits
 
 
 def test_sharded_params_keep_the_rules_placements(result):

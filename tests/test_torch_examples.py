@@ -8,11 +8,19 @@ on the CPU, against the JAX package.
   temporary directory) holds the pipelined one; on the JAX package's
   ``PRNGKey(0)`` muon-tracker parameters carried across, the design's
   per-layer report (all columns but the solve time) and the ``dense0``
-  Verilog equal the JAX compile's.
+  Verilog equal the JAX compile's; and with no weights crossed the
+  twin's own ``PRNGKey(0)`` draw gives the JAX example's report and
+  ``dense0`` text.
 - serve_lm: a short run serves four requests of 8/12/16/20 tokens; on a
   3-step JAX-trained parameter tree carried across, the port's engine
   gives the JAX engine's greedy tokens exactly (f32), and the first
   training step's loss is within 1e-5 of the JAX step's.
+- train_jet_tagger: the twin's class centres and batches (the JAX
+  example's lines, reproduced here) from the same keys: labels equal,
+  features within 4 float32 ulp of the larger of the feature and its
+  class centre (the normals are within 4 ulp; a feature near 0 is the
+  difference of two larger numbers); the first step's NLL within 1e-5 of
+  the example's jitted ``step`` on the port's own ``PRNGKey(0)`` weights.
 - train_lm_resumable: a short run survives its failure, resumes at the
   end of phase 1 and runs on; its parameters at the end of phase 1 equal
   an uninterrupted run's bit for bit.  It takes no ``--ckpt-dir`` that
@@ -46,8 +54,12 @@ from repro.nn import models as jax_nn_models
 from repro.serve.engine import Engine as JaxEngine
 from repro.serve.engine import Request as JaxRequest
 from repro.train.train_lib import make_train_step as jax_make_train_step
-from repro_torch.examples import quickstart, rtl_codegen, serve_lm, train_lm_resumable
+from repro_torch import random as R
+from repro_torch.examples import (quickstart, rtl_codegen, serve_lm, train_jet_tagger,
+                                  train_lm_resumable)
 from repro_torch.models import params_from_numpy
+from repro_torch.nn import init_params as nn_init_params
+from repro_torch.nn import models as nn_models
 from repro_torch.nn import params_from_numpy as nn_params_from_numpy
 from repro_torch.train import Trainer
 from repro_torch.tree import tree_leaves
@@ -100,25 +112,47 @@ def test_rtl_codegen_default_out_is_in_the_temporary_directory(tmp_path, monkeyp
     assert (tmp_path / "cmvm_piped.v").read_text() == out["piped"]
 
 
-def test_rtl_codegen_tracker_report_equals_the_jax_compile(capsys):
+@pytest.fixture(scope="module")
+def jax_tracker():
+    """The JAX example's muon tracker: its ``PRNGKey(0)`` parameters, the
+    DA design and the first dense layer's Verilog."""
     model, in_shape, in_quant = jax_nn_models.muon_tracker(d_in=32)
     jparams, _ = jax_nn_init_params(jax.random.PRNGKey(0), model, in_shape)
-    want = jax_compile_model(
+    design = jax_compile_model(
         model, jparams, in_shape, in_quant,
         config=JaxCompileConfig(strategy="da", solver=JaxSolverConfig(dc=2)))
+    first = jax_solve_cmvm(
+        np.round(np.asarray(jparams[0]["w"]) / model[0].w_quant.step).astype(np.int64),
+        qint_in=[in_quant.qint] * in_shape[0], config=JaxSolverConfig(dc=2))
+    return jparams, design, jax_emit_verilog(first.program, "dense0")
+
+
+_REPORT_COLS = ("name", "shape", "adders", "cost_bits", "depth", "stages", "ff_bits")
+
+
+def test_rtl_codegen_tracker_report_equals_the_jax_compile(jax_tracker, capsys):
+    jparams, want, dense0 = jax_tracker
     params = nn_params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     got = rtl_codegen.tracker_report(params, "cpu")
-    cols = ("name", "shape", "adders", "cost_bits", "depth", "stages", "ff_bits")
+    cols = _REPORT_COLS
     assert [[getattr(r, c) for c in cols] for r in got["design"].reports] == \
         [[getattr(r, c) for c in cols] for r in want.reports]
     # the summary's TOTAL line (no time column) is the JAX package's
     assert got["summary"].splitlines()[-1] == want.summary().splitlines()[-1]
     assert want.summary().splitlines()[-1].split()[1:] == ["4185", "37397", "9", "9", "3783"]
-    first = jax_solve_cmvm(
-        np.round(np.asarray(jparams[0]["w"]) / model[0].w_quant.step).astype(np.int64),
-        qint_in=[in_quant.qint] * in_shape[0], config=JaxSolverConfig(dc=2))
-    assert got["dense0"] == jax_emit_verilog(first.program, "dense0")
+    assert got["dense0"] == dense0
     assert "\n".join(got["dense0"].splitlines()[:5]) in capsys.readouterr().out
+
+
+def test_rtl_codegen_draws_the_jax_examples_tracker(jax_tracker, tmp_path):
+    """No weights crossed: the twin's ``init_params(PRNGKey(0), ...)``
+    gives the JAX example's design and ``dense0`` Verilog text."""
+    _, want, dense0 = jax_tracker
+    out = rtl_codegen.main(["--device", "cpu", "--out", str(tmp_path / "piped.v")])
+    assert out["dense0"] == dense0
+    assert out["summary"].splitlines()[-1] == want.summary().splitlines()[-1]
+    assert (out["total_adders"], out["total_cost_bits"], out["max_depth"]) == \
+        (want.total_adders, want.total_cost_bits, want.max_depth)
 
 
 # ----------------------------------------------------------------------
@@ -221,3 +255,93 @@ def test_train_lm_resumable_refuses_an_existing_ckpt_dir(tmp_path, capsys):
         train_lm_resumable.main(["--device", "cpu", "--ckpt-dir", str(tmp_path / "runs")])
     assert kept.read_bytes() == b"earlier run"
     assert "already exists" in capsys.readouterr().err
+
+
+# ----------------------------------------------------------------------
+# train_jet_tagger
+# ----------------------------------------------------------------------
+JET_ULPS = 4
+
+
+@pytest.fixture
+def jax_32_bit():
+    """JAX in its default 32-bit mode, the example's (int32 ``randint``):
+    other test modules turn x64 on for the whole process when they are
+    imported."""
+    with jax.enable_x64(False):
+        yield
+
+
+@pytest.fixture(scope="module")
+def jax_jet():
+    """The lines of ``examples/train_jet_tagger.py`` up to its first step,
+    as it writes them (in JAX's default 32-bit mode): the model,
+    ``init_params`` of ``PRNGKey(0)``, the class centres of ``PRNGKey(1)``,
+    ``make_batch`` and the jitted ``step``."""
+    with jax.enable_x64(False):
+        return _jax_jet_example()
+
+
+def _jax_jet_example():
+    from repro.nn import apply_model as jax_apply_model
+
+    model, in_shape, in_quant = jax_nn_models.jet_tagger(w_bits=6, a_bits=8)
+    key = jax.random.PRNGKey(0)
+    params, _ = jax_nn_init_params(key, model, in_shape)
+    kd, kw = jax.random.split(jax.random.PRNGKey(1))
+    centers = jax.random.normal(kw, (5, 16)) * 2.0
+
+    def make_batch(k, n=512):
+        ky, kx = jax.random.split(k)
+        y = jax.random.randint(ky, (n,), 0, 5)
+        x = centers[y] + jax.random.normal(kx, (n, 16))
+        return x, y
+
+    @jax.jit
+    def step(params, k, lr):
+        x, y = make_batch(k)
+
+        def loss_fn(p):
+            logits, bits = jax_apply_model(p, model, x, in_quant=in_quant, collect_bits=True)
+            lp = jax.nn.log_softmax(logits)
+            nll = -jnp.take_along_axis(lp, y[:, None], axis=-1).mean()
+            return nll + 1e-5 * bits, nll
+
+        (loss, nll), g = jax.value_and_grad(loss_fn, has_aux=True)(params)
+        params = jax.tree.map(lambda p, gg: p - lr * gg, params, g)
+        return params, nll
+
+    key, sub = jax.random.split(key)
+    return {"params": params, "centers": np.asarray(centers), "make_batch": make_batch,
+            "step": step, "sub": sub}
+
+
+def _ordered(a) -> np.ndarray:
+    i = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+def test_train_jet_tagger_batches_are_the_jax_examples(jax_jet, jax_32_bit):
+    centres = train_jet_tagger.class_centres("cpu")
+    assert np.abs(_ordered(centres.numpy()) - _ordered(jax_jet["centers"])).max() <= JET_ULPS
+    _, sub = R.split(R.PRNGKey(0))
+    for tkey, jkey, n in ((sub, jax_jet["sub"], 512), (R.PRNGKey(99), jax.random.PRNGKey(99), 2048)):
+        x, y = jax_jet["make_batch"](jkey, n)
+        x, y = np.asarray(x), np.asarray(y)
+        tx, ty = train_jet_tagger.make_batch(centres, tkey, n)
+        np.testing.assert_array_equal(ty.numpy(), y)
+        assert tx.shape == (n, 16)
+        scale = np.spacing(np.maximum(np.abs(x), np.abs(jax_jet["centers"][y]))).astype(np.float64)
+        assert (np.abs(tx.numpy().astype(np.float64) - x) <= JET_ULPS * scale).all()
+
+
+def test_train_jet_tagger_first_step_nll_is_the_jax_examples(jax_jet, jax_32_bit):
+    model, in_shape, in_quant = nn_models.jet_tagger(w_bits=6, a_bits=8)
+    params, _ = nn_init_params(R.PRNGKey(0), model, in_shape, device="cpu")
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_(True)
+    _, sub = R.split(R.PRNGKey(0))
+    nll = train_jet_tagger.sgd_step(params, model, in_quant,
+                                    train_jet_tagger.class_centres("cpu"), sub, 0.02)
+    _, want = jax_jet["step"](jax_jet["params"], jax_jet["sub"], 0.02)
+    assert abs(float(nll) - float(want)) < 1e-5

@@ -235,15 +235,25 @@ def test_engine_greedy_tokens_equal_reference(smollm, n_new, eos_id):
 
 
 def test_engine_categorical_is_seeded(smollm):
+    """The categorical pick draws from the engine's key: ``PRNGKey(0)``
+    at construction, as the reference's; the same key gives the same
+    tokens, another key others, and the key carries across ``generate``
+    calls."""
     cfg, _, _, params = smollm
 
-    def run(seed):
-        eng = Engine(cfg, params, 2, 24, sample="categorical", temperature=0.7, device="cpu",
-                     generator=torch.Generator().manual_seed(seed))
+    def engine(seed):
+        eng = Engine(cfg, params, 2, 24, sample="categorical", temperature=0.7, device="cpu")
+        assert torch.equal(eng.key, PRNGKey(0))
+        eng.key = PRNGKey(seed)
+        return eng
+
+    def run(eng):
         return [r.out_tokens for r in eng.generate(_requests(Request, cfg.vocab_size, [6, 6]))]
 
-    a = run(0)
-    assert a == run(0) and a != run(1)
+    eng = engine(0)
+    a = run(eng)
+    assert a == run(engine(0)) and a != run(engine(1))
+    assert run(eng) != a  # the second call draws from the carried key
     assert all(0 <= t < cfg.padded_vocab for toks in a for t in toks)
 
 

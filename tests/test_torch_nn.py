@@ -15,7 +15,11 @@ JAX package's (``repro.nn``), on the same weights carried across with
 * the port's float64 ``apply_model`` equal to the design's ``forward``
   (the contract of tests/test_nn_compile.py, exact);
 * the committed ``params.npz`` compile, in the port, to the committed
-  svhn_cnn artifact.
+  svhn_cnn artifact;
+* ``init_params(PRNGKey(k), ...)`` equal to the JAX package's draw bit
+  for bit (jet_tagger, the Mixer with its ``Residual`` bodies, svhn_cnn;
+  three seeds), and the jet tagger the port compiles from its own
+  ``PRNGKey(0)`` draw equal to the JAX compile (``arrays_sha256``).
 
 JAX runs in float64 only inside ``jax.enable_x64(True)``, so these tests
 neither depend on the global flag nor leak it.
@@ -37,6 +41,7 @@ from repro.runtime import save_design as jsave
 from repro_torch import nn as tnn
 from repro_torch.core import SolutionCache
 from repro_torch.flow import CompileConfig, SolverConfig
+from repro_torch.random import PRNGKey
 from repro_torch.runtime import load_design, save_design
 
 ASSETS = Path(__file__).resolve().parent.parent / "src" / "repro_torch" / "assets"
@@ -190,16 +195,61 @@ def test_conv_same_padding_matches_jax():
 
 
 def test_init_params_shapes_and_generator():
+    """The port's draw has the JAX package's tree, shapes and dtypes; one
+    key gives one draw; a ``torch.Generator`` is refused."""
     jmodel, tmodel, in_shape, *_ = _net("mixer_small")
     jp, jshape = jnn.init_params(jax.random.PRNGKey(0), jmodel, in_shape)
-    a, shape = tnn.init_params(tmodel, in_shape, torch.Generator().manual_seed(5), device="cpu")
-    b, _ = tnn.init_params(tmodel, in_shape, torch.Generator().manual_seed(5), device="cpu")
+    a, shape = tnn.init_params(PRNGKey(5), tmodel, in_shape, device="cpu")
+    b, _ = tnn.init_params(PRNGKey(5), tmodel, in_shape, device="cpu")
     assert shape == jshape
     flat = jax.tree_util.tree_flatten_with_path
     ja, ta = flat(jax.tree.map(np.asarray, jp))[0], flat(jax.tree.map(lambda t: t.numpy(), a))[0]
     assert [(p, v.shape, v.dtype) for p, v in ja] == [(p, v.shape, v.dtype) for p, v in ta]
     for (_, u), (_, v) in zip(ta, flat(jax.tree.map(lambda t: t.numpy(), b))[0]):
         np.testing.assert_array_equal(u, v)
+    with pytest.raises(TypeError, match="torch.Generator"):
+        tnn.init_params(torch.Generator().manual_seed(5), tmodel, in_shape, device="cpu")
+
+
+INIT_NETWORKS = {
+    "jet_tagger": (lambda m: m.jet_tagger(), None),
+    "mixer": (lambda m: m.mlp_mixer_jet(), None),  # its token and channel MLPs are Residuals
+    "svhn_cnn": (lambda m: m.svhn_cnn(), None),
+}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+@pytest.mark.parametrize("name", sorted(INIT_NETWORKS))
+def test_init_params_equals_jax_bit_for_bit(name, seed):
+    """``init_params(PRNGKey(k), ...)`` is the JAX package's draw of the
+    same seed: every weight and bias equal, bit for bit."""
+    build, _ = INIT_NETWORKS[name]
+    jmodel, in_shape, _ = build(jnn.models)
+    tmodel, _, _ = build(tnn.models)
+    assert any(isinstance(s, tnn.Residual) for s in tmodel) == (name == "mixer")
+    jp, jshape = jnn.init_params(jax.random.PRNGKey(seed), jmodel, in_shape)
+    tp, tshape = tnn.init_params(PRNGKey(seed), tmodel, in_shape, device="cpu")
+    assert tshape == jshape
+    flat = jax.tree_util.tree_flatten_with_path
+    want = flat(jax.tree.map(np.asarray, jp))[0]
+    got = flat(jax.tree.map(lambda t: t.numpy(), tp))[0]
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, g), (_, w) in zip(got, want):
+        assert g.dtype == w.dtype == np.float32, path
+        np.testing.assert_array_equal(g, w, err_msg=str(path))
+
+
+def test_port_draw_compiles_to_the_jax_design(compiled, tmp_path):
+    """The jet tagger compiled by the port from its own ``PRNGKey(0)``
+    draw has the JAX compile's ``arrays_sha256`` (the JAX package's
+    ``PRNGKey(0)`` weights, the ``compiled`` fixture): no weights crossed."""
+    assert NETWORKS["jet_tagger"][2] == 0
+    tmodel, in_shape, tiq = tnn.models.jet_tagger()
+    tp, _ = tnn.init_params(PRNGKey(0), tmodel, in_shape, device="cpu")
+    td = tnn.compile_model(tmodel, tp, in_shape, tiq, config=CompileConfig(jobs=1), device="cpu")
+    mj = _manifest(compiled["jet_tagger"][0], jsave, tmp_path / "jax")
+    mt = _manifest(td, save_design, tmp_path / "port")
+    assert mt["arrays_sha256"] == mj["arrays_sha256"]
 
 
 # ----------------------------------------------------------------------
@@ -319,7 +369,7 @@ def test_quantized_training_step_reduces_loss():
     tests/test_nn_compile.py does it: a few SGD steps on a toy task
     reduce the loss."""
     model, in_shape, in_quant = tnn.models.jet_tagger(w_bits=8)
-    params, _ = tnn.init_params(model, in_shape, torch.Generator().manual_seed(5), device="cpu")
+    params, _ = tnn.init_params(PRNGKey(5), model, in_shape, device="cpu")
     gen = torch.Generator().manual_seed(6)
     x = torch.randn(256, 16, generator=gen)
     y = (x @ torch.randn(16, 5, generator=gen)).argmax(dim=-1)

@@ -11,7 +11,8 @@ pinned signature except for this short list of documented differences:
   parameter is taken out counts as equal;
 * torch types for jnp types in annotations (``torch.Tensor`` for
   ``jnp.ndarray``);
-* an explicit ``generator`` in ``nn.init_params`` in place of a JAX key;
+* ``nn.init_params``'s ``rng`` is a key tensor (``repro_torch.random.PRNGKey``),
+  annotated ``torch.Tensor``, where the JAX package's is a ``jax.Array``;
 * ``ServeEngine``'s legacy kwargs are keyword-only, after ``config`` and
   ``device`` (the JAX package takes them first and positionally);
 * ``CompiledDesign`` (and its alias ``Design``) is a ``torch.nn.Module``
@@ -35,9 +36,8 @@ NAMES = [(mod, name) for mod in sorted(PINNED) for name in sorted(PINNED[mod])]
 # name -> the port's signature, where it differs by more than device=
 # and torch types (each one listed in the module docstring)
 DIFFERENT_SIGNATURES = {
-    "repro.nn.init_params": "(model: 'Sequential', in_shape: 'tuple[int, ...]', "
-                            "generator: 'torch.Generator', device: 'str | torch.device | "
-                            "None' = None)",
+    "repro.nn.init_params": "(rng: 'torch.Tensor', model: 'Sequential', in_shape: "
+                            "'tuple[int, ...]', device: 'str | torch.device | None' = None)",
     "repro.runtime.ServeEngine": "(config: 'ServeConfig | None' = None, device: 'str | "
                                  "torch.device | None' = None, *, max_batch=UNSET, "
                                  "queue_depth=UNSET, max_wait_us=UNSET, buckets=UNSET, "
@@ -111,9 +111,10 @@ def test_compiled_design_fields_are_instance_attributes():
 
     from repro_torch import nn as tnn
     from repro_torch.flow import CompileConfig, Design
+    from repro_torch.random import PRNGKey
 
     model = (tnn.QDense(2, tnn.QuantConfig(6, 2)),)
-    params, _ = tnn.init_params(model, (3,), torch.Generator().manual_seed(0), "cpu")
+    params, _ = tnn.init_params(PRNGKey(0), model, (3,), "cpu")
     design = tnn.compile_model(model, params, (3,), tnn.QuantConfig(8, 4),
                                config=CompileConfig(jobs=1), device="cpu")
     assert isinstance(design, Design) and isinstance(design, torch.nn.Module)
