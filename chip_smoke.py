@@ -324,7 +324,26 @@ then runs thirty phases, each of which must pass:
             one chunk of the shard, 10^6 sampled elements against the
             plain version at the same global indices, and one launch over
             the shard's largest leaf (1,343 M elements) timed beside its
-            bound.
+            bound;
+30. pick    the categorical pick kernel (``kernels/prng``'s
+            ``gumbel_pick.cu``) against its plain version, both on the
+            card, at every served architecture's [8, padded vocabulary]
+            in bf16 and falcon-mamba-7b's in f32, with tied rows: bf16
+            picks equal, f32 picks within 4 ulp of their scores; its bf16
+            noise table equal to the plain version's 128 values and the
+            threefry kernel's; its build's registers, shared memory and
+            spills (none); one pick profiled (a process of its own): its
+            kernel alone; its device
+            time (graph replays) beside its bound and the plain version's
+            at those shapes, at batches 1, 8 and 64 (and 1 at 152,064) and
+            over vocabularies 512 to 152,064 at batch 8 (the fixed cost and the time a
+            logit, by least squares), with each launch plan; smollm-135m
+            served with ``sample="categorical"``: one pick launch a
+            pick and no other kernel but flash, the tokens equal to the
+            same engine's with the plain pick; the device's noise table
+            dropped before the first categorical serve, which builds it
+            with one launch of its kernel (the next serve none), and that
+            table, its device time and its bound in an entry of its own.
 Phases 23, 25 and 28 draw parameters inside their counted runs (the
 Trainer's and the examples' inits, the jet tagger's data): their
 launches include the threefry kernel's; phase 26 draws its sharded parameters through ``shardings=``.
@@ -350,6 +369,7 @@ import dataclasses
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -585,7 +605,8 @@ def launch_counters() -> dict:
     return {"adder_graph": ag_kernel.launches, "flash_attention": fa_kernel.launches,
             "ssm_scan": ss_kernel.launches, "quant_matmul": qm_kernel.launches,
             "flash_attention_bwd": fa_kernel.bwd_launches, "ssm_scan_bwd": ss_kernel.bwd_launches,
-            "prng": prng_kernel.launches, "gumbel_pick": prng_kernel.pick_launches}
+            "prng": prng_kernel.launches, "gumbel_pick": prng_kernel.pick_launches,
+            "gumbel_noise_table": prng_kernel.noise_table_launches}
 
 
 def kernel_counters() -> dict:
@@ -4136,7 +4157,8 @@ def pick_cases(torch, dev) -> dict:
     from repro_torch import configs
     from repro_torch import random as R
     from repro_torch.kernels.prng import kernel as prng_kernel
-    from repro_torch.kernels.prng.ref import draw_ref, gumbel_pick_ref, pick_scores_ref
+    from repro_torch.kernels.prng.ref import (draw_ref, gumbel_from_bits, gumbel_pick_ref,
+                                              pick_scores_ref)
 
     shapes = {arch: (configs.get(arch).padded_vocab, torch.bfloat16) for arch in lm_paths()}
     shapes[PICK_F32_ARCH + " (f32)"] = (configs.get(PICK_F32_ARCH).padded_vocab, torch.float32)
@@ -4180,6 +4202,13 @@ def pick_cases(torch, dev) -> dict:
                     "gumbel")
     check(torch.equal(got, want), "gumbel bf16: the threefry kernel != its plain version")
     out["gumbel_bf16_values"] = int(torch.unique(got).numel())
+    # the pick's noise table, built once on the card: the same 128 values
+    table = prng_kernel._noise_tables[dev.index]
+    plain = gumbel_from_bits(torch.arange(128, dtype=torch.int64, device=dev) * 2, torch.bfloat16)
+    check(torch.equal(table, plain.float()), "the pick's bf16 noise table != the plain version's")
+    check(torch.equal(torch.unique(table), torch.unique(got).float()),
+          "the pick's bf16 noise table != the threefry kernel's 128 noise values")
+    out["noise_table_equal"] = True
     got = prng_kernel.draw_cuda(torch.empty(n, device=dev), k0, k1, (n,), (0,), "gumbel")
     want = draw_ref(torch.empty(n, device=dev), k0, k1, (n,), (0,), "gumbel")
     scale = torch.maximum(want.abs(), torch.ones_like(want))
@@ -4192,37 +4221,128 @@ def pick_cases(torch, dev) -> dict:
     return out
 
 
-def pick_time(torch, dev, info: dict, v: int, dtype) -> dict:
-    """The pick at [SERVE_BATCH, v] logits in ``dtype``: the kernel's and
-    the plain version's device time per call (graph replays), beside the
-    bound and ``torch.multinomial`` of the softmax (another draw, a
+PICK_BATCHES = (1, 8, 64)  # timed at smollm-135m's vocabulary (and batch 1 at qwen3-moe's)
+PICK_SWEEP = (512, 4096, 49152, 152064)  # vocabularies timed at SERVE_BATCH: fixed cost and slope
+
+
+def pick_int_ops_per_s(info: dict) -> float:
+    """The card's rate for the pick's int32 operations: its INT32 pipe and
+    the FMA pipe that runs the hash's adds as IMAD, 64 lanes an SM each."""
+    from repro_torch.kernels.prng import kernel as prng_kernel
+
+    return info["int32_ops_per_s"] * prng_kernel.PICK_INT32_PIPES
+
+
+def pick_time(torch, dev, info: dict, b: int, v: int, dtype) -> dict:
+    """The pick at [b, v] logits in ``dtype``: the kernel's and the plain
+    version's device time per call (graph replays), beside the bound, the
+    launch plan and ``torch.multinomial`` of the softmax (another draw, a
     yardstick only: no PyTorch call draws JAX's numbers)."""
+    from repro_torch.kernels._build import sm_count
     from repro_torch.kernels.prng import kernel as prng_kernel
     from repro_torch.kernels.prng.ref import gumbel_pick_ref
 
-    x = pick_logits(torch, dev, SERVE_BATCH, v, dtype, 99)
-    n = SERVE_BATCH * v
+    x = pick_logits(torch, dev, b, v, dtype, 99)
+    n = b * v
     ms = graph_ms(torch, lambda: prng_kernel.gumbel_pick_cuda(x, 1, 2, 0.7))
     plain_ms = graph_ms(torch, lambda: gumbel_pick_ref(x, 1, 2, 0.7), calls=2, replays=5)
     multinomial_ms = graph_ms(
         torch, lambda: torch.multinomial(torch.softmax(x.float() / 0.7, -1), 1))
-    bytes_ms = (n * x.element_size() + SERVE_BATCH * 8) / HBM_BYTES_PER_S * 1e3
-    ops_ms = max(n * prng_kernel.PICK_INT32_OPS_PER_ELEMENT / info["int32_ops_per_s"],
+    bytes_ms = (n * x.element_size() + b * 8) / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(n * prng_kernel.PICK_INT32_OPS_PER_ELEMENT / pick_int_ops_per_s(info),
                  n * prng_kernel.PICK_F32_FLOPS_PER_ELEMENT[dtype] / F32_FLOPS_PER_S) * 1e3
-    return {"shape": f"logits [{SERVE_BATCH}, {v}] {str(dtype)[6:]}, T 0.7", "ms": ms,
+    plan = prng_kernel.pick_plan(b, v, sm_count(dev))
+    return {"shape": f"logits [{b}, {v}] {str(dtype)[6:]}, T 0.7", "b": b, "v": v, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
             "ops_ms": ops_ms, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "multinomial_ms": multinomial_ms}
+            "library_ms": None, "multinomial_ms": multinomial_ms,
+            "plan": {"splits": plan.splits, "blocks": plan.blocks,
+                     "blocks_per_sm": plan.blocks_per_sm, "threads": prng_kernel.PICK_THREADS}}
+
+
+def pick_shapes(torch) -> dict:
+    """The shapes the pick is timed at, by name: (b, v, dtype) -- every
+    served architecture's decode logits [8, padded vocabulary] in bfloat16
+    and falcon-mamba-7b's in float32, batches PICK_BATCHES of smollm-135m's
+    vocabulary and batch 1 of qwen3-moe-30b-a3b's, and the vocabularies
+    PICK_SWEEP at batch 8."""
+    from repro_torch import configs
+
+    out = {arch: (SERVE_BATCH, configs.get(arch).padded_vocab, torch.bfloat16)
+           for arch in lm_paths()}
+    out[PICK_F32_ARCH + " (f32)"] = (SERVE_BATCH, configs.get(PICK_F32_ARCH).padded_vocab,
+                                     torch.float32)
+    smollm_v = configs.get(PICK_SERVED_ARCH).padded_vocab
+    for b in PICK_BATCHES:
+        out[f"batch {b} at {smollm_v}"] = (b, smollm_v, torch.bfloat16)
+    qwen_v = configs.get("qwen3-moe-30b-a3b").padded_vocab
+    out[f"batch 1 at {qwen_v}"] = (1, qwen_v, torch.bfloat16)
+    for v in PICK_SWEEP:
+        out[f"sweep {SERVE_BATCH} x {v}"] = (SERVE_BATCH, v, torch.bfloat16)
+    return out
+
+
+def pick_times(torch, dev, info: dict) -> dict:
+    """The pick timed at each of ``pick_shapes``; the sweep's least-squares
+    line gives the fixed cost (intercept) and the time a logit (slope)
+    beside the bound's."""
+    from repro_torch.kernels.prng import kernel as prng_kernel
+
+    rows, done = {}, {}
+    for name, (b, v, dtype) in pick_shapes(torch).items():
+        if (b, v, dtype) not in done:
+            done[b, v, dtype] = pick_time(torch, dev, info, b, v, dtype)
+        rows[name] = done[b, v, dtype]
+    xs = [SERVE_BATCH * v for v in PICK_SWEEP]
+    ys = [rows[f"sweep {SERVE_BATCH} x {v}"]["ms"] for v in PICK_SWEEP]
+    mx, my = sum(xs) / len(xs), sum(ys) / len(ys)
+    slope = (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+             / sum((x - mx) ** 2 for x in xs))
+    fit = {"intercept_us": (my - slope * mx) * 1e3, "ns_per_logit": slope * 1e6,
+           "bound_ns_per_logit": 1e9 * prng_kernel.PICK_INT32_OPS_PER_ELEMENT
+                                 / pick_int_ops_per_s(info),
+           "int32_pipe_ns_per_logit": 1e9 * prng_kernel.PICK_INT32_OPS_PER_ELEMENT
+                                      / info["int32_ops_per_s"],
+           "points": {str(x): y for x, y in zip(xs, ys)}}
+    return {"rows": rows, "sweep_fit": fit}
+
+
+def ptxas_report(log_text: str) -> list:
+    """Each kernel's registers, shared memory, stack and spills from
+    ptxas's ``-v`` report in a build log."""
+    out, cur = [], None
+    for ln in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = {"function": m.group(1)}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["smem_bytes"] = int(m.group(1)) if m else 0
+    return out
 
 
 def serve_categorical(torch, np, dev) -> dict:
     """PICK_SERVED_ARCH served as phase 8 serves it, with
     ``sample="categorical"``: counted (the flash launches of phase 8, one
     pick launch a pick -- after prefill and after each decode step -- and
-    no other kernel); the tokens equal to the same engine's with the pick
-    swapped for its plain version (the key reset to the reference's
-    PRNGKey(0)); tokens/s beside greedy's on the same engine."""
+    no other kernel but, in the first categorical serve after the device's
+    noise table was dropped, one launch of the kernel that builds it); the
+    tokens equal to the same engine's with the pick swapped for its plain
+    version (the key reset to the reference's PRNGKey(0)); tokens/s beside
+    greedy's on the same engine."""
     from repro_torch import configs
+    from repro_torch.kernels.prng import kernel as prng_kernel
     from repro_torch.kernels.prng import ref
     from repro_torch.models import init_params
     from repro_torch.random import PRNGKey
@@ -4247,11 +4367,25 @@ def serve_categorical(torch, np, dev) -> dict:
         dt = time.perf_counter() - t0
         return [r.out_tokens for r in reqs], read_counts(), dt
 
-    run("categorical")  # warm-up: the first prefill's cuBLAS choices
-    greedy, _, greedy_s = run("greedy")
-    toks, counts, cat_s = run("categorical")
     flash = {k: want["prefill"][k] + (NEW_TOKENS - 1) * want["decode"][k] for k in want["decode"]}
     picks = NEW_TOKENS  # one after prefill, one after each of the NEW_TOKENS - 1 decode steps
+    with prng_kernel._pick_lock:
+        prng_kernel._noise_tables.pop(dev.index, None)  # the first bf16 pick builds it again
+    # also the warm-up: the first prefill's cuBLAS choices
+    first, first_counts, _ = run("categorical")
+    check(first_counts["gumbel_noise_table"] == 1,
+          f"the first categorical serve built the noise table {first_counts['gumbel_noise_table']} "
+          "times, want once")
+    check(first_counts["gumbel_pick"] == picks,
+          f"the first categorical serve: {first_counts['gumbel_pick']} pick launches, want {picks}")
+    check_only(first_counts, {"gumbel_pick", "gumbel_noise_table", *flash},
+               "the first categorical serve")
+    greedy, _, greedy_s = run("greedy")
+    toks, counts, cat_s = run("categorical")
+    check(counts["gumbel_noise_table"] == 0,
+          f"the categorical serve built the noise table {counts['gumbel_noise_table']} times "
+          "more, want none")
+    check(toks == first, "categorical serve: other tokens than the first categorical serve's")
     check(counts["gumbel_pick"] == picks,
           f"categorical serve: {counts['gumbel_pick']} pick launches, want {picks}")
     check({k: counts[k] for k in flash} == flash,
@@ -4269,27 +4403,110 @@ def serve_categorical(torch, np, dev) -> dict:
     n_tok = SERVE_BATCH * NEW_TOKENS
     out = {"arch": cfg.name, "launches": {k: counts[k] for k in ("gumbel_pick", *flash)},
            "picks": picks, "tokens_per_s": n_tok / cat_s, "greedy_tokens_per_s": n_tok / greedy_s,
-           "tokens_equal_plain_pick": True}
+           "tokens_equal_plain_pick": True,
+           "noise_table_launches": {"first_serve": first_counts["gumbel_noise_table"],
+                                    "timed_serve": counts["gumbel_noise_table"]}}
     del eng, params
     torch.cuda.empty_cache()
     return out
 
 
-def pick_phase(torch, np, dev, info: dict) -> dict:
-    """Phase 30: the Gumbel-max pick kernel against its plain version, its
-    time beside its bound, and smollm-135m served categorically through
-    it."""
+def noise_table_entry(torch, dev, served: dict) -> dict:
+    """The kernel that builds the pick's bfloat16 noise table: the table the
+    categorical serve built against the plain version's 128 values, its
+    device time per build (graph replays) beside its bound and the plain
+    version's, and its launches in the serve that built it."""
+    from repro_torch.kernels.prng import kernel as prng_kernel
+    from repro_torch.kernels.prng.ref import gumbel_from_bits
+
+    def plain():
+        mantissas = torch.arange(prng_kernel.NOISE_VALUES, dtype=torch.int64, device=dev)
+        return gumbel_from_bits(mantissas * 2, torch.bfloat16).float()
+
+    table = prng_kernel._noise_tables[dev.index]
+    err = float((table - plain()).abs().max())
+    check(torch.equal(table, plain()), "the noise table the serve built != the plain version's")
+    lib = prng_kernel._pick_lib()
+    ms = graph_ms(torch, lambda: prng_kernel._build_noise_table(
+        lib, dev, torch.cuda.current_stream(dev)))
+    plain_ms = graph_ms(torch, plain)
+    n = prng_kernel.NOISE_VALUES
+    bytes_ms = n * 4 / HBM_BYTES_PER_S * 1e3
+    ops_ms = n * prng_kernel.NOISE_F32_FLOPS_PER_VALUE / F32_FLOPS_PER_S * 1e3
+    return {
+        "name": "gumbel_noise_table",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/prng/csrc/gumbel_pick.cu",
+        "replaces": "src/repro/serve/engine.py:60",
+        "replaces_note": "no TPU kernel: the bfloat16 noise of the JAX engine's "
+                         "jax.random.categorical, whose 128 values the pick reads from this table",
+        "launches": served["noise_table_launches"]["first_serve"],
+        "launches_timed_serve": served["noise_table_launches"]["timed_serve"],
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": None,
+        "shape": f"{n} float32 values, one block",
+    }
+
+
+def pick_profile_child() -> int:
+    """One bfloat16 pick at PICK_SERVED_ARCH's decode logits [8, padded
+    vocabulary] under the profiler, after one call that builds the noise
+    table.  Run in a process of its own by ``pick_phase``: after the
+    earlier phases this process's profiler returned traces with no device
+    time (once, then three times in a row, in full runs; never in a fresh
+    process).  Prints one JSON line."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs
+    from repro_torch.kernels.prng import kernel as prng_kernel
+
+    dev = torch.device("cuda", 0)
+    x = pick_logits(torch, dev, SERVE_BATCH, configs.get(PICK_SERVED_ARCH).padded_vocab,
+                    torch.bfloat16, 7)
+    prng_kernel.gumbel_pick_cuda(x, 3, 4, 0.7)
+    prof = profile_once(torch, lambda: prng_kernel.gumbel_pick_cuda(x, 3, 4, 0.7), "gumbel_pick")
+    print(json.dumps({k: prof[k] for k in ("launches", "key_launches", "ranked", "tries")}))
+    return 0
+
+
+def pick_phase(torch, np, dev, info: dict) -> list:
+    """Phase 30: the Gumbel-max pick kernel against its plain version, its
+    build's resources, one pick profiled (one kernel, nothing else), its
+    times beside its bound over the served shapes, batches and a sweep of
+    vocabularies, and smollm-135m served categorically through it; then the
+    noise table's kernel.  The two kernels' entries of the ``kernels``
+    line."""
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.prng import kernel as prng_kernel
 
     cases = pick_cases(torch, dev)
     log("pick kernel vs plain version on the card: " + json.dumps(cases))
-    main_t = pick_time(torch, dev, info, configs.get(PICK_SERVED_ARCH).padded_vocab,
-                       torch.bfloat16)
-    f32_t = pick_time(torch, dev, info, configs.get(PICK_F32_ARCH).padded_vocab, torch.float32)
-    log("pick times: " + json.dumps({"bf16": main_t, "f32": f32_t}))
+    build = ptxas_report(_build.build_log("gumbel_pick"))
+    log("pick build (ptxas -v): " + json.dumps(build))
+    check(all(k.get("spill_stores", 0) == 0 and k.get("spill_loads", 0) == 0 for k in build),
+          f"the pick kernels spill: {build}")
+    child = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.pick_profile_child())"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(child.returncode == 0, "the pick's profile failed:\n" + child.stdout[-4000:]
+          + child.stderr[-4000:])
+    prof = json.loads(child.stdout.strip().splitlines()[-1])
+    check(prof["launches"] == 1 and prof["key_launches"] == 1,
+          f"one pick ran {prof['launches']} device operations ({prof['ranked']}), want its kernel "
+          "alone")
+    profiled = {"launches": prof["launches"], "kernel": prof["ranked"][0][0],
+                "device_us": prof["ranked"][0][1], "tries": prof["tries"]}
+    log("one pick profiled (a process of its own): " + json.dumps(profiled))
+    times = pick_times(torch, dev, info)
+    log("pick times: " + json.dumps(times))
+    main_t = times["rows"][PICK_SERVED_ARCH]
     served = serve_categorical(torch, np, dev)
     log(f"serve {served['arch']} categorically (T 0.7): " + json.dumps(served))
-    return {
+    table = noise_table_entry(torch, dev, served)
+    log("pick noise table: " + json.dumps(table))
+    return [{
         "name": "gumbel_pick",
         "route": "cuda",
         "source": "src/repro_torch/kernels/prng/csrc/gumbel_pick.cu",
@@ -4299,13 +4516,19 @@ def pick_phase(torch, np, dev, info: dict) -> dict:
         "launches": served["launches"]["gumbel_pick"],
         "max_abs_err": cases["max_abs_err"],
         **{k: main_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                  "shape", "multinomial_ms")},
+                                  "shape", "multinomial_ms", "plan")},
         "library": "none: no PyTorch call draws JAX's numbers (torch.multinomial of the "
                    "softmax, another draw, timed as multinomial_ms)",
-        "f32": f32_t,
+        "f32": times["rows"][PICK_F32_ARCH + " (f32)"],
+        "times": {name: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "plan")}
+                  for name, r in times["rows"].items()},
+        "sweep_fit": times["sweep_fit"],
+        "build": build,
+        "profiled": profiled,
+        "noise_table_launches": served["noise_table_launches"],
         "cases": cases,
         "serve": served,
-    }
+    }, table]
 
 
 def main() -> int:
@@ -4738,7 +4961,7 @@ def main() -> int:
 
     log("== 30. the categorical pick: the Gumbel-max kernel")
     fresh_card(torch)
-    kernels["kernels"].append(pick_phase(torch, np, dev, info))
+    kernels["kernels"].extend(pick_phase(torch, np, dev, info))
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(info["nvidia_smi"])

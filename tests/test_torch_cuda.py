@@ -53,7 +53,10 @@ word; ``init_params`` on the card launching it, within 4 ulp of the CPU
 draw; its Gumbel draws (bf16 equal, f32 within two ulp of max(|x|, 1)).
 The categorical pick kernel against its plain version (bf16 picks equal,
 f32 equal but where the two picks' scores lie within 4 ulp), on strided
-rows and in a captured graph, and the LM engine's categorical tokens on
+and misaligned rows, on rows of NaN, +-inf and signed zeros (argmax's
+order), across the count's high word, in a captured graph replayed (the
+combine's scratch left zero), on two streams at once and at a device's
+first pick inside a capture, and the LM engine's categorical tokens on
 the card equal to its tokens on the CPU.
 
 Every test here needs a card and skips without one.  This file imports
@@ -1371,7 +1374,8 @@ def test_prng_kernel_refuses_what_it_cannot_take(card):
 # the categorical pick (kernels/prng/csrc/gumbel_pick.cu): the kernel
 # against its plain version
 # ----------------------------------------------------------------------
-PICK_SHAPES = [(1, 1), (3, 7), (8, 2049), (8, 49152), (5, 152064), (64, 512)]
+PICK_SHAPES = [(1, 1), (3, 7), (8, 2049), (8, 49152), (5, 152064), (64, 512), (1, 152064),
+               (8, 65024), (256, 49152), (4, 1000)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1426,6 +1430,260 @@ def test_pick_kernel_takes_a_row_stride_and_graphs(card):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, want)
+
+
+def _pick_scores_apart(x, got, want, k0, k1, temperature):
+    """Ulp distances of the plain scores at the kernel's and the plain picks."""
+    from repro_torch.kernels.prng.ref import pick_scores_ref
+
+    s = pick_scores_ref(x, k0, k1, temperature).float()
+    rows = torch.arange(x.shape[0], device=x.device)
+    return (_ordered_f32(s[rows, got].cpu()) - _ordered_f32(s[rows, want].cpu())).abs()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("v", [100, 49152])
+def test_pick_kernel_orders_nan_inf_and_signed_zeros(card, v, dtype):
+    """Rows with NaNs (the first wins), all NaN, all -inf (index 0), +inf
+    at two places (the first), -inf but one logit, and -0.0 beside 0.0
+    (the noise decides): the plain version's picks (float32's noise rows
+    within 4 ulp), the first five rows exactly as argmax orders them."""
+    from repro_torch.kernels.prng import kernel as prng_kernel
+    from repro_torch.kernels.prng.ref import gumbel_pick_ref
+
+    nan, inf = float("nan"), float("inf")
+    gen = torch.Generator(card).manual_seed(v)
+    x = torch.randn((8, v), generator=gen, device=card) * 3
+    a, b, c = v // 7, v // 3, v - 2
+    x[0, [b, a, c]] = nan
+    x[1] = nan
+    x[2] = -inf
+    x[3, [c, a]] = inf
+    x[4] = -inf
+    x[4, b] = 1.0
+    x[5] = torch.where(torch.arange(v, device=card) % 2 == 0, -0.0, 0.0)
+    x = x.to(dtype)
+    for temperature in (1.0, 0.7):
+        got = prng_kernel.gumbel_pick_cuda(x, 11, 12, temperature)
+        want = gumbel_pick_ref(x, 11, 12, temperature)
+        assert got[:5].tolist() == want[:5].tolist() == [a, 0, 0, a, b]
+        if dtype == torch.bfloat16:
+            assert torch.equal(got, want)
+        else:
+            assert int(_pick_scores_apart(x, got, want, 11, 12, temperature).max()) <= 4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pick_kernel_on_misaligned_rows(card, dtype):
+    """Rows whose starts lie off 16-byte boundaries, each by another
+    amount (a row stride of 2 * 49157 elements, 5 elements in): the
+    logits before a boundary and after the last group of ``PICK_GROUP`` (4)
+    are taken one a thread; the plain version's picks."""
+    from repro_torch.kernels.prng import kernel as prng_kernel
+    from repro_torch.kernels.prng.ref import gumbel_pick_ref
+
+    gen = torch.Generator(card).manual_seed(3)
+    x = (torch.randn((8, 2, 49157), generator=gen, device=card) * 3).to(dtype)[:, 1, 5:]
+    assert x.stride() == (2 * 49157, 1)
+    got = prng_kernel.gumbel_pick_cuda(x, 7, 8, 0.7)
+    want = gumbel_pick_ref(x, 7, 8, 0.7)
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, want)
+    else:
+        assert int(_pick_scores_apart(x, got, want, 7, 8, 0.7).max()) <= 4
+
+
+def test_pick_kernel_across_the_counts_high_word(card):
+    """bfloat16 logits [3, 2^31 - 1]: row 2's flat indices run from 2^32 -
+    2, so its first block hashes across the count's high word and the
+    others above it; its pick equals the plain version's argmax, taken
+    over chunks of the row."""
+    from repro_torch.kernels.prng import kernel as prng_kernel
+    from repro_torch.kernels.prng.ref import values_at, weak_scalar
+
+    v = 2**31 - 1
+    x = torch.randn((3, v), device=card, dtype=torch.bfloat16)
+    got = prng_kernel.gumbel_pick_cuda(x, 21, 22, 0.7)
+    t = weak_scalar(0.7, torch.bfloat16)
+    best, best_at, chunk = None, -1, 1 << 24
+    for lo in range(0, v, chunk):
+        part = x[2, lo:lo + chunk]
+        index = torch.arange(2 * v + lo, 2 * v + lo + part.shape[0], device=card)
+        noise = values_at(21, 22, index, "gumbel", dtype=torch.bfloat16)
+        s = ((part.float() / t).bfloat16().float() + noise.float()).bfloat16().float()
+        m = s.max()
+        if best is None or bool(m > best):  # a tie keeps the earlier chunk's
+            best, best_at = m, lo + int(s.argmax())
+    assert int(got[2]) == best_at
+    del x
+    torch.cuda.empty_cache()
+
+
+def test_pick_graph_replays_leave_the_scratch_zero(card):
+    """Three picks (other keys) captured in one graph and replayed three
+    times on new logits each time: every replay gives the eager picks of
+    those logits, so each pick leaves its combine's scratch as it found
+    it."""
+    from repro_torch.kernels.prng import kernel as prng_kernel
+
+    x = torch.empty((8, 49152), device=card, dtype=torch.bfloat16)
+    keys = [(1, 2), (3, 4), (5, 6)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        prng_kernel.gumbel_pick_cuda(x.normal_(), 1, 2, 0.7)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [prng_kernel.gumbel_pick_cuda(x, k0, k1, 0.7) for k0, k1 in keys]
+    for i in range(3):
+        torch.manual_seed(i)
+        x.copy_(torch.randn(x.shape, device=card) * 3)
+        graph.replay()
+        want = [prng_kernel.gumbel_pick_cuda(x, k0, k1, 0.7) for k0, k1 in keys]
+        torch.cuda.synchronize()
+        for got, w in zip(outs, want):
+            assert torch.equal(got, w)
+
+
+def test_pick_on_two_streams_at_once(card):
+    """Picks in flight on two streams at once (bf16 [8, 49152] on one,
+    f32 [8, 65024] on the other, each stream its own scratch): each equals
+    the plain version's (f32 within 4 ulp)."""
+    from repro_torch.kernels.prng import kernel as prng_kernel
+    from repro_torch.kernels.prng.ref import gumbel_pick_ref
+
+    xa = (torch.randn((8, 49152), device=card) * 3).bfloat16()
+    xb = torch.randn((8, 65024), device=card) * 3
+    sa, sb = torch.cuda.Stream(), torch.cuda.Stream()
+    for s in (sa, sb):
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for i in range(8):
+        with torch.cuda.stream(sa):
+            outs.append((xa, i, prng_kernel.gumbel_pick_cuda(xa, i, 1, 0.7)))
+        with torch.cuda.stream(sb):
+            outs.append((xb, i, prng_kernel.gumbel_pick_cuda(xb, i, 1, 0.7)))
+    torch.cuda.synchronize()
+    for x, i, got in outs:
+        want = gumbel_pick_ref(x, i, 1, 0.7)
+        if x.dtype == torch.bfloat16:
+            assert torch.equal(got, want)
+        else:
+            assert int(_pick_scores_apart(x, got, want, i, 1, 0.7).max()) <= 4
+
+
+def test_pick_first_call_inside_a_capture(card):
+    """The device's first bf16 pick made inside a capture: the graph builds
+    a noise table of its own, and its scratch, inside the capture; the
+    replayed graph, and an eager pick after it (which builds the device's
+    table), equal the plain version, and the table holds the plain
+    version's 128 values."""
+    from repro_torch.kernels.prng import kernel as prng_kernel
+    from repro_torch.kernels.prng.ref import gumbel_from_bits, gumbel_pick_ref
+
+    x = (torch.randn((8, 49152), device=card) * 3).bfloat16()
+    want = gumbel_pick_ref(x, 9, 10, 0.7)
+    prng_kernel._noise_tables.clear()
+    built = prng_kernel.noise_table_launches.value
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = prng_kernel.gumbel_pick_cuda(x, 9, 10, 0.7)
+    assert prng_kernel.noise_table_launches.value == built + 1
+    assert card.index not in prng_kernel._noise_tables
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert torch.equal(prng_kernel.gumbel_pick_cuda(x, 9, 10, 0.7), want)
+    assert prng_kernel.noise_table_launches.value == built + 2
+    table = prng_kernel._noise_tables[card.index].cpu()
+    plain = gumbel_from_bits(torch.arange(128, dtype=torch.int64) * 2, torch.bfloat16).float()
+    assert torch.equal(table, plain)
+
+
+def _released(capture_ids, timeout_s=10.0):
+    """Whether the pick's buffers of every capture in ``capture_ids`` were let
+    go (their graphs' release reaches the wrapper from a CUDA-internal thread)."""
+    import time
+
+    from repro_torch.kernels.prng import kernel as prng_kernel
+
+    deadline = time.monotonic() + timeout_s
+    while True:
+        torch.cuda.synchronize()
+        with prng_kernel._pick_lock:
+            prng_kernel._drop_released(prng_kernel._pick_lib())
+            left = [c for c in capture_ids if c in prng_kernel._capture_buffers]
+        if not left or time.monotonic() > deadline:
+            return not left
+        time.sleep(0.05)
+
+
+def test_pick_graphs_sharing_a_pool_keep_their_buffers(card):
+    """Two graphs captured one after the other on one stream, in one memory
+    pool, each with picks of its own shape (the second's allocations would
+    land on the first's scratch were it freed): replayed in turns, each
+    graph's picks equal the eager ones, read after the other graph's replay
+    too; once both graphs are destroyed their buffers are let go."""
+    import gc
+
+    from repro_torch.kernels.prng import kernel as prng_kernel
+
+    xa = (torch.randn((8, 49152), device=card) * 3).bfloat16()
+    xb = (torch.randn((16, 49152), device=card) * 3).bfloat16()
+    want_a = prng_kernel.gumbel_pick_cuda(xa, 1, 2, 0.7)
+    want_b = [prng_kernel.gumbel_pick_cuda(xb, k, 3, 0.7) for k in (4, 5)]
+    pool = torch.cuda.graph_pool_handle()
+    stream = torch.cuda.Stream()
+    before = set(prng_kernel._capture_buffers)
+    graph_a, graph_b = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph_a, pool=pool, stream=stream):
+        out_a = prng_kernel.gumbel_pick_cuda(xa, 1, 2, 0.7)
+    with torch.cuda.graph(graph_b, pool=pool, stream=stream):
+        out_b = [prng_kernel.gumbel_pick_cuda(xb, k, 3, 0.7) for k in (4, 5)]
+        spare = torch.full((8, 2), 7, dtype=torch.int64, device=card)
+    captures = set(prng_kernel._capture_buffers) - before
+    assert len(captures) == 2
+    for replay in (graph_b.replay, graph_a.replay, graph_b.replay, graph_a.replay, graph_a.replay):
+        replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out_a, want_a)
+    assert all(torch.equal(o, w) for o, w in zip(out_b, want_b))
+    assert bool((spare == 7).all())
+    del graph_a, graph_b, out_a, out_b, spare, replay
+    gc.collect()
+    torch.cuda.synchronize()
+    assert _released(captures)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("temperature", [6.0, 12.0])
+def test_pick_kernel_divides_at_temperatures_the_product_may_miss(card, temperature, dtype):
+    """At T = odd x 2^a (a >= 1) a subnormal quotient can lie on a float32
+    rounding midpoint, so the kernel divides there (``exact_division``):
+    logits whose quotients are subnormal (multiples of 2^-149 in float32,
+    of 2^-133 in bfloat16, beside normal ones and -inf rows but for them),
+    held to the plain version (float32 within 4 ulp)."""
+    from repro_torch.kernels.prng import kernel as prng_kernel
+    from repro_torch.kernels.prng.ref import gumbel_pick_ref
+
+    assert prng_kernel.exact_division(temperature)
+    gen = torch.Generator(card).manual_seed(int(temperature))
+    tiny = 2.0**-149 if dtype == torch.float32 else 2.0**-133
+    x = torch.randint(1, 128, (8, 4099), generator=gen, device=card).float() * tiny
+    x[1] *= -1
+    x[2, ::3] = torch.randn(x[2, ::3].shape, generator=gen, device=card)
+    x[3] = -float("inf")
+    x[3, 100:140] = 9 * tiny
+    x = x.to(dtype)
+    assert bool((x[0].float() / temperature < 2.0**-126).all()) and float(x[0].float().min()) > 0
+    for k in (1, 2):
+        got = prng_kernel.gumbel_pick_cuda(x, k, 13, temperature)
+        want = gumbel_pick_ref(x, k, 13, temperature)
+        if dtype == torch.bfloat16:
+            assert torch.equal(got, want)
+        else:
+            assert int(_pick_scores_apart(x, got, want, k, 13, temperature).max()) <= 4
 
 
 def test_gumbel_draws_on_the_card_equal_the_plain_version(card):
