@@ -1,0 +1,8 @@
+"""Device time of the integer executor's transposes in the traced window, per
+sample completed in it: the program's ``executor.transpose`` device spans."""
+
+from dabench.spans import read_ns_per_sample
+
+
+def read(run):
+    return read_ns_per_sample(run, ("executor.transpose",))

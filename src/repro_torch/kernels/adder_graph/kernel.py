@@ -6,7 +6,8 @@ wrapper checks what the kernel takes, picks the entry point and the
 launch by ``slots.launch_plan``, allocates the output (and, for the
 global-scratch entry point, the value scratch) with ``torch.empty``,
 launches on the current stream, raises on a launch error, and counts
-its launches in ``launches``.
+its launches in ``launches``.  Each launch is traced as an
+``adder_graph`` device span (``repro_torch.obs.trace``).
 Nothing is built on import: the library is built and loaded on the
 first launch.
 """
@@ -17,6 +18,7 @@ import ctypes
 
 import torch
 
+from ...obs import trace
 from .._build import KernelError, LaunchCounter, library, sm_count
 from .slots import LaunchPlan, launch_plan
 
@@ -78,7 +80,11 @@ def adder_graph_cuda(tables, x: torch.Tensor) -> torch.Tensor:
     plan = plan_for(tables, batch, x.device)
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
+    with (
+        trace.span("adder_graph", device=x.device, table=tables.digest, n_in=tables.n_inputs,
+                   n_out=tables.n_outputs, batch=batch, entry=plan.entry),
+        torch.cuda.device(x.device),
+    ):
         if plan.entry == "shared":
             err = lib.da4ml_adder_graph_smem(
                 x.data_ptr(), dev.slot_ops.data_ptr(), dev.slot_outs.data_ptr(),

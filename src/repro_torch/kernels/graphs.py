@@ -15,6 +15,10 @@ mode, so other threads may keep launching on their own streams meanwhile
 stream: unlike ``torch.cuda.graph``, it neither synchronises the device
 nor empties the allocator's caches first, which would reach into other
 threads' work.
+
+A replay is traced as a host span ``graph.replay`` (it records no CUDA
+event, so a loop of small replays is not slowed by it;
+``repro_torch.obs.trace``).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import threading
 from collections.abc import Callable
 from typing import Any
 
+from ..obs import trace
 from . import _build
 
 _capture_lock = threading.Lock()
@@ -40,9 +45,10 @@ class CapturedGraph:
     def replay(self) -> None:
         """Launch the graph on the current stream and count its kernels'
         launches."""
-        self.graph.replay()
-        for counter, n in self.launches.items():
-            counter.add(n)
+        with trace.span("graph.replay"):
+            self.graph.replay()
+            for counter, n in self.launches.items():
+                counter.add(n)
 
     def launches_by_kernel(self) -> dict[str, int]:
         """Kernel launches per replay, by counter name."""

@@ -103,11 +103,20 @@ def _int_row(arr) -> torch.Tensor:
 # ----------------------------------------------------------------------
 # Steps
 # ----------------------------------------------------------------------
-class _Cmvm(nn.Module):
+class _Step(nn.Module):
+    """One executor step: ``span`` names its trace span (``executor.<kind>``),
+    ``table`` is its table's index, -1 for a step without one."""
+
+    span = ""
+    table = -1
+
+
+class _Cmvm(_Step):
     """``y = adder_graph(x) << shift + bias`` on one table."""
 
     def __init__(self, spec: StepSpec, tables: list[AdderGraphTables]):
         super().__init__()
+        self.table = spec.table
         self.tables = tables[spec.table]
         a = spec.arrays
         self.register_buffer("bias", _int_row(a["bias"])[0] if "bias" in a else None)
@@ -121,6 +130,8 @@ class _Cmvm(nn.Module):
 
 
 class _Dense(_Cmvm):
+    span = "executor.dense"
+
     def __init__(self, spec, tables):
         super().__init__(spec, tables)
         self.d_in = spec.params["d_in"]
@@ -131,6 +142,8 @@ class _Dense(_Cmvm):
 
 class _Conv(_Cmvm):
     """VALID convolution by im2col over NHWC activations."""
+
+    span = "executor.conv"
 
     def __init__(self, spec, tables):
         super().__init__(spec, tables)
@@ -153,9 +166,11 @@ class _Conv(_Cmvm):
         return y.reshape(-1, oh * ow * y.shape[-1])
 
 
-class _Requant(nn.Module):
+class _Requant(_Step):
     """Shift each feature onto the target grid (left for d > 0, arithmetic
     right otherwise), then saturate."""
+
+    span = "executor.requant"
 
     def __init__(self, spec):
         super().__init__()
@@ -169,7 +184,9 @@ class _Requant(nn.Module):
         return v.clamp(self.lo, self.hi)
 
 
-class _Transpose(nn.Module):
+class _Transpose(_Step):
+    span = "executor.transpose"
+
     def __init__(self, spec):
         super().__init__()
         self.shape = tuple(spec.params["shape"])
@@ -180,12 +197,16 @@ class _Transpose(nn.Module):
         return v.reshape(n, *self.shape).permute(self.perm).reshape(n, -1)
 
 
-class _ReLU(nn.Module):
+class _ReLU(_Step):
+    span = "executor.relu"
+
     def forward(self, v):
         return v.clamp(min=0)
 
 
-class _Pool(nn.Module):
+class _Pool(_Step):
+    span = "executor.pool"
+
     def __init__(self, spec):
         super().__init__()
         p = spec.params
@@ -199,8 +220,10 @@ class _Pool(nn.Module):
         return r.reshape(v.shape[0], -1)
 
 
-class _Residual(nn.Module):
+class _Residual(_Step):
     """``(v << sa) + (body(v) << sb)``: both branches on a common grid."""
+
+    span = "executor.residual"
 
     def __init__(self, spec, tables):
         super().__init__()
@@ -209,10 +232,17 @@ class _Residual(nn.Module):
         self.register_buffer("sb", _int_row(spec.arrays["sb"]))
 
     def forward(self, v):
-        u = v
-        for s in self.body:
-            u = s(u)
+        u = _run_steps(self.body, v, v.device)
         return (v << self.sa) + (u << self.sb)
+
+
+def _run_steps(steps: nn.ModuleList, v: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """Run ``steps`` in order on ``v``, each in its device span
+    (attributes: its index among ``steps`` and its table)."""
+    for i, step in enumerate(steps):
+        with trace.span(step.span, device=device, step=i, table=step.table):
+            v = step(v)
+    return v
 
 
 def build_steps(specs: list[StepSpec], tables: list[AdderGraphTables]) -> nn.ModuleList:
@@ -351,17 +381,19 @@ class CompiledDesign(nn.Module):
     def forward_int(self, x_int: torch.Tensor) -> torch.Tensor:
         """Run the integer pipeline.  x_int: int tensor [batch, *in_shape]
         of grid integers on the design's device; returns int32
-        [batch, *out_shape]."""
-        if x_int.device != self.device:
+        [batch, *out_shape].  Traced as an ``executor.forward`` span
+        (attribute: batch) around one span a step (``repro_torch.obs.trace``;
+        device spans on the card)."""
+        device = self.device
+        if x_int.device != device:
             raise ValueError(
-                f"input is on {x_int.device}, the design on {self.device}; "
+                f"input is on {x_int.device}, the design on {device}; "
                 "move one of them"
             )
         n = x_int.shape[0]
-        v = x_int.reshape(n, -1).to(torch.int32)
-        for step in self.steps:
-            v = step(v)
-        return v.reshape(n, *self.out_shape)
+        with trace.span("executor.forward", device=device, batch=n):
+            v = _run_steps(self.steps, x_int.reshape(n, -1).to(torch.int32), device)
+            return v.reshape(n, *self.out_shape)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Float in, float out: floor onto the input grid, saturate, run

@@ -9,8 +9,10 @@ variables are the JAX package's own (``REPRO_TRACE``,
 
 ``repro_torch.obs.trace``
     Low-overhead span tracer with per-thread ring buffers and a Chrome
-    trace-event / Perfetto JSON exporter.  Disabled by default; enable
-    with ``REPRO_TRACE=1`` or :func:`trace.set_enabled`.
+    trace-event / Perfetto JSON exporter; device spans also time the
+    card with CUDA events.  Disabled by default; records with
+    ``REPRO_TRACE=1``, :func:`trace.set_enabled`, or while
+    ``torch.profiler`` records.
 
 ``repro_torch.obs.metrics``
     Process-wide registry of counters / gauges / histograms with
@@ -29,7 +31,8 @@ variables are the JAX package's own (``REPRO_TRACE``,
     resource predictor.
 
 Everything here is stdlib only; importing ``repro_torch.obs`` pulls in
-neither torch nor jax.
+neither torch nor jax (the tracer imports torch at its first device
+span).
 """
 
 from . import flight, metrics, solvelog, trace

@@ -44,6 +44,7 @@ from ..flow.config import CompileConfig
 from ..kernels.adder_graph import compile_tables
 from ..nn.compiler import CompiledDesign, LayerReport, StepSpec
 from ..nn.quant import QuantConfig
+from ..obs import trace
 
 FORMAT_NAME = "da4ml-design"
 FORMAT_VERSION = 1
@@ -216,73 +217,79 @@ def load_design(
     raise ``DesignVerificationError``.  Damage raises :class:`ArtifactCorruptError`; a wrong format or
     version stays a plain ``ValueError``.  ``on_corrupt="quarantine"``
     first renames the damaged directory to ``<name>.quarantined``.
+    Traced as a host span ``design.load`` (``repro_torch.obs.trace``).
     """
     dev = resolve_device(device)
     if verify not in TIERS:
         raise ValueError(f"unknown verify tier {verify!r} (expected one of {TIERS})")
     if on_corrupt not in ("raise", "quarantine"):
         raise ValueError(f"on_corrupt must be 'raise' or 'quarantine', got {on_corrupt!r}")
-    t0 = time.perf_counter()
-    path = Path(path)
-    fault_point("artifact.load.read")
-    try:
-        manifest_text = (path / "manifest.json").read_text()
-    except FileNotFoundError:
-        if (path / "design.npz").exists():
+    with trace.span("design.load"):
+        t0 = time.perf_counter()
+        path = Path(path)
+        fault_point("artifact.load.read")
+        try:
+            manifest_text = (path / "manifest.json").read_text()
+        except FileNotFoundError:
+            if (path / "design.npz").exists():
+                raise _corrupt(
+                    path,
+                    f"{path}: design.npz present but manifest.json missing "
+                    "(interrupted save; artifact never committed)",
+                    on_corrupt,
+                ) from None
+            raise
+        try:
+            manifest = json.loads(manifest_text)
+        except json.JSONDecodeError as e:
+            raise _corrupt(
+                path, f"{path}: manifest.json is not valid JSON ({e})", on_corrupt
+            ) from e
+        if not isinstance(manifest, dict) or manifest.get("format") != FORMAT_NAME:
+            raise ValueError(f"{path}: not a {FORMAT_NAME} artifact")
+        if manifest.get("version") != FORMAT_VERSION:
+            raise ValueError(f"{path}: unsupported artifact version {manifest.get('version')}")
+        try:
+            with np.load(path / "design.npz", allow_pickle=False) as z:
+                arrays = {k: z[k] for k in z.files}
+        except FileNotFoundError:
+            raise _corrupt(
+                path, f"{path}: manifest.json present but design.npz missing", on_corrupt
+            ) from None
+        except (zipfile.BadZipFile, OSError, ValueError, EOFError) as e:
+            raise _corrupt(
+                path, f"{path}: design.npz is torn or truncated ({e})", on_corrupt
+            ) from e
+        want = manifest.get("arrays_sha256")
+        if want is not None and _arrays_digest(arrays) != want:
             raise _corrupt(
                 path,
-                f"{path}: design.npz present but manifest.json missing "
-                "(interrupted save; artifact never committed)",
+                f"{path}: design.npz does not match manifest.json "
+                "(corrupt or mixed-generation artifact)",
                 on_corrupt,
-            ) from None
-        raise
-    try:
-        manifest = json.loads(manifest_text)
-    except json.JSONDecodeError as e:
-        raise _corrupt(path, f"{path}: manifest.json is not valid JSON ({e})", on_corrupt) from e
-    if not isinstance(manifest, dict) or manifest.get("format") != FORMAT_NAME:
-        raise ValueError(f"{path}: not a {FORMAT_NAME} artifact")
-    if manifest.get("version") != FORMAT_VERSION:
-        raise ValueError(f"{path}: unsupported artifact version {manifest.get('version')}")
-    try:
-        with np.load(path / "design.npz", allow_pickle=False) as z:
-            arrays = {k: z[k] for k in z.files}
-    except FileNotFoundError:
-        raise _corrupt(
-            path, f"{path}: manifest.json present but design.npz missing", on_corrupt
-        ) from None
-    except (zipfile.BadZipFile, OSError, ValueError, EOFError) as e:
-        raise _corrupt(path, f"{path}: design.npz is torn or truncated ({e})", on_corrupt) from e
-    want = manifest.get("arrays_sha256")
-    if want is not None and _arrays_digest(arrays) != want:
-        raise _corrupt(
-            path,
-            f"{path}: design.npz does not match manifest.json "
-            "(corrupt or mixed-generation artifact)",
-            on_corrupt,
-        )
-    try:
-        design = design_from_arrays(manifest, arrays, dev)
-    except KeyError as e:
-        raise _corrupt(
-            path,
-            f"{path}: manifest references missing array {e} "
-            "(corrupt or mixed-generation artifact)",
-            on_corrupt,
-        ) from e
-    design.solver_stats["load_s"] = time.perf_counter() - t0
-    if verify != "off":
-        vrep = verify_design(design, tier=verify)
-        design.solver_stats["verify"] = {
-            "tier": verify,
-            "ok": vrep.ok,
-            "n_errors": len(vrep.errors),
-            "n_warnings": len(vrep.warnings),
-            "pass_wall_s": {k: v for k, v in vrep.pass_wall_s.items() if isinstance(v, float)},
-        }
-        if not vrep.ok:
-            raise DesignVerificationError(vrep, context=f"artifact {path}")
-    return design
+            )
+        try:
+            design = design_from_arrays(manifest, arrays, dev)
+        except KeyError as e:
+            raise _corrupt(
+                path,
+                f"{path}: manifest references missing array {e} "
+                "(corrupt or mixed-generation artifact)",
+                on_corrupt,
+            ) from e
+        design.solver_stats["load_s"] = time.perf_counter() - t0
+        if verify != "off":
+            vrep = verify_design(design, tier=verify)
+            design.solver_stats["verify"] = {
+                "tier": verify,
+                "ok": vrep.ok,
+                "n_errors": len(vrep.errors),
+                "n_warnings": len(vrep.warnings),
+                "pass_wall_s": {k: v for k, v in vrep.pass_wall_s.items() if isinstance(v, float)},
+            }
+            if not vrep.ok:
+                raise DesignVerificationError(vrep, context=f"artifact {path}")
+        return design
 
 
 def design_from_arrays(

@@ -57,7 +57,11 @@ and misaligned rows, on rows of NaN, +-inf and signed zeros (argmax's
 order), across the count's high word, in a captured graph replayed (the
 combine's scratch left zero), on two streams at once and at a device's
 first pick inside a capture, and the LM engine's categorical tokens on
-the card equal to its tokens on the CPU.
+the card equal to its tokens on the CPU.  The program's device spans
+(``repro_torch.obs.trace``): one bulk-size Mixer forward's step spans
+add up to within 2% of a CUDA event pair around the call, and a capture
+made with tracing on records no device event and replays the eager
+outputs.
 
 Every test here needs a card and skips without one.  This file imports
 neither ``jax`` nor ``repro``, so it runs where only PyTorch is
@@ -101,6 +105,7 @@ from repro_torch.nn import compiler as nn_compiler
 from repro_torch.nn import init_params as nn_init_params
 from repro_torch.nn import models as nn_models
 from repro_torch.nn.compiler import count_cmvm_steps
+from repro_torch.obs import trace
 from repro_torch.kernels._build import KernelError
 from repro_torch.random import PRNGKey
 from repro_torch.runtime import ServeEngine, load_design
@@ -1725,3 +1730,73 @@ def test_engine_picks_categorically_on_the_card(card):
     on_cpu, none = serve("cpu")
     assert picks == 5 and none == 0
     assert on_card == on_cpu
+
+
+@pytest.fixture
+def tracing():
+    trace.reset()
+    trace.set_enabled(True)
+    yield
+    trace.set_enabled(False)
+    trace.reset()
+
+
+def test_step_spans_add_up_to_a_bulk_forward(card, tracing):
+    """The benchmark's bulk call (65,536 jets): the device times of
+    ``executor.forward``'s step spans against a CUDA event pair around the
+    call, within 2%; every span a device span, each launch inside its step."""
+    design = load_design(ASSETS / "mixer_full")
+    gen = torch.Generator(device=card)
+    gen.manual_seed(3)
+    x = torch.randint(-128, 128, (65536, 64, 16), dtype=torch.int32, device=card, generator=gen)
+    design.forward_int(x)  # the anchor, the kernel's library, the allocator's blocks
+    torch.cuda.synchronize()
+    trace.reset()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    design.forward_int(x)
+    e1.record()
+    torch.cuda.synchronize()
+    items, dropped = trace.spans()
+    fwd = [s for s in items if s.name == "executor.forward"]
+    assert dropped == 0 and len(fwd) == 1 and all(s.device_start_ns is not None for s in items)
+    by_id = {s.id: s for s in items}
+    for s in items:
+        if s.parent is not None:
+            p = by_id[s.parent]
+            assert p.device_start_ns <= s.device_start_ns <= s.device_end_ns <= p.device_end_ns
+    steps = sum(s.device_end_ns - s.device_start_ns for s in items if s.parent == fwd[0].id)
+    outer = e0.elapsed_time(e1) * 1e6
+    assert abs(steps - outer) <= 0.02 * outer, (steps, outer)
+    launches = [s for s in items if s.name == "adder_graph"]
+    assert len(launches) == len(design.tables) == 10
+    for s in launches:  # one launch a CMVM step, inside it, on that step's table
+        p = by_id[s.parent]
+        tables = design.tables[p.args["table"]]
+        assert p.name == "executor.dense" and s.args["table"] == tables.digest
+        assert (s.args["n_in"], s.args["n_out"]) == (tables.n_inputs, tables.n_outputs)
+        assert s.args["entry"] in ("shared", "global")
+
+
+def test_capture_with_tracing_on_records_no_device_event(card, tracing):
+    """``graphs.capture`` with tracing on: the eager warm-up's spans are
+    device spans, the captured call's host spans only; the graph replays
+    the eager outputs, as a ``graph.replay`` host span."""
+    design = load_design(ASSETS / "mixer_full")
+    x = torch.randint(-128, 128, (256, 64, 16), dtype=torch.int32, device=card)
+    want = design.forward_int(x)
+    trace.reset()
+    graph = capture(lambda: design.forward_int(x))
+    items, _ = trace.spans()
+    fwd = [s for s in items if s.name == "executor.forward"]
+    assert len(fwd) == 2 and [s.device_start_ns is None for s in fwd] == [False, True]
+    captured = [s for s in items if fwd[1].start_ns <= s.start_ns <= fwd[1].end_ns]
+    assert len(captured) == len(items) // 2
+    assert all(s.device_start_ns is None for s in captured)
+    assert [s.name for s in items if s.parent is None] == ["executor.forward"] * 2
+    trace.reset()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(graph.output, want)
+    items, _ = trace.spans()
+    assert [(s.name, s.device_start_ns) for s in items] == [("graph.replay", None)]

@@ -1,7 +1,12 @@
 """The port's telemetry (``repro_torch.obs``), mirroring the
 telemetry cases of tests/test_obs.py: the tracer is a shared no-op when
-disabled and valid Chrome trace JSON when enabled, the sharded metrics
-registry merges concurrent writers without losing a count, the flight
+disabled and valid Chrome trace JSON when enabled (device spans on a
+track per device and stream, each event placed from the device's anchor
+and its outermost span, checked with fake events), the executor's spans
+come one a step under their parents with the outputs unchanged, spans
+record while torch.profiler does, on its clock and outside its trace,
+the sharded metrics registry merges concurrent writers without losing a
+count, the flight
 recorder's ring and slowest-K bookkeeping are exact through wraparound,
 ``render_prometheus`` and the registry give the JAX package's text for
 the same contents, and the serve engine (``device="cpu"``) carries
@@ -11,10 +16,14 @@ changing its results (tolerance: exact equality)."""
 import json
 import re
 import threading
+import time
+from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.flow import CompileConfig, SolverConfig
 from repro.nn import QDense, QuantConfig, compile_model, init_params
@@ -46,7 +55,6 @@ def test_disabled_span_is_shared_noop():
     assert s1 is trace.span("b")
     with s1:
         pass
-    trace.instant("tick")
     assert trace.n_events() == 0
 
 
@@ -55,13 +63,11 @@ def test_span_records_nesting_and_args():
     with trace.span("outer", phase="x"):
         with trace.span("inner"):
             pass
-        trace.instant("mark", n=3)
     doc = trace.export()
     xs = {e["name"]: e for e in doc["traceEvents"] if e["ph"] == "X"}
     assert set(xs) == {"outer", "inner"}
     assert xs["outer"]["args"] == {"phase": "x"}
     assert xs["outer"]["dur"] >= xs["inner"]["dur"] >= 0
-    assert [e["name"] for e in doc["traceEvents"] if e["ph"] == "i"] == ["mark"]
 
 
 def test_trace_ring_wraparound_counts_dropped():
@@ -113,6 +119,132 @@ def test_export_is_valid_chrome_trace_json(tmp_path):
     assert len({e["tid"] for e in xs}) == 2
     assert {e["tid"] for e in xs} <= {e["tid"] for e in ms}
     assert any(e["args"]["name"] == "worker-0" for e in ms)
+
+
+def test_export_puts_device_spans_on_a_track_per_device_and_stream(monkeypatch):
+    base = time.time_ns() // 10**9 // 7889238 * 7889238 * 10**9
+    t = base + 10**12
+    items = [
+        trace.Span("host", 1, None, 5, {"k": 1}, t, t + 4000),
+        trace.Span("dev", 2, 1, 5, None, t + 1000, t + 2000, 0, 11, t + 1500, t + 2500),
+        trace.Span("dev", 3, 1, 5, None, t + 2000, t + 3000, 0, 12, t + 3500, t + 3600),
+        trace.Span("dev", 4, 1, 5, None, t + 3000, t + 3500, 0, 11, t + 3700, t + 3900),
+    ]
+    monkeypatch.setattr(trace, "spans", lambda: (items, 0))
+    doc = trace.export()
+    assert doc["baseTimeNanoseconds"] == base
+    xs = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    names = {e["tid"]: e["args"]["name"] for e in doc["traceEvents"] if e["ph"] == "M"}
+    assert [(e["name"], e["ts"], e["dur"]) for e in xs if e["tid"] == 5] == [
+        ("host", 1e9, 4.0), ("dev", 1e9 + 1, 1.0), ("dev", 1e9 + 2, 1.0), ("dev", 1e9 + 3, 0.5)]
+    device = [e for e in xs if e["tid"] != 5]
+    assert [(names[e["tid"]], e["ts"], e["dur"]) for e in device] == [
+        ("cuda:0 stream 11", 1e9 + 1.5, 1.0), ("cuda:0 stream 12", 1e9 + 3.5, 0.1),
+        ("cuda:0 stream 11", 1e9 + 3.7, 0.2)]
+
+
+def test_device_time_chains_event_times_from_the_anchor():
+    assert trace.device_time_ns(5_000, 0.0) == 5_000
+    assert trace.device_time_ns(10**9, 1000.0, 0.0005) == 10**9 + 10**9 + 500
+    assert trace.device_time_ns(0, 0.25, 0.001234) == 250_000 + 1_234
+
+
+class _FakeEvent:
+    """A recorded event at ``ms`` on a fake card's clock."""
+
+    def __init__(self, ms):
+        self.ms = ms
+
+    def elapsed_time(self, other):
+        return other.ms - self.ms
+
+
+def test_spans_place_device_events_from_the_anchor_and_their_root(monkeypatch):
+    anchor, root0, root1 = _FakeEvent(100.0), _FakeEvent(1100.0), _FakeEvent(1126.0)
+    kid0, kid1 = _FakeEvent(1100.5), _FakeEvent(1101.25)
+    synced = []
+    monkeypatch.setattr(trace, "_torch", SimpleNamespace(cuda=SimpleNamespace(
+        synchronize=synced.append)))
+    monkeypatch.setitem(trace._anchors, 3, (anchor, 5 * 10**9))
+    b = trace._buf()
+    b.push(("kid", 2, 1, 10, 20, None, (3, 77, kid0, kid1, root0)))
+    b.push(("root", 1, None, 0, 30, None, (3, 77, root0, root1, root0)))
+    items, dropped = trace.spans()
+    at = 6 * 10**9  # the root's start: 1000 ms after the anchor
+    assert synced == [3] and dropped == 0
+    assert [(s.name, s.parent, s.device, s.stream, s.device_start_ns, s.device_end_ns)
+            for s in items] == [("kid", 1, 3, 77, at + 500_000, at + 1_250_000),
+                                ("root", None, 3, 77, at, at + 26_000_000)]
+
+
+# ------------------------------------------------------- executor spans
+MIXER = Path(__file__).resolve().parent.parent / "src" / "repro_torch" / "assets" / "mixer_full"
+
+
+@pytest.fixture(scope="module")
+def mixer():
+    d = load_design(MIXER, device="cpu")
+    x = np.random.default_rng(5).integers(-128, 128, size=(4, *d.in_shape)).astype(np.int32)
+    return d, torch.from_numpy(x)
+
+
+def _step_spans(specs, parent):
+    """(name, parent's name, step, table) of the spans under ``parent``
+    in the order they close: a residual's body, then the step's own."""
+    out = []
+    for i, spec in enumerate(specs):
+        name = "executor." + {"maxpool": "pool", "avgpool": "pool"}.get(spec.kind, spec.kind)
+        out += _step_spans(spec.body or [], name)
+        out.append((name, parent, i, spec.table))
+    return out
+
+
+def test_forward_int_spans_each_step_under_its_parent(mixer):
+    d, x = mixer
+    want = d.forward_int(x)
+    trace.set_enabled(True)
+    got = d.forward_int(x)
+    items, dropped = trace.spans()
+    assert torch.equal(got, want) and dropped == 0
+    by_id = {s.id: s for s in items}
+    assert [s.name for s in items][-1] == "executor.forward"
+    fwd = items[-1]
+    assert fwd.parent is None and fwd.args == {"batch": 4}
+    seen = [(s.name, by_id[s.parent].name, s.args["step"], s.args["table"]) for s in items[:-1]]
+    assert seen == _step_spans(d.step_specs, "executor.forward")
+    for s in items[:-1]:
+        p = by_id[s.parent]
+        assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns and s.device_start_ns is None
+    assert sum(s.name == "executor.dense" for s in items) == len(d.tables) == 10
+
+
+def test_tracing_off_records_nothing_in_the_executor(mixer):
+    d, x = mixer
+    assert not trace.enabled()
+    assert trace.span("executor.forward", device=d.device, batch=4) is trace.span("x")
+    d.forward_int(x)
+    assert trace.n_events() == 0 and trace.spans() == ([], 0)
+
+
+def test_spans_record_under_the_profiler_on_its_clock(mixer):
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    d, x = mixer
+    assert not trace.enabled()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("outer"):
+            time.sleep(0.001)
+            d.forward_int(x)
+            time.sleep(0.001)
+    items, _ = trace.spans()
+    assert len(items) == 1 + len(_step_spans(d.step_specs, None))
+    events = list(prof.profiler.kineto_results.events())
+    outer = next(e for e in events if e.name() == "outer")
+    fwd = next(s for s in items if s.name == "executor.forward")
+    assert outer.start_ns() < fwd.start_ns <= fwd.end_ns < outer.start_ns() + outer.duration_ns()
+    assert not {e.name() for e in events} & {s.name for s in items}
+    d.forward_int(x)  # the profiler has stopped: so has the tracer
+    assert trace.n_events() == len(items)
 
 
 # -------------------------------------------------------------- metrics
