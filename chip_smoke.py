@@ -754,16 +754,17 @@ def _profile_call(torch, fn, key: str, keys) -> dict:
 
 
 def capture_cmvm_inputs(torch, design, x):
-    """The (tables, x) of every adder-graph call one forward makes: the
-    shapes and values the main path gives the kernel."""
+    """The (tables, x, epilogue) of every adder-graph call one forward
+    makes: the shapes, values and folded steps the main path gives the
+    kernel (epilogue None where a launch has none)."""
     from repro_torch.nn import compiler
 
     seen = []
     orig = compiler.adder_graph_apply
 
-    def record(tables, v):
-        seen.append((tables, v.reshape(-1, v.shape[-1]).to(torch.int32).contiguous()))
-        return orig(tables, v)
+    def record(tables, v, epilogue=None):
+        seen.append((tables, v.reshape(-1, v.shape[-1]).to(torch.int32).contiguous(), epilogue))
+        return orig(tables, v, epilogue)
 
     compiler.adder_graph_apply = record
     try:
@@ -773,60 +774,79 @@ def capture_cmvm_inputs(torch, design, x):
     return seen
 
 
-def int32_ops_per_row(np, tables) -> int:
+# The epilogue's int32 operations per output: the shift, the bias add, the
+# floor (ReLU), the requant shift and the two-sided clamp.
+EPILOGUE_OPS = 6
+
+
+def int32_ops_per_row(np, tables, epilogue=None) -> int:
     """The int32 operations one row of ``tables`` needs: per adder one
     add or subtract (the sign is +-1) and one shift per nonzero operand
     shift; per unmasked output one shift if its shift is nonzero and one
-    negation if its sign is -1.  Masked outputs are constant zeros."""
+    negation if its sign is -1.  Masked outputs are constant zeros.  An
+    epilogue adds EPILOGUE_OPS per output, masked ones included."""
     instr, outs = tables.instr, tables.outs
     live = outs[:, 3] != 0
     return int(
         tables.n_ops
         + np.count_nonzero(instr[:, 2]) + np.count_nonzero(instr[:, 3])
         + np.count_nonzero(outs[live, 1]) + np.count_nonzero(outs[live, 2] < 0)
+        + (0 if epilogue is None else EPILOGUE_OPS * tables.n_outputs)
     )
 
 
 def table_times(torch, np, design, x, info) -> tuple[list[dict], int]:
-    """Each adder-graph call of one forward at the main path's inputs: the
-    kernel held exactly against its plain version and the float64
-    ``torch.matmul`` yardstick, then the three timed as device time per
-    call (CUDA-graph replays), beside the table's bound."""
+    """Each adder-graph call of one forward at the main path's inputs and
+    with its epilogue: the kernel held exactly against its plain version,
+    and its epilogue-free instance against the float64 ``torch.matmul``
+    yardstick; then the kernel and its plain version (both with the
+    epilogue, as the main path launches them) and the yardstick timed as
+    device time per call (CUDA-graph replays), beside the table's bound."""
     from repro_torch.core import DAISProgram
     from repro_torch.kernels.adder_graph.kernel import adder_graph_cuda, plan_for
-    from repro_torch.kernels.adder_graph.ref import adder_graph_ref
+    from repro_torch.kernels.adder_graph.ref import adder_graph_ref, epilogue_ref
 
     index = {t.digest: i for i, t in enumerate(design.tables)}
     rows = []
     max_err = 0
-    for tables, xt in capture_cmvm_inputs(torch, design, x):
+    for tables, xt, epi in capture_cmvm_inputs(torch, design, x):
         i = index[tables.digest]
         prog = DAISProgram.from_arrays(design.programs[i])
         m = prog.evaluate(np.eye(tables.n_inputs, dtype=np.int64))
         md = torch.from_numpy(m.astype(np.float64)).to(xt.device)
         xf = xt.to(torch.float64)
         dev = tables.device_arrays(xt.device)  # the tables on the card before any capture
-        got = adder_graph_cuda(tables, xt)
-        plain = adder_graph_ref(tables, xt)
+        what = f"table {i}, {xt.shape[0]} rows"
+        bare = adder_graph_cuda(tables, xt)
+        check(torch.equal(bare, adder_graph_ref(tables, xt)), f"{what}: kernel != plain version")
+        yard = torch.matmul(xf, md).to(torch.int32)
+        check(torch.equal(yard, bare), f"{what}: kernel != float64 matmul yardstick")
+        got = adder_graph_cuda(tables, xt, epi)
+        plain = adder_graph_ref(tables, xt, epi)
         max_err = max(max_err, int((got.to(torch.int64) - plain.to(torch.int64)).abs().max()))
-        check(torch.equal(got, plain), f"table {i}, {xt.shape[0]} rows: kernel != plain version")
-        check(torch.equal(torch.matmul(xf, md).to(torch.int32), got),
-              f"table {i}, {xt.shape[0]} rows: kernel != float64 matmul yardstick")
-        del got, plain
-        k_ms = graph_ms(torch, lambda t=tables, v=xt: adder_graph_cuda(t, v))
-        p_ms = graph_ms(torch, lambda t=tables, v=xt: adder_graph_ref(t, v), calls=2, replays=5)
+        check(torch.equal(got, plain), f"{what}: kernel != plain version, with the epilogue")
+        if epi is not None:
+            check(torch.equal(epilogue_ref(yard, epi), got),
+                  f"{what}: kernel != the yardstick's epilogue")
+        del bare, yard, got, plain
+        k_ms = graph_ms(torch, lambda t=tables, v=xt, e=epi: adder_graph_cuda(t, v, e))
+        p_ms = graph_ms(torch, lambda t=tables, v=xt, e=epi: adder_graph_ref(t, v, e),
+                        calls=2, replays=5)
         l_ms = graph_ms(torch, lambda a=xf, b=md: torch.matmul(a, b))
         n = xt.shape[0]
         plan = plan_for(tables, n, xt.device)
         # the bytes the entry point must move: x, y and the tables it reads
         read = ((dev.slot_ops, dev.slot_outs) if plan.entry == "shared" else (dev.instr, dev.outs))
+        if epi is not None:
+            read = (*read, epi.table)
         nbytes = 4 * n * (tables.n_inputs + tables.n_outputs) + sum(
             a.numel() * 4 for a in (*read, dev.level_starts))
-        ops = n * int32_ops_per_row(np, tables)
+        ops = n * int32_ops_per_row(np, tables, epi)
         rows.append({
             "table": i, "rows": n, "n_in": tables.n_inputs, "n_ops": tables.n_ops,
             "levels": len(tables.level_bounds), "n_out": tables.n_outputs,
             "slots": tables.slot_plan.n_slots, "plan": plan_text(plan),
+            "epilogue_rows": 0 if epi is None else int(epi.table.shape[0]),
             "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
             "bytes": nbytes, "int32_ops": ops,
             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -3691,8 +3711,8 @@ def quickstart_twin(torch) -> dict:
     kernel = ag_ops.adder_graph_cuda
     calls = []
 
-    def recording(tables, x):
-        y = kernel(tables, x)
+    def recording(tables, x, epilogue=None):
+        y = kernel(tables, x, epilogue)
         calls.append((tables, x, y))
         return y
 
@@ -4679,7 +4699,8 @@ def main() -> int:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": sum(r["library_ms"] for r in fwd),
-        "shape": "one forward of the 64-particle Mixer at 256 samples: its 10 CMVM calls",
+        "shape": "one forward of the 64-particle Mixer at 256 samples: its 10 CMVM calls, "
+                 "each with its epilogue",
         "at_4096": {k: sum(r[k] for r in timings[4096]["tables"])
                     for k in ("kernel_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")},
     }]}

@@ -1,3 +1,3 @@
-from .ops import AdderGraphTables, adder_graph_apply, compile_tables
+from .ops import AdderGraphTables, Epilogue, adder_graph_apply, compile_tables, epilogue_table
 
-__all__ = ["AdderGraphTables", "adder_graph_apply", "compile_tables"]
+__all__ = ["AdderGraphTables", "Epilogue", "adder_graph_apply", "compile_tables", "epilogue_table"]

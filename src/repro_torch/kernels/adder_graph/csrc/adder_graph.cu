@@ -13,6 +13,16 @@
 // right shift of 32 or more gives the sign fill, and sign * b and * mask
 // wrap as XLA's int32 does.
 //
+// Optionally an epilogue (the integer executor's elementwise steps that
+// follow the table, up to the next table) is applied to each output before
+// its one store: for output j of kernel row b, with e = epi[b % rows][j],
+//
+//     y = max((y << e.shift) + e.bias, floor)       floor: 0 for a ReLU, else INT_MIN
+//     y = clamp(y shifted by e.d, lo, hi)            (left if d > 0, arithmetic right else)
+//
+// in the same int32 wraparound, so it equals those steps run one by one.
+// A launch without one runs the kernels' EPI = false instances.
+//
 // Design.  The TPU kernel held a [n_rows, block_b] value buffer in VMEM.
 // Hopper has 227 KB of shared memory per block, too little for one sample
 // of the Mixer's head table if every row keeps its own place (7,137 rows,
@@ -80,6 +90,25 @@ __device__ __forceinline__ int32_t output_value(uint32_t r, int4 o) {
   return static_cast<int32_t>(r);
 }
 
+// The epilogue: a table of rows x n_out entries (bias, shift | d << 8),
+// shift in 0..32 and d in -32..32, the shift amounts already saturated as
+// PyTorch's shifts saturate; floor, lo and hi apply to every output.
+struct Epilogue {
+  const int2* table;
+  int rows, floor, lo, hi;
+};
+
+__device__ __forceinline__ int32_t apply_epilogue(int32_t y, int row, int j, int n_out,
+                                                  const Epilogue& ep) {
+  const int r = ep.rows == 1 ? 0 : row % ep.rows;
+  const int2 e = __ldg(ep.table + static_cast<long long>(r) * n_out + j);
+  const int d = e.y >> 8;
+  uint32_t u = shl(static_cast<uint32_t>(y), e.y & 0xff) + static_cast<uint32_t>(e.x);
+  u = static_cast<uint32_t>(max(static_cast<int32_t>(u), ep.floor));
+  u = d > 0 ? shl(u, d) : sar(u, -d);
+  return min(max(static_cast<int32_t>(u), ep.lo), ep.hi);
+}
+
 // VEC neighbouring samples' values of one slot, moved as one vector.
 template <int VEC>
 struct Vals {
@@ -114,13 +143,14 @@ __device__ __forceinline__ void store_vals(uint32_t* p, const Vals<VEC>& r) {
 
 // ops[i] = (dst slot, a slot, b slot, sh_a | sh_b << 8 | sign << 16);
 // outs[j] = (slot, shift, sign, mask); input i sits in slot i.
-template <int VEC>
+template <int VEC, bool EPI>
 __global__ void __launch_bounds__(kMaxThreads) adder_graph_smem_kernel(
     const int32_t* __restrict__ x,             // [batch, n_in]
     const int4* __restrict__ ops,              // [n_ops]
     const int4* __restrict__ outs,             // [n_out]
     const int32_t* __restrict__ level_starts,  // [n_levels + 1]
     int n_levels, int n_in, int n_out, int batch, int log2_tile,
+    Epilogue ep,                               // read only where EPI
     int32_t* __restrict__ y) {                 // [batch, n_out]
   extern __shared__ __align__(16) uint32_t v[];  // [n_slots][tile]
   constexpr int kLog2Vec = VEC == 4 ? 2 : (VEC == 2 ? 1 : 0);
@@ -160,16 +190,20 @@ __global__ void __launch_bounds__(kMaxThreads) adder_graph_smem_kernel(
   for (int p = threadIdx.x; p < n_out * nb; p += blockDim.x) {
     const int s = p / n_out, j = p - s * n_out;
     const int4 o = __ldg(outs + j);
-    y[(b0 + s) * static_cast<long long>(n_out) + j] = output_value(v[o.x * tile + s], o);
+    int32_t r = output_value(v[o.x * tile + s], o);
+    if constexpr (EPI) r = apply_epilogue(r, b0 + s, j, n_out, ep);
+    y[(b0 + s) * static_cast<long long>(n_out) + j] = r;
   }
 }
 
+template <bool EPI>
 __global__ void __launch_bounds__(kGlobalThreads) adder_graph_global_kernel(
     const int32_t* __restrict__ x,             // [batch, n_in]
     const int32_t* __restrict__ instr,         // [n_ops, 5]
     const int4* __restrict__ outs,             // [n_out]: (row, shift, sign, mask)
     const int32_t* __restrict__ level_starts,  // [n_levels + 1]
     int n_levels, int n_in, int n_out, int batch, int tile,
+    Epilogue ep,                               // read only where EPI
     uint32_t* v,                               // [n_rows, batch] scratch, read and written
     int32_t* __restrict__ y) {                 // [batch, n_out]
   const long long B = batch;
@@ -200,29 +234,56 @@ __global__ void __launch_bounds__(kGlobalThreads) adder_graph_global_kernel(
   for (int p = threadIdx.x; p < n_out * tile; p += kGlobalThreads) {
     const int j = p / tile, s = p % tile;
     if (s < nb) {
-      y[(b0 + s) * (long long)n_out + j] = output_value(v[outs[j].x * B + b0 + s], outs[j]);
+      int32_t r = output_value(v[outs[j].x * B + b0 + s], outs[j]);
+      if constexpr (EPI) r = apply_epilogue(r, b0 + s, j, n_out, ep);
+      y[(b0 + s) * (long long)n_out + j] = r;
     }
   }
 }
 
-template <int VEC>
+template <int VEC, bool EPI>
 cudaError_t launch_smem(const int32_t* x, const int32_t* ops, const int32_t* outs,
                         const int32_t* level_starts, int n_levels, int n_in, int n_out,
-                        int batch, int log2_tile, int threads, size_t smem, int32_t* y,
-                        cudaStream_t stream) {
+                        int batch, int log2_tile, int threads, size_t smem, const Epilogue& ep,
+                        int32_t* y, cudaStream_t stream) {
   static bool opted_in = false;  // the attribute is set once; setting it twice is harmless
   if (smem > 48 * 1024 && !opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        adder_graph_smem_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+        adder_graph_smem_kernel<VEC, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
   const int tile = 1 << log2_tile;
   const dim3 grid((batch + tile - 1) / tile);
-  adder_graph_smem_kernel<VEC><<<grid, threads, smem, stream>>>(
+  adder_graph_smem_kernel<VEC, EPI><<<grid, threads, smem, stream>>>(
       x, reinterpret_cast<const int4*>(ops), reinterpret_cast<const int4*>(outs), level_starts,
-      n_levels, n_in, n_out, batch, log2_tile, y);
+      n_levels, n_in, n_out, batch, log2_tile, ep, y);
   return cudaGetLastError();
+}
+
+template <bool EPI>
+cudaError_t launch_smem_vec(const int32_t* x, const int32_t* ops, const int32_t* outs,
+                            const int32_t* level_starts, int n_levels, int n_in, int n_out,
+                            int batch, int log2_tile, int threads, size_t smem,
+                            const Epilogue& ep, int32_t* y, cudaStream_t s) {
+  switch (log2_tile) {
+    case 0:
+      return launch_smem<1, EPI>(x, ops, outs, level_starts, n_levels, n_in, n_out, batch,
+                                 log2_tile, threads, smem, ep, y, s);
+    case 1:
+      return launch_smem<2, EPI>(x, ops, outs, level_starts, n_levels, n_in, n_out, batch,
+                                 log2_tile, threads, smem, ep, y, s);
+    default:
+      return launch_smem<4, EPI>(x, ops, outs, level_starts, n_levels, n_in, n_out, batch,
+                                 log2_tile, threads, smem, ep, y, s);
+  }
+}
+
+// The epilogue of the entry points' arguments; valid without one (epi null).
+bool make_epilogue(const int32_t* epi, int epi_rows, int floor, int lo, int hi, Epilogue* ep) {
+  *ep = Epilogue{reinterpret_cast<const int2*>(epi), epi_rows, floor, lo, hi};
+  return epi == nullptr || epi_rows > 0;
 }
 
 }  // namespace
@@ -230,42 +291,54 @@ cudaError_t launch_smem(const int32_t* x, const int32_t* ops, const int32_t* out
 // The shared-memory entry point.  ops [n_ops, 4] and outs [n_out, 4] are
 // the slot plan's tables (16-byte aligned); tile = 1 << log2_tile samples
 // per block (1 to 32); threads per block a multiple of 32, at most 512.
+// epi [epi_rows, n_out, 2] (8-byte aligned), floor, lo and hi are the
+// epilogue (header); a null epi launches without one.
 // Launches on `stream`; returns the cudaError_t of the launch (0 = success).
 extern "C" int da4ml_adder_graph_smem(const int32_t* x, const int32_t* ops, const int32_t* outs,
                                       const int32_t* level_starts, int n_levels, int n_in,
                                       int n_out, int batch, int n_slots, int log2_tile,
-                                      int threads, int32_t* y, void* stream) {
+                                      int threads, const int32_t* epi, int epi_rows, int floor,
+                                      int lo, int hi, int32_t* y, void* stream) {
   const size_t smem = static_cast<size_t>(n_slots) * 4u << (log2_tile < 0 ? 0 : log2_tile);
+  Epilogue ep;
   if (batch <= 0 || n_slots <= 0 || n_slots < n_in || log2_tile < 0 || log2_tile > 5 ||
-      threads <= 0 || threads > kMaxThreads || threads % 32 != 0 || smem > kMaxSmem) {
+      threads <= 0 || threads > kMaxThreads || threads % 32 != 0 || smem > kMaxSmem ||
+      !make_epilogue(epi, epi_rows, floor, lo, hi, &ep)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (log2_tile) {
-    case 0:
-      return static_cast<int>(launch_smem<1>(x, ops, outs, level_starts, n_levels, n_in, n_out,
-                                              batch, log2_tile, threads, smem, y, s));
-    case 1:
-      return static_cast<int>(launch_smem<2>(x, ops, outs, level_starts, n_levels, n_in, n_out,
-                                              batch, log2_tile, threads, smem, y, s));
-    default:
-      return static_cast<int>(launch_smem<4>(x, ops, outs, level_starts, n_levels, n_in, n_out,
-                                              batch, log2_tile, threads, smem, y, s));
-  }
+  return static_cast<int>(
+      epi == nullptr
+          ? launch_smem_vec<false>(x, ops, outs, level_starts, n_levels, n_in, n_out, batch,
+                                   log2_tile, threads, smem, ep, y, s)
+          : launch_smem_vec<true>(x, ops, outs, level_starts, n_levels, n_in, n_out, batch,
+                                  log2_tile, threads, smem, ep, y, s));
 }
 
 // The global-scratch entry point: instr [n_ops, 5] and outs [n_out, 4] are
-// the tables themselves; scratch is [n_rows, batch] int32; tile 1 to 32.
+// the tables themselves; scratch is [n_rows, batch] int32; tile 1 to 32;
+// the epilogue as for the shared-memory entry point.
 // Launches on `stream`; returns the cudaError_t of the launch (0 = success).
 extern "C" int da4ml_adder_graph_global(const int32_t* x, const int32_t* instr,
                                         const int32_t* outs, const int32_t* level_starts,
                                         int n_levels, int n_in, int n_out, int batch, int tile,
-                                        int32_t* scratch, int32_t* y, void* stream) {
-  if (batch <= 0 || tile <= 0 || tile > 32) return static_cast<int>(cudaErrorInvalidValue);
+                                        const int32_t* epi, int epi_rows, int floor, int lo,
+                                        int hi, int32_t* scratch, int32_t* y, void* stream) {
+  Epilogue ep;
+  if (batch <= 0 || tile <= 0 || tile > 32 || !make_epilogue(epi, epi_rows, floor, lo, hi, &ep)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const dim3 grid((batch + tile - 1) / tile);
-  adder_graph_global_kernel<<<grid, kGlobalThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, instr, reinterpret_cast<const int4*>(outs), level_starts, n_levels, n_in, n_out, batch,
-      tile, reinterpret_cast<uint32_t*>(scratch), y);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto o = reinterpret_cast<const int4*>(outs);
+  const auto v = reinterpret_cast<uint32_t*>(scratch);
+  if (epi == nullptr) {
+    adder_graph_global_kernel<false><<<grid, kGlobalThreads, 0, s>>>(
+        x, instr, o, level_starts, n_levels, n_in, n_out, batch, tile, ep, v, y);
+  } else {
+    adder_graph_global_kernel<true><<<grid, kGlobalThreads, 0, s>>>(
+        x, instr, o, level_starts, n_levels, n_in, n_out, batch, tile, ep, v, y);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

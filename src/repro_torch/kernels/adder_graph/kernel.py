@@ -26,6 +26,8 @@ launches = LaunchCounter("adder_graph")
 
 _c_int = ctypes.c_int
 _c_ptr = ctypes.c_void_p
+_EPILOGUE_ARGS = [_c_ptr, _c_int, _c_int, _c_int, _c_int]  # table, rows, floor, lo, hi
+_NO_EPILOGUE = (None, 0, 0, 0, 0)
 
 
 def _lib() -> ctypes.CDLL:
@@ -35,12 +37,14 @@ def _lib() -> ctypes.CDLL:
             _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # x, ops, outs, level_starts
             _c_int, _c_int, _c_int, _c_int,  # n_levels, n_in, n_out, batch
             _c_int, _c_int, _c_int,  # n_slots, log2(tile), threads
+            *_EPILOGUE_ARGS,
             _c_ptr, _c_ptr,  # y, stream
         ]
         lib.da4ml_adder_graph_smem.restype = _c_int
         lib.da4ml_adder_graph_global.argtypes = [
             _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # x, instr, outs, level_starts
             _c_int, _c_int, _c_int, _c_int, _c_int,  # n_levels, n_in, n_out, batch, tile
+            *_EPILOGUE_ARGS,
             _c_ptr, _c_ptr, _c_ptr,  # scratch, y, stream
         ]
         lib.da4ml_adder_graph_global.restype = _c_int
@@ -55,12 +59,14 @@ def plan_for(tables, batch: int, device: torch.device) -> LaunchPlan:
                        sm_count(device))
 
 
-def adder_graph_cuda(tables, x: torch.Tensor) -> torch.Tensor:
+def adder_graph_cuda(tables, x: torch.Tensor, epilogue=None) -> torch.Tensor:
     """Run the adder graph on the card.
 
     tables: AdderGraphTables; x: contiguous int32 CUDA tensor
-    [batch, n_inputs].  Returns int32 [batch, n_outputs] on x's device.
-    The launch plan (``slots.launch_plan``) picks the entry point.
+    [batch, n_inputs]; epilogue: an ``ops.Epilogue`` applied to each
+    output before its store, or None.  Returns int32 [batch, n_outputs]
+    on x's device.  The launch plan (``slots.launch_plan``) picks the
+    entry point.
     """
     if x.device.type != "cuda":
         raise ValueError(f"adder_graph_cuda takes a CUDA tensor, got one on {x.device}")
@@ -72,6 +78,16 @@ def adder_graph_cuda(tables, x: torch.Tensor) -> torch.Tensor:
         )
     if not x.is_contiguous():
         raise ValueError("adder_graph_cuda takes a contiguous tensor")
+    epi = _NO_EPILOGUE
+    if epilogue is not None:
+        t = epilogue.table
+        if (t.device != x.device or t.dtype != torch.int32 or not t.is_contiguous()
+                or t.dim() != 3 or t.shape[1:] != (tables.n_outputs, 2)):
+            raise ValueError(
+                f"adder_graph_cuda takes an epilogue table of int32 [rows, {tables.n_outputs}, 2]"
+                f" on {x.device}"
+            )
+        epi = (t.data_ptr(), t.shape[0], epilogue.floor, epilogue.lo, epilogue.hi)
     batch = x.shape[0]
     y = torch.empty((batch, tables.n_outputs), dtype=torch.int32, device=x.device)
     if batch == 0 or tables.n_outputs == 0:
@@ -90,14 +106,15 @@ def adder_graph_cuda(tables, x: torch.Tensor) -> torch.Tensor:
                 x.data_ptr(), dev.slot_ops.data_ptr(), dev.slot_outs.data_ptr(),
                 dev.level_starts.data_ptr(), len(tables.level_bounds), tables.n_inputs,
                 tables.n_outputs, batch, tables.slot_plan.n_slots,
-                plan.tile.bit_length() - 1, plan.threads, y.data_ptr(), stream,
+                plan.tile.bit_length() - 1, plan.threads, *epi, y.data_ptr(), stream,
             )
         else:
             scratch = torch.empty((tables.n_rows, batch), dtype=torch.int32, device=x.device)
             err = lib.da4ml_adder_graph_global(
                 x.data_ptr(), dev.instr.data_ptr(), dev.outs.data_ptr(),
                 dev.level_starts.data_ptr(), len(tables.level_bounds), tables.n_inputs,
-                tables.n_outputs, batch, plan.tile, scratch.data_ptr(), y.data_ptr(), stream,
+                tables.n_outputs, batch, plan.tile, *epi, scratch.data_ptr(), y.data_ptr(),
+                stream,
             )
     if err != 0:
         msg = lib.da4ml_cuda_error_string(err).decode()

@@ -17,6 +17,53 @@ from .ref import adder_graph_ref
 from .slots import SlotPlan, plan_slots
 
 
+INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
+
+
+class Epilogue(NamedTuple):
+    """Elementwise steps applied to each output of a launch before its
+    store, in int32 with wraparound: for output j of row b, with
+    ``(bias, packed) = table[b % rows, j]``,
+    ``y = max((y << (packed & 0xff)) + bias, floor)``, then ``y`` shifted
+    by ``d = packed >> 8`` (left for d > 0, arithmetic right otherwise),
+    then clamped to ``[lo, hi]``.  :func:`epilogue_table` builds the
+    table; the defaults leave a value as it is."""
+
+    table: torch.Tensor  # int32 [rows, n_out, 2]
+    floor: int = INT32_MIN
+    lo: int = INT32_MIN
+    hi: int = INT32_MAX
+
+
+def _saturated(s: np.ndarray) -> np.ndarray:
+    """Shift amounts as PyTorch's int32 shifts read them: one below 0 or
+    above 31 acts as 32 (a left shift gives 0, a right one the sign fill)."""
+    s = np.asarray(s).astype(np.int32).astype(np.int64)
+    return np.where((s >= 0) & (s < 32), s, 32)
+
+
+def epilogue_table(n_out: int, shift=None, bias=None, d=None) -> np.ndarray:
+    """The int32 [rows, n_out, 2] table of an :class:`Epilogue`.
+
+    shift, bias: [n_out] (the left shift, then the bias added, of each
+    output); d: [rows, n_out] requant shifts (left by d for d > 0, else
+    arithmetic right by -d), or None.  Each integer is first cast to int32
+    as the executor's steps cast it.  Rows that are all alike collapse to
+    one."""
+    sh = _saturated(np.zeros(n_out) if shift is None else shift)
+    b = np.zeros(n_out, np.int64) if bias is None else np.asarray(bias).astype(np.int32)
+    if d is None:
+        dd = np.zeros((1, n_out), np.int64)
+    else:
+        d = np.asarray(d, np.int64).reshape(-1, n_out)
+        dpos = np.maximum(d, 0).astype(np.int32)
+        dd = np.where(dpos > 0, _saturated(dpos), -_saturated(np.maximum(-d, 0)))
+        if (dd == dd[:1]).all():
+            dd = dd[:1]
+    packed = sh[None, :] | (dd << 8)
+    return np.stack([np.broadcast_to(b, dd.shape), packed], axis=-1).astype(np.int32)
+
+
 class DeviceTables(NamedTuple):
     """The tables as int32 tensors on one device."""
 
@@ -171,19 +218,24 @@ def compile_tables(prog: DAISProgram) -> AdderGraphTables:
     )
 
 
-def adder_graph_apply(tables: AdderGraphTables, x: torch.Tensor) -> torch.Tensor:
+def adder_graph_apply(
+    tables: AdderGraphTables, x: torch.Tensor, epilogue: Epilogue | None = None
+) -> torch.Tensor:
     """Evaluate ``y = x @ M`` through the adder graph.
 
     x: int tensor [..., n_inputs] on the integer grid.  Returns int32
     [..., n_outputs] on x's device.  A CUDA tensor always goes to the
-    Hopper kernel; a CPU tensor to the plain PyTorch version.
+    Hopper kernel; a CPU tensor to the plain PyTorch version.  An
+    ``epilogue`` (its table on x's device) is applied to each output
+    before it is stored; its rows count the rows of x flattened to
+    [-1, n_inputs].
     """
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).to(torch.int32).contiguous()
     if x2.device.type == "cuda":
-        y = adder_graph_cuda(tables, x2)
+        y = adder_graph_cuda(tables, x2, epilogue)
     elif x2.device.type == "cpu":
-        y = adder_graph_ref(tables, x2)
+        y = adder_graph_ref(tables, x2, epilogue)
     else:
         raise ValueError(f"adder_graph_apply: unsupported device {x2.device}")
     return y.reshape(*lead, y.shape[-1])

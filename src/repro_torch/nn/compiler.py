@@ -23,6 +23,9 @@ package) plus one set of adder-graph tables per unique CMVM.
 :func:`build_steps` turns the specs into ``nn.Module`` steps whose
 integer constants (bias, shifts, requant deltas) are buffers, so they
 move to the design's device once, with the design, and never per call.
+``forward_int`` runs the same steps folded (:func:`plan_steps`): each
+CMVM's shift and bias, and the ReLU and requant steps after it, are
+applied by its adder-graph launch to each output before the store.
 
 Activations flow as int32 ``[batch, prod(shape)]`` in C order.  Every
 step reproduces the JAX executor bit for bit: int32 wraparound, a left
@@ -36,6 +39,7 @@ import concurrent.futures
 import os
 import time
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -48,7 +52,14 @@ from ..core.fixed_point import QInterval
 from ..core.pipelining import pipeline
 from ..core.solver import Solution, config_solve_key, solve_task
 from ..flow.config import UNSET, CompileConfig, ConfigError, SolverConfig, resolve_legacy
-from ..kernels.adder_graph import AdderGraphTables, adder_graph_apply, compile_tables
+from ..kernels.adder_graph import (
+    AdderGraphTables,
+    Epilogue,
+    adder_graph_apply,
+    compile_tables,
+    epilogue_table,
+)
+from ..kernels.adder_graph.ops import INT32_MAX, INT32_MIN
 from ..obs import trace
 from .layers import (
     AvgPool2D,
@@ -105,24 +116,56 @@ def _int_row(arr) -> torch.Tensor:
 # ----------------------------------------------------------------------
 class _Step(nn.Module):
     """One executor step: ``span`` names its trace span (``executor.<kind>``),
-    ``table`` is its table's index, -1 for a step without one."""
+    ``table`` is its table's index, -1 for a step without one;
+    ``span_args`` are further attributes of its span."""
 
     span = ""
     table = -1
+    span_args: dict = {}
+
+
+class _Fold(NamedTuple):
+    """What a CMVM step's epilogue applies after its shift and bias
+    (:func:`plan_steps`)."""
+
+    relu: bool = False
+    d: np.ndarray | None = None  # a requant's shifts, [rows, n_out] as the table's outputs
+    lo: int = INT32_MIN  # its saturation, within int32
+    hi: int = INT32_MAX
+
+    @property
+    def n_steps(self) -> int:
+        return self.relu + (self.d is not None)
 
 
 class _Cmvm(_Step):
-    """``y = adder_graph(x) << shift + bias`` on one table."""
+    """``y = adder_graph(x) << shift + bias`` on one table.
 
-    def __init__(self, spec: StepSpec, tables: list[AdderGraphTables]):
+    With a ``fold`` the launch applies the shift, the bias and the folded
+    ReLU and requant in its epilogue; ``folded`` counts those steps, and
+    is its span's ``folded`` attribute."""
+
+    def __init__(self, spec: StepSpec, tables: list[AdderGraphTables],
+                 fold: _Fold | None = None):
         super().__init__()
         self.table = spec.table
         self.tables = tables[spec.table]
         a = spec.arrays
+        self.folded = fold.n_steps if fold else 0
+        self.span_args = {"folded": self.folded}
+        if fold is not None and (self.folded or "bias" in a or "shift" in a):
+            table = epilogue_table(self.tables.n_outputs, a.get("shift"), a.get("bias"), fold.d)
+            self.register_buffer("epi", torch.from_numpy(table))
+            self.epi_bounds = (0 if fold.relu else INT32_MIN, fold.lo, fold.hi)
+            a = {}
+        else:
+            self.register_buffer("epi", None)
         self.register_buffer("bias", _int_row(a["bias"])[0] if "bias" in a else None)
         self.register_buffer("shift", _int_row(a["shift"]) if "shift" in a else None)
 
     def cmvm(self, v: torch.Tensor) -> torch.Tensor:
+        if self.epi is not None:
+            return adder_graph_apply(self.tables, v, Epilogue(self.epi, *self.epi_bounds))
         y = adder_graph_apply(self.tables, v)
         if self.shift is not None:
             y = y << self.shift
@@ -132,8 +175,8 @@ class _Cmvm(_Step):
 class _Dense(_Cmvm):
     span = "executor.dense"
 
-    def __init__(self, spec, tables):
-        super().__init__(spec, tables)
+    def __init__(self, spec, tables, fold=None):
+        super().__init__(spec, tables, fold)
         self.d_in = spec.params["d_in"]
 
     def forward(self, v):
@@ -145,8 +188,8 @@ class _Conv(_Cmvm):
 
     span = "executor.conv"
 
-    def __init__(self, spec, tables):
-        super().__init__(spec, tables)
+    def __init__(self, spec, tables, fold=None):
+        super().__init__(spec, tables, fold)
         p = spec.params
         self.hwc = (p["h"], p["w"], p["cin"])
         self.kernel = (p["kh"], p["kw"])
@@ -225,9 +268,9 @@ class _Residual(_Step):
 
     span = "executor.residual"
 
-    def __init__(self, spec, tables):
+    def __init__(self, spec, tables, build):
         super().__init__()
-        self.body = nn.ModuleList(_build_step(s, tables) for s in spec.body or [])
+        self.body = build(spec.body or [], tables)
         self.register_buffer("sa", _int_row(spec.arrays["sa"]))
         self.register_buffer("sb", _int_row(spec.arrays["sb"]))
 
@@ -238,9 +281,9 @@ class _Residual(_Step):
 
 def _run_steps(steps: nn.ModuleList, v: torch.Tensor, device: torch.device) -> torch.Tensor:
     """Run ``steps`` in order on ``v``, each in its device span
-    (attributes: its index among ``steps`` and its table)."""
+    (attributes: its index among ``steps``, its table, its ``span_args``)."""
     for i, step in enumerate(steps):
-        with trace.span(step.span, device=device, step=i, table=step.table):
+        with trace.span(step.span, device=device, step=i, table=step.table, **step.span_args):
             v = step(v)
     return v
 
@@ -248,15 +291,68 @@ def _run_steps(steps: nn.ModuleList, v: torch.Tensor, device: torch.device) -> t
 def build_steps(specs: list[StepSpec], tables: list[AdderGraphTables]) -> nn.ModuleList:
     """The executable pipeline of a design, built on the CPU from its
     step specs and tables (move it with the design)."""
-    return nn.ModuleList(_build_step(s, tables) for s in specs)
+    return nn.ModuleList(_build_step(s, tables, build_steps) for s in specs)
 
 
-def _build_step(spec: StepSpec, tables: list[AdderGraphTables]) -> nn.Module:
+def plan_steps(specs: list[StepSpec], tables: list[AdderGraphTables]) -> nn.ModuleList:
+    """:func:`build_steps` with each CMVM step's elementwise successors
+    folded into its launch, the pipeline ``forward_int`` runs.
+
+    After a dense or conv step, the ReLU and requant steps up to the next
+    step of another kind than transpose, ReLU or requant are applied in
+    the launch's epilogue (``kernels.adder_graph.Epilogue``), with the
+    step's own shift and bias, as long as they come in its order: at most
+    one ReLU, then at most one requant.  A transpose between them stays
+    a step; the requant shifts after it are permuted back onto the
+    table's output layout.  The plan derives from the specs alone and
+    enters no artifact, so designs and their digests are unchanged; its
+    outputs equal :func:`build_steps`' bit for bit."""
+    steps, skip = [], set()
+    for i, spec in enumerate(specs):
+        if i in skip:
+            continue
+        fold = None
+        if spec.kind in ("dense", "conv"):
+            taken, fold = _fold_after(specs, i + 1, tables[spec.table].n_outputs)
+            skip.update(taken)
+        steps.append(_build_step(spec, tables, plan_steps, fold))
+    return nn.ModuleList(steps)
+
+
+def _fold_after(specs: list[StepSpec], start: int, n_out: int) -> tuple[list[int], _Fold]:
+    """The indices of the ReLU and requant steps from ``start`` that the
+    epilogue of a CMVM step with ``n_out`` outputs a row takes, and what
+    it applies."""
+    taken, fold, pos = [], _Fold(), None
+    for k in range(start, len(specs)):
+        s = specs[k]
+        if s.kind == "transpose":
+            shape = s.params["shape"]
+            # pos[i]: where the value now at flat index i sits in the table's outputs
+            base = np.arange(int(np.prod(shape))) if pos is None else pos
+            pos = base.reshape(shape).transpose(s.params["perm"]).reshape(-1)
+            continue
+        if s.kind == "relu" and not fold.relu and fold.d is None:
+            fold = fold._replace(relu=True)
+        elif s.kind == "requant" and fold.d is None:
+            d = np.asarray(s.arrays["d"], np.int64).reshape(-1)
+            if pos is not None:
+                d = d[np.argsort(pos)]
+            lo, hi = (min(max(s.params[b], INT32_MIN), INT32_MAX) for b in ("lo", "hi"))
+            fold = fold._replace(d=d.reshape(-1, n_out), lo=lo, hi=hi)
+        else:
+            break
+        taken.append(k)
+    return taken, fold
+
+
+def _build_step(spec: StepSpec, tables: list[AdderGraphTables], build,
+                fold: _Fold | None = None) -> nn.Module:
     kind = spec.kind
     if kind == "dense":
-        return _Dense(spec, tables)
+        return _Dense(spec, tables, fold)
     if kind == "conv":
-        return _Conv(spec, tables)
+        return _Conv(spec, tables, fold)
     if kind == "requant":
         return _Requant(spec)
     if kind == "transpose":
@@ -266,7 +362,7 @@ def _build_step(spec: StepSpec, tables: list[AdderGraphTables]) -> nn.Module:
     if kind in ("maxpool", "avgpool"):
         return _Pool(spec)
     if kind == "residual":
-        return _Residual(spec, tables)
+        return _Residual(spec, tables, build)
     raise ValueError(f"unknown step kind {kind!r}")
 
 
@@ -291,6 +387,7 @@ class CompiledDesign(nn.Module):
     built from; together with ``step_specs`` they are what an artifact
     stores.  ``use_pallas`` is the JAX package's kernel switch, carried
     through so that manifests round-trip; it selects nothing here.
+    ``steps`` is the folded pipeline (:func:`plan_steps`).
     """
 
     def __init__(
@@ -322,7 +419,7 @@ class CompiledDesign(nn.Module):
         self.solver_stats = dict(solver_stats or {})
         self.use_pallas = bool(use_pallas)
         self.config = config
-        self.steps = build_steps(step_specs, tables)
+        self.steps = plan_steps(step_specs, tables)
         exps = np.array([0 if q.is_zero else q.exp for q in out_qints], np.float64)
         self.register_buffer(
             "out_scale", torch.tensor(2.0**exps, dtype=torch.float32).reshape(self.out_shape)

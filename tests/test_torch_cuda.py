@@ -27,7 +27,12 @@ dispatch failing the numpy interpreter serves the golden outputs (every
 bucket captured at registration, so a capture that fails fails there);
 and a design the port compiled itself (jet_tagger, weights drawn on the
 card) runs each CMVM step through the kernel as ``DAISProgram.evaluate``
-computes it (exact).  A ``Deployment`` rolls a model from one version
+computes it (exact).  The kernel's epilogue (each table's shift, bias,
+ReLU and requant applied before the store) on both entry points, at
+tiles of 1 to 32 samples and a ragged last tile, equals the unfolded
+steps; an identity epilogue and none give the same outputs; the folded
+``forward_int``, eager and replayed in a graph, equals the unfolded
+steps on the CPU.  A ``Deployment`` rolls a model from one version
 to the next while v1 is in flight (every future its own version's
 output, v1's graphs released once drained); the co-sim gate's device
 leg runs all 34 programs of ``default_grid()`` on the kernel, bit-exact
@@ -83,9 +88,11 @@ from repro_torch import configs
 from repro_torch.chaos import FaultPlan, FaultRule, active
 from repro_torch.core import DAISProgram, QInterval, Term, cosim_grid
 from repro_torch.flow import CompileConfig, Flow, ServeConfig
-from repro_torch.kernels.adder_graph import adder_graph_apply, compile_tables
+from repro_torch.kernels.adder_graph import (Epilogue, adder_graph_apply, compile_tables,
+                                             epilogue_table)
 from repro_torch.kernels.adder_graph import kernel as ag_kernel
-from repro_torch.kernels.adder_graph.ref import adder_graph_ref
+from repro_torch.kernels.adder_graph.ops import INT32_MIN
+from repro_torch.kernels.adder_graph.ref import adder_graph_ref, epilogue_ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -220,6 +227,98 @@ def test_mixer_tables_match_plain_version_at_every_tile(card, batch):
     assert tiles
 
 
+def _epilogue(rng, n_out, rows, relu=True, lo=-50, hi=5000):
+    """A random epilogue (shifts past 32, a bias that wraps, requant shifts
+    of both signs varying by row) as (Epilogue on the CPU, its parts)."""
+    shift = rng.integers(0, 36, size=n_out)
+    bias = rng.integers(-2**31, 2**31, size=n_out)
+    bias[::3] = 2**31 - 1 - rng.integers(0, 8, size=bias[::3].shape)
+    d = rng.integers(-36, 36, size=(rows, n_out))
+    t = torch.from_numpy(epilogue_table(n_out, shift, bias, d))
+    ep = Epilogue(t, 0 if relu else INT32_MIN, lo, hi)
+    return ep, (shift, bias, d, relu, lo, hi)
+
+
+def _steps_by_hand(y, parts):
+    """The executor's unfolded steps on the kernel's outputs y [batch, n_out]:
+    shift and bias, ReLU, requant (as ``nn.compiler``'s step modules)."""
+    shift, bias, d, relu, lo, hi = parts
+    row = lambda a: torch.from_numpy(np.asarray(a).astype(np.int32)).reshape(1, -1)
+    y = (y << row(shift)) + row(bias)
+    if relu:
+        y = y.clamp(min=0)
+    rows = torch.arange(y.shape[0]) % d.shape[0]
+    dd = torch.from_numpy(d.astype(np.int32))[rows]
+    y = torch.where(dd > 0, y << dd.clamp(min=0), y >> (-dd).clamp(min=0))
+    return y.clamp(lo, hi)
+
+
+@pytest.mark.parametrize("batch", [1, 7, 300])
+@pytest.mark.parametrize("n_wide,entry", [(50_000, "shared"), (60_000, "global")])
+def test_epilogue_on_both_entry_points(card, n_wide, entry, batch):
+    """The output stage's epilogue on each entry point equals the plain
+    version's and the unfolded steps on the kernel's plain outputs."""
+    pt = compile_tables(_wide_program(n_wide, n_wide))
+    assert ag_kernel.plan_for(pt, batch, card).entry == entry
+    rng = np.random.default_rng(batch)
+    ep, parts = _epilogue(rng, pt.n_outputs, rows=3, relu=batch != 7)
+    x = rng.integers(-128, 128, size=(batch, 32)).astype(np.int32)
+    xd = torch.from_numpy(x).to(card)
+    got = ag_kernel.adder_graph_cuda(pt, xd, ep._replace(table=ep.table.to(card))).cpu()
+    plain = ag_kernel.adder_graph_cuda(pt, xd).cpu()
+    np.testing.assert_array_equal(got.numpy(), adder_graph_ref(pt, xd.cpu(), ep).numpy())
+    np.testing.assert_array_equal(got.numpy(), _steps_by_hand(plain, parts).numpy())
+
+
+@pytest.mark.parametrize("batch", [1, 255, 256, 4097])
+def test_epilogue_at_every_tile_on_the_mixer_tables(card, batch):
+    """Every Mixer table with an epilogue whose requant shifts vary over a
+    sample's rows (64 or 16), at batches whose plans take tiles of 1 to 32
+    samples and leave a ragged last tile; and the identity epilogue and
+    none give the same outputs."""
+    design = load_design(ASSETS / "mixer_full")
+    tiles = set()
+    for i, t in enumerate(design.tables):
+        rows = {16: 64, 64: 16}.get(t.n_inputs, 1)
+        plan = ag_kernel.plan_for(t, batch * rows, card)
+        tiles.add(plan.tile)
+        rng = np.random.default_rng(i)
+        ep, parts = _epilogue(rng, t.n_outputs, rows)
+        x = torch.from_numpy(rng.integers(-128, 256, size=(batch * rows, t.n_inputs))
+                             .astype(np.int32)).to(card)
+        got = adder_graph_apply(t, x, ep._replace(table=ep.table.to(card))).cpu()
+        plain = adder_graph_apply(t, x)
+        np.testing.assert_array_equal(got.numpy(), _steps_by_hand(plain.cpu(), parts).numpy())
+        ident = Epilogue(torch.from_numpy(epilogue_table(t.n_outputs)).to(card))
+        assert torch.equal(adder_graph_apply(t, x, ident), plain)
+        np.testing.assert_array_equal(plain.cpu().numpy(), adder_graph_ref(t, x.cpu()).numpy())
+    assert tiles
+
+
+@pytest.mark.parametrize("name", ["mixer_full", "svhn_cnn"])
+def test_folded_forward_eager_and_replayed_equal_the_unfolded_steps(card, name):
+    """``forward_int`` (the folded plan) on the card, eager and replayed in
+    a captured graph, against the unfolded steps on the CPU, at the grid's
+    extremes too; one launch a CMVM step."""
+    design = load_design(ASSETS / name)
+    q = design.in_quant.qint
+    x = np.random.default_rng(11).integers(q.lo, q.hi + 1, size=(1000, *design.in_shape))
+    x[0], x[1] = q.lo, q.hi
+    xc = torch.from_numpy(x.astype(np.int32))
+    steps = nn_compiler.build_steps(design.step_specs, design.tables)
+    want = nn_compiler._run_steps(steps, xc.reshape(1000, -1), torch.device("cpu")).numpy()
+    xd = xc.to(card)
+    before = ag_kernel.launches.value
+    eager = design.forward_int(xd).cpu().numpy().reshape(1000, -1)
+    assert ag_kernel.launches.value - before == count_cmvm_steps(design.step_specs)
+    graph = capture(lambda: design.forward_int(xd))
+    graph.replay()
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(eager, want)
+    np.testing.assert_array_equal(graph.output.cpu().numpy().reshape(1000, -1), want)
+    assert graph.launches_by_kernel() == {"adder_graph": count_cmvm_steps(design.step_specs)}
+
+
 def test_kernel_wrapper_rejects_what_it_does_not_take(card):
     pt = compile_tables(_random_program(0))
     with pytest.raises(TypeError, match="int32"):
@@ -245,8 +344,9 @@ def test_designs_reproduce_golden(card, name):
 def test_port_compiled_design_on_the_card(card, monkeypatch):
     """jet_tagger compiled by the port from its own random weights (drawn
     on the card): every CMVM step's kernel output equals
-    ``DAISProgram.evaluate`` of its program (int64, reduced mod 2^32), and
-    the whole ``forward_int`` the numpy interpreter's."""
+    ``DAISProgram.evaluate`` of its program (int64, reduced mod 2^32) with
+    the launch's epilogue applied, and the whole ``forward_int`` the numpy
+    interpreter's."""
     model, in_shape, in_quant = nn_models.jet_tagger()
     params, _ = nn_init_params(PRNGKey(0), model, in_shape, card)
     design = compile_model(model, params, in_shape, in_quant, config=CompileConfig(jobs=2),
@@ -254,9 +354,10 @@ def test_port_compiled_design_on_the_card(card, monkeypatch):
     assert design.device == card and design.solver_stats["verify"]["ok"]
     calls = []
 
-    def recording(tables, v):
-        y = adder_graph_apply(tables, v)
-        calls.append((design.tables.index(tables), v.cpu().numpy(), y.cpu().numpy()))
+    def recording(tables, v, epilogue=None):
+        y = adder_graph_apply(tables, v, epilogue)
+        ep = epilogue and epilogue._replace(table=epilogue.table.cpu())
+        calls.append((design.tables.index(tables), v.cpu().numpy(), y.cpu().numpy(), ep))
         return y
 
     monkeypatch.setattr(nn_compiler, "adder_graph_apply", recording)
@@ -265,9 +366,10 @@ def test_port_compiled_design_on_the_card(card, monkeypatch):
     before = ag_kernel.launches.value
     got = design.forward_int(torch.from_numpy(x).to(card)).cpu().numpy()
     assert ag_kernel.launches.value - before == count_cmvm_steps(design.step_specs) == len(calls)
-    for i, v, y in calls:
+    for i, v, y, ep in calls:
         want = DAISProgram.from_arrays(design.programs[i]).evaluate(v.astype(np.int64))
-        np.testing.assert_array_equal(y, want.astype(np.uint32).view(np.int32))
+        want = torch.from_numpy(want.astype(np.uint32).view(np.int32))
+        np.testing.assert_array_equal(y, (want if ep is None else epilogue_ref(want, ep)).numpy())
     np.testing.assert_array_equal(got, numpy_forward_fn(design)(x))
 
 

@@ -18,7 +18,7 @@ from repro.runtime import load_design as jax_load_design
 from repro_torch.core import DAISProgram, QInterval, Term
 from repro_torch.kernels.adder_graph import compile_tables
 from repro_torch.kernels.adder_graph.ref import adder_graph_ref
-from repro_torch.nn import adder_graph_numpy, build_numpy_steps, numpy_forward_fn
+from repro_torch.nn import adder_graph_numpy, build_numpy_steps, build_steps, numpy_forward_fn
 from repro_torch.runtime import load_design
 
 ASSETS = Path(__file__).resolve().parent.parent / "src" / "repro_torch" / "assets"
@@ -54,12 +54,13 @@ def test_interpreter_equals_forward_int(asset):
 
 
 def test_steps_one_by_one_equal_forward_int(asset):
-    """Each step of the interpreter against the port's step module."""
+    """Each step of the interpreter against the port's step module (the
+    unfolded steps: ``forward_int`` runs them folded, tests/test_torch_fold.py)."""
     _, x, _, design = asset
     v_np = x[:32].reshape(32, -1).astype(np.int32)
     v_t = torch.from_numpy(v_np.copy())
     for np_step, t_step in zip(build_numpy_steps(design.step_specs, design.tables),
-                               design.steps):
+                               build_steps(design.step_specs, design.tables), strict=True):
         v_np, v_t = np_step(v_np), t_step(v_t)
         np.testing.assert_array_equal(v_np, v_t.numpy())
 

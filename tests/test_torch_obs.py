@@ -3,7 +3,9 @@ telemetry cases of tests/test_obs.py: the tracer is a shared no-op when
 disabled and valid Chrome trace JSON when enabled (device spans on a
 track per device and stream, each event placed from the device's anchor
 and its outermost span, checked with fake events), the executor's spans
-come one a step under their parents with the outputs unchanged, spans
+come one a step of the folded plan under their parents, each CMVM span
+with the ``folded`` count of the steps its launch took, with the outputs
+unchanged, spans
 record while torch.profiler does, on its clock and outside its trace,
 the sharded metrics registry merges concurrent writers without losing a
 count, the flight
@@ -188,14 +190,15 @@ def mixer():
     return d, torch.from_numpy(x)
 
 
-def _step_spans(specs, parent):
-    """(name, parent's name, step, table) of the spans under ``parent``
-    in the order they close: a residual's body, then the step's own."""
+def _step_spans(steps, parent):
+    """(name, parent's name, step, table, folded) of the spans the folded
+    pipeline ``steps`` records under ``parent``, in the order they close:
+    a residual's body, then the step's own.  Which steps fold is
+    tests/test_torch_fold.py's to check."""
     out = []
-    for i, spec in enumerate(specs):
-        name = "executor." + {"maxpool": "pool", "avgpool": "pool"}.get(spec.kind, spec.kind)
-        out += _step_spans(spec.body or [], name)
-        out.append((name, parent, i, spec.table))
+    for i, step in enumerate(steps):
+        out += _step_spans(getattr(step, "body", []), step.span)
+        out.append((step.span, parent, i, step.table, step.span_args.get("folded")))
     return out
 
 
@@ -210,8 +213,12 @@ def test_forward_int_spans_each_step_under_its_parent(mixer):
     assert [s.name for s in items][-1] == "executor.forward"
     fwd = items[-1]
     assert fwd.parent is None and fwd.args == {"batch": 4}
-    seen = [(s.name, by_id[s.parent].name, s.args["step"], s.args["table"]) for s in items[:-1]]
-    assert seen == _step_spans(d.step_specs, "executor.forward")
+    seen = [(s.name, by_id[s.parent].name, s.args["step"], s.args["table"], s.args.get("folded"))
+            for s in items[:-1]]
+    assert seen == _step_spans(d.steps, "executor.forward")
+    # the Mixer's forward folds 18 of its 20 ReLU and requant steps: 27 launches, not 91
+    assert sum(s.args.get("folded", 0) for s in items) == 18
+    assert sum(s.name in ("executor.relu", "executor.requant") for s in items) == 2
     for s in items[:-1]:
         p = by_id[s.parent]
         assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns and s.device_start_ns is None
@@ -237,7 +244,7 @@ def test_spans_record_under_the_profiler_on_its_clock(mixer):
             d.forward_int(x)
             time.sleep(0.001)
     items, _ = trace.spans()
-    assert len(items) == 1 + len(_step_spans(d.step_specs, None))
+    assert len(items) == 1 + len(_step_spans(d.steps, None))
     events = list(prof.profiler.kineto_results.events())
     outer = next(e for e in events if e.name() == "outer")
     fwd = next(s for s in items if s.name == "executor.forward")
