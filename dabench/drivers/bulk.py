@@ -61,6 +61,8 @@ class Driver:
                 j = pending.popleft()
                 slot = j % self.in_flight
                 self.ends[slot].synchronize()
+                # the start is on another stream: the end's completion does not imply it
+                self.starts[slot].synchronize()
                 win.latency_ms.append(self.starts[slot].elapsed_time(self.ends[slot]))
                 on_done(j, self.host[slot])
                 win.completed += 1

@@ -16,6 +16,11 @@ states it):
 * a weight is rounded half to even onto its grid and saturated; a
   product-sum is exact, on the grid ``e_in + e_w``; a bias is rounded
   half up onto that grid;
+* a convolution is VALID, or SAME where its entry says ``"padding":
+  "same"``: per spatial axis of size ``n``, kernel ``k`` and stride ``s``,
+  ``max((ceil(n / s) - 1) * s + k - n, 0)`` zeros, ``total // 2`` before
+  and the rest after, so ``ceil(n / s)`` outputs; zero lies on every
+  grid, so padding rounds nothing;
 * ``relu`` clips at 0; with an ``out_quant`` it then floors onto the
   activation grid and saturates;
 * max pooling keeps the grid; average pooling over ``k`` cells (a power
@@ -37,6 +42,22 @@ import math
 
 import numpy as np
 import torch
+
+
+def padding(layer: dict) -> str:
+    """A ``conv2d`` entry's padding: ``"valid"`` (also where the entry
+    names none) or ``"same"``."""
+    pad = layer.get("padding", "valid")
+    if pad not in ("valid", "same"):
+        raise ValueError(f"unknown padding {pad!r}")
+    return pad
+
+
+def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
+    """Zeros before and after an axis of ``n`` for a SAME window of ``k``
+    at stride ``s``."""
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
 
 
 def grid(q: dict) -> tuple[int, int, int]:
@@ -158,10 +179,13 @@ class Reference:
 
     @staticmethod
     def _conv(v: torch.Tensor, w: torch.Tensor, layer: dict) -> torch.Tensor:
-        """VALID NHWC convolution with an HWIO kernel: one matrix product
-        per kernel offset, summed."""
+        """NHWC convolution with an HWIO kernel, VALID or SAME (zeros added
+        first): one matrix product per kernel offset, summed."""
         kh, kw = layer["kernel"]
         sh, sw = layer["strides"]
+        if padding(layer) == "same":
+            (top, bottom), (left, right) = same_pads(v.shape[1], kh, sh), same_pads(v.shape[2], kw, sw)
+            v = torch.nn.functional.pad(v, (0, 0, left, right, top, bottom))
         oh = (v.shape[1] - kh) // sh + 1
         ow = (v.shape[2] - kw) // sw + 1
         out = None

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import math
 
+from .reference import network
+
 # Published dense peaks of one card by ``torch.cuda.get_device_name()``
 # (NVIDIA's data sheet, SXM part, at its 700 W limit).
 PEAKS = {
@@ -25,8 +27,11 @@ def matrix_calls(config: dict) -> list[dict]:
     applies the matrix to and the matrix's shape (``n_in`` x ``n_out``).
 
     A dense layer applies its matrix to every vector along the last axis,
-    a dense layer on an axis to every vector along that axis, a VALID
-    convolution at every output position."""
+    a dense layer on an axis to every vector along that axis, a
+    convolution at every output position: ``(n - k) // s + 1`` of them
+    along an axis of ``n`` where it is VALID (also where its entry names
+    no ``padding``), ``ceil(n / s)`` where it is SAME, on the axis padded
+    as the plain reference pads it (``network.same_pads``)."""
     calls: list[dict] = []
 
     def walk(layers, shape):
@@ -42,6 +47,8 @@ def matrix_calls(config: dict) -> list[dict]:
                 shape = shape[:ax] + [layer["units"]] + shape[ax + 1:]
             elif kind == "conv2d":
                 (h, w, c), (kh, kw), (sh, sw) = shape, layer["kernel"], layer["strides"]
+                if network.padding(layer) == "same":
+                    h, w = h + sum(network.same_pads(h, kh, sh)), w + sum(network.same_pads(w, kw, sw))
                 oh, ow = (h - kh) // sh + 1, (w - kw) // sw + 1
                 calls.append({"rows": oh * ow, "n_in": kh * kw * c, "n_out": layer["filters"]})
                 shape = [oh, ow, layer["filters"]]
