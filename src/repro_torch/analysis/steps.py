@@ -418,31 +418,36 @@ def _step_conv(
         )
         flow.exact = False
         return
-    if oh != (h - kh) // sh + 1 or ow != (w - kw) // sw + 1:
+    pads = p.get("pads", [0, 0, 0, 0])
+    if len(pads) != 4 or min(pads) < 0:
+        rep.add("DA023", f"conv pads {pads} malformed", loc=loc, passname=_PASS)
+        flow.exact = False
+        return
+    top, bottom, left, right = pads
+    if oh != (h + top + bottom - kh) // sh + 1 or ow != (w + left + right - kw) // sw + 1:
         rep.add(
             "DA021",
             f"conv output grid ({oh},{ow}) inconsistent with "
-            f"shape/kernel/stride ({h},{w})/({kh},{kw})/({sh},{sw})",
+            f"shape/kernel/stride/pads ({h},{w})/({kh},{kw})/({sh},{sw})/{list(pads)}",
             loc=loc, passname=_PASS,
         )
         flow.exact = False
         return
     if not flow.exact:
         return
-    qarr = np.array(flow.qints, dtype=object).reshape(h, w, cin)
+    # the input with its zeros: a patch entry that reads one has 0 in its interval
+    zero = QInterval(0, 0, 0)
+    qarr = np.full((h + top + bottom, w + left + right, cin), zero, dtype=object)
+    qarr[top:top + h, left:left + w] = np.array(flow.qints, dtype=object).reshape(h, w, cin)
     qin = []
     for dy in range(kh):
         for dx in range(kw):
             for c in range(cin):
-                qin.append(
-                    _union(
-                        [
-                            qarr[i * sh + dy, j * sw + dx, c]
-                            for i in range(oh)
-                            for j in range(ow)
-                        ]
-                    )
-                )
+                qs = [qarr[i * sh + dy, j * sw + dx, c] for i in range(oh) for j in range(ow)]
+                q = _union([q for q in qs if q is not zero] or [zero])
+                if any(q is zero for q in qs) and not q.is_zero:
+                    q = QInterval(min(q.lo, 0), max(q.hi, 0), q.exp)
+                qin.append(q)
     out_q = _cmvm_core(s, qin, programs, w_cache, rep, loc)
     if out_q is None:
         flow.exact = False

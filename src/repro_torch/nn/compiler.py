@@ -71,6 +71,7 @@ from .layers import (
     ReLU,
     Residual,
     Sequential,
+    same_pads,
 )
 from .quant import QuantConfig
 
@@ -184,7 +185,11 @@ class _Dense(_Cmvm):
 
 
 class _Conv(_Cmvm):
-    """VALID convolution by im2col over NHWC activations."""
+    """Convolution by im2col over NHWC activations, from the input with
+    its SAME zeros added where the spec has ``pads`` (VALID where not).
+
+    Its span also carries ``unfold_cells``, the cells a sample that the
+    unfold writes, and ``pad_cells``, how many of them are padding."""
 
     span = "executor.conv"
 
@@ -195,10 +200,15 @@ class _Conv(_Cmvm):
         self.kernel = (p["kh"], p["kw"])
         self.stride = (p["sh"], p["sw"])
         self.out_hw = (p["oh"], p["ow"])
+        self.pads = tuple(p.get("pads", (0, 0, 0, 0)))  # top, bottom, left, right
+        self.span_args = {**self.span_args, **conv_cells(p)}
 
     def forward(self, v):
         (kh, kw), (sh, sw), (oh, ow) = self.kernel, self.stride, self.out_hw
         x = v.reshape(-1, *self.hwc)
+        if any(self.pads):
+            top, bottom, left, right = self.pads
+            x = torch.nn.functional.pad(x, (0, 0, left, right, top, bottom))
         patches = [
             x[:, dy : dy + sh * (oh - 1) + 1 : sh, dx : dx + sw * (ow - 1) + 1 : sw, :]
             for dy in range(kh)
@@ -1179,34 +1189,64 @@ def _compile_avgpool(spec: AvgPool2D, shape, qints):
     return _pool_spec("avgpool", h, w, c, ph, pw), (oh, ow, c), new
 
 
+def conv_cells(p: dict) -> dict:
+    """The cells a sample that a conv step's unfold writes
+    (``unfold_cells``) and how many of them are padding (``pad_cells``),
+    from its spec's params."""
+    top, bottom, left, right = p.get("pads", (0, 0, 0, 0))
+    kh, kw, sh, sw, oh, ow = (p[k] for k in ("kh", "kw", "sh", "sw", "oh", "ow"))
+
+    def inside(n, k, s, o, before):
+        # the (output, offset) pairs along one axis that read the input, not a zero
+        return sum(before <= i * s + d < before + n for i in range(o) for d in range(k))
+
+    rows = inside(p["h"], kh, sh, oh, top)
+    cols = inside(p["w"], kw, sw, ow, left)
+    cells = oh * ow * kh * kw
+    return {"unfold_cells": cells * p["cin"], "pad_cells": (cells - rows * cols) * p["cin"]}
+
+
 def _compile_conv(spec: QConv2D, p, shape, qints, ctx):
-    """Conv2D via im2col + shared CMVM (kernel reused spatially)."""
+    """Conv2D via im2col + shared CMVM (kernel reused spatially).  SAME
+    pads the input with zeros (:func:`same_pads`); a patch entry that
+    reads a zero at some position has the zero in its interval."""
     h, w, cin = shape
     kh, kw = spec.kernel
     sh, sw = spec.strides
-    assert spec.padding == "VALID", "compile path supports VALID convs"
-    oh = (h - kh) // sh + 1
-    ow = (w - kw) // sw + 1
+    if spec.padding == "VALID":
+        (top, bottom), (left, right) = (0, 0), (0, 0)
+    elif spec.padding == "SAME":
+        (top, bottom), (left, right) = same_pads(h, kh, sh), same_pads(w, kw, sw)
+    else:
+        raise ValueError(f"unknown conv padding {spec.padding!r}")
+    oh = (h + top + bottom - kh) // sh + 1
+    ow = (w + left + right - kw) // sw + 1
 
     qarr = np.array(qints, dtype=object).reshape(h, w, cin)
     patch_qints = []
     for dy in range(kh):
+        rows = [i * sh + dy - top for i in range(oh)]
         for dx in range(kw):
+            cols = [j * sw + dx - left for j in range(ow)]
+            pos = [(r, c) for r in rows for c in cols if 0 <= r < h and 0 <= c < w]
+            zero = len(pos) < oh * ow
             for ch in range(cin):
-                qs = [qarr[i * sh + dy, j * sw + dx, ch] for i in range(oh) for j in range(ow)]
-                patch_qints.append(_union_all(qs))
+                qs = [qarr[r, c, ch] for r, c in pos] or [QInterval(0, 0, 0)]
+                q = _union_all(qs)
+                if zero and not q.is_zero:
+                    q = QInterval(min(q.lo, 0), max(q.hi, 0), q.exp)
+                patch_qints.append(q)
 
     wmat = _host(p["w"]).reshape(kh * kw * cin, spec.filters)
     b = _host(p["b"]) if spec.use_bias else None
     (table, arrays), out_q = _cmvm("conv", wmat, b, spec.w_quant, patch_qints, ctx)
-    s = StepSpec(
-        "conv",
-        params={
-            "h": h, "w": w, "cin": cin, "kh": kh, "kw": kw,
-            "sh": sh, "sw": sw, "oh": oh, "ow": ow,
-            "wscale": int(spec.w_quant.scale_exp()),
-        },
-        arrays=arrays,
-        table=table,
-    )
+    params = {
+        "h": h, "w": w, "cin": cin, "kh": kh, "kw": kw,
+        "sh": sh, "sw": sw, "oh": oh, "ow": ow,
+        "wscale": int(spec.w_quant.scale_exp()),
+    }
+    if top or bottom or left or right:
+        # only here: a VALID design's specs stay those of the JAX package
+        params["pads"] = [top, bottom, left, right]
+    s = StepSpec("conv", params=params, arrays=arrays, table=table)
     return s, (oh, ow, spec.filters), list(out_q) * (oh * ow)

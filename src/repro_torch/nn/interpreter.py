@@ -94,9 +94,11 @@ def _build_numpy_step(spec, tables) -> Callable[[np.ndarray], np.ndarray]:
         h, w, cin = p["h"], p["w"], p["cin"]
         kh, kw, sh, sw = p["kh"], p["kw"], p["sh"], p["sw"]
         oh, ow = p["oh"], p["ow"]
+        top, bottom, left, right = p.get("pads", (0, 0, 0, 0))
+        pads = ((0, 0), (top, bottom), (left, right), (0, 0))
 
-        def step(v, h=h, w=w, cin=cin, kh=kh, kw=kw, sh=sh, sw=sw, oh=oh, ow=ow, f=f):
-            x = v.reshape(-1, h, w, cin)
+        def step(v, h=h, w=w, cin=cin, kh=kh, kw=kw, sh=sh, sw=sw, oh=oh, ow=ow, f=f, pads=pads):
+            x = np.pad(v.reshape(-1, h, w, cin), pads)
             patches = [
                 x[:, dy : dy + sh * (oh - 1) + 1 : sh, dx : dx + sw * (ow - 1) + 1 : sw, :]
                 for dy in range(kh)

@@ -298,15 +298,20 @@ def apply_model(
     return x
 
 
+def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
+    """Zeros before and after an axis of ``n`` for a SAME window of ``k``
+    at stride ``s``, by the JAX package's rule: ``ceil(n / s)`` outputs,
+    ``total // 2`` zeros before and the rest after."""
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
 def _conv_nhwc(x: torch.Tensor, w: torch.Tensor, spec: QConv2D) -> torch.Tensor:
     """NHWC x HWIO convolution with the JAX package's VALID / SAME padding
-    (SAME pads ``total // 2`` before and the rest after)."""
+    (:func:`same_pads`)."""
     xc = x.permute(0, 3, 1, 2)
     if spec.padding != "VALID":
-        pads = []
-        for n, k, s in zip(xc.shape[2:], spec.kernel, spec.strides):
-            total = max((-(-n // s) - 1) * s + k - n, 0)
-            pads.append((total // 2, total - total // 2))
+        pads = [same_pads(n, k, s) for n, k, s in zip(xc.shape[2:], spec.kernel, spec.strides)]
         xc = F.pad(xc, (*pads[1], *pads[0]))
     y = F.conv2d(xc, w.permute(3, 2, 0, 1), stride=tuple(spec.strides))
     return y.permute(0, 2, 3, 1)

@@ -8,7 +8,9 @@ benchmark harness reproduces.
   jet_tagger      §6.2.1: high-level-feature jet tagging MLP,
                   16 -> 64 -> 32 -> 16 -> 16 -> 5 dense + ReLU.
   svhn_cnn        §6.2.2: LeNet-like SVHN classifier [3, 16]:
-                  conv16-pool-conv16-pool-conv24-pool-dense42-dense64-dense10.
+                  conv16-pool-conv16-pool-conv24-pool-dense42-dense64-dense10,
+                  VALID on a 30x30 crop; svhn_cnn_32 the same with SAME
+                  convolutions on the published 32x32 frame.
   muon_tracker    §6.2.3: multi-stage dense network (binary inputs,
                   structured sparsity approximated by plain dense stages).
   mlp_mixer_jet   §6.2.4 [49]: 4 MLP blocks alternating feature-mix /
@@ -55,24 +57,35 @@ def jet_tagger(w_bits: int = 6, a_bits: int = 8):
     return model, (16,), in_quant
 
 
-def svhn_cnn(w_bits: int = 6, a_bits: int = 8):
-    """LeNet-like SVHN classifier (paper Fig. 8).
-
-    VALID convolutions, so the 32x32 SVHN frame is center-cropped to
-    30x30 (the standard hls4ml variant uses SAME padding; resource
-    counts are equivalent — the CMVM kernels are identical)."""
+def _svhn_layers(w_bits: int, a_bits: int, padding: str):
     wq, aq = _wq(w_bits), _act(a_bits)
-    model = (
-        QConv2D(16, (3, 3), w_quant=wq), ReLU(aq), MaxPool2D((2, 2)),
-        QConv2D(16, (3, 3), w_quant=wq), ReLU(aq), MaxPool2D((2, 2)),
-        QConv2D(24, (3, 3), w_quant=wq), ReLU(aq), AvgPool2D((2, 2)),
+    return (
+        QConv2D(16, (3, 3), padding=padding, w_quant=wq), ReLU(aq), MaxPool2D((2, 2)),
+        QConv2D(16, (3, 3), padding=padding, w_quant=wq), ReLU(aq), MaxPool2D((2, 2)),
+        QConv2D(24, (3, 3), padding=padding, w_quant=wq), ReLU(aq), AvgPool2D((2, 2)),
         Flatten(),
         QDense(42, wq), ReLU(aq),
         QDense(64, wq), ReLU(aq),
         QDense(10, wq),
     )
+
+
+def svhn_cnn(w_bits: int = 6, a_bits: int = 8):
+    """LeNet-like SVHN classifier (paper Fig. 8).
+
+    VALID convolutions, so the 32x32 SVHN frame is center-cropped to
+    30x30 (the standard hls4ml variant uses SAME padding at the full
+    frame: :func:`svhn_cnn_32`)."""
     in_quant = QuantConfig(8, 1, signed=False)  # pixel intensities [0,1)
-    return model, (30, 30, 3), in_quant
+    return _svhn_layers(w_bits, a_bits, "VALID"), (30, 30, 3), in_quant
+
+
+def svhn_cnn_32(w_bits: int = 6, a_bits: int = 8):
+    """The same classifier at the published 32x32x3 frame with SAME 3x3
+    convolutions (zeros ``total // 2`` before, the rest after): 32x32,
+    16x16 and 8x8 positions, so the dense head takes 4x4x24 = 384."""
+    in_quant = QuantConfig(8, 1, signed=False)
+    return _svhn_layers(w_bits, a_bits, "SAME"), (32, 32, 3), in_quant
 
 
 def muon_tracker(w_bits: int = 6, a_bits: int = 8, d_in: int = 64):
